@@ -1,0 +1,37 @@
+"""Population <-> moment transforms as 19x19 contractions.
+
+Reference: the hand-unrolled ``moments()`` / ``populations()``
+(``LBM_d3q19.H:100-156`` / ``:167-247``).  Every contraction runs in
+full float32: on a CUDA tensor it refuses to run while TF32 matmuls are
+allowed (``torch.backends.cuda.matmul.allow_tf32``), because TF32 keeps
+about three decimal digits and the moments -> populations round trip
+would then break mass conservation and kBT ~ 1e-5 noise statistics (the
+JAX package pins ``Precision.HIGHEST`` for the same reason).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..lattice import M, M_INV
+
+
+def contract(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """sum_j mat[k, j] x[j, ...] in x's dtype, without TF32."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "float32 contractions need full precision: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+    m = torch.as_tensor(mat, dtype=x.dtype, device=x.device)
+    return torch.tensordot(m, x, dims=([1], [0]))
+
+
+def moments(f: torch.Tensor) -> torch.Tensor:
+    """m_k = sum_i M[k,i] f_i over the leading population axis."""
+    return contract(M, f)
+
+
+def populations(m: torch.Tensor) -> torch.Tensor:
+    """f_i = sum_k M_INV[i,k] m_k over the leading moment axis."""
+    return contract(M_INV, m)

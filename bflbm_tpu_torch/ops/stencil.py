@@ -1,0 +1,51 @@
+"""Isotropic 19-point lattice gradient (``LBM_binary.H:134-150``) as
+compositions of periodic ``torch.roll`` shifts."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..lattice import C, CS2, W
+
+# +- direction pairs (i, j) with c_j = -c_i, skipping the rest velocity.
+_PAIRS: Tuple[Tuple[int, int], ...] = tuple(
+    (i, int(np.argwhere((C == -C[i]).all(axis=1))[0, 0]))
+    for i in range(1, 19)
+    if C[i][np.argmax(C[i] != 0)] > 0
+)
+
+
+def shift(field: torch.Tensor, cvec, dims=(-3, -2, -1)) -> torch.Tensor:
+    """field evaluated at x + cvec (periodic)."""
+    sh = [int(-c) for c in cvec]
+    ax = [a for a, s in zip(dims, sh) if s != 0]
+    sh = [s for s in sh if s != 0]
+    if not sh:
+        return field
+    return torch.roll(field, sh, ax)
+
+
+def pseudopotential(field: torch.Tensor, use_sc: bool,
+                    ref_density: float) -> torch.Tensor:
+    """Shan-Chen pseudopotential transform (LBM_binary.H:141)."""
+    if not use_sc:
+        return field
+    return ref_density * (1.0 - torch.exp(-field / ref_density))
+
+
+def gradient(field: torch.Tensor, use_sc: bool = False,
+             ref_density: float = 1.0, dims=(-3, -2, -1)) -> torch.Tensor:
+    """grad_d psi(x) = (1/cs^2) sum_i w_i psi(x + c_i) c_{i,d}, as 9
+    antisymmetric pair differences; returns (3, *field.shape)."""
+    psi = pseudopotential(field, use_sc, ref_density)
+    out = [torch.zeros_like(field) for _ in range(3)]
+    for i, j in _PAIRS:
+        diff = shift(psi, C[i], dims) - shift(psi, C[j], dims)
+        coeff = float(W[i] / CS2)
+        for d in range(3):
+            if C[i, d] != 0:
+                out[d] = out[d] + (coeff * float(C[i, d])) * diff
+    return torch.stack(out)
