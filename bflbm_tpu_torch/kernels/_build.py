@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` into a shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The build happens at first use, into
-``build/bflbm_tpu_torch/`` beside the package, and is cached by a hash of
-the sources and flags.  ``-Xptxas -v`` output (registers, spills) is kept
-in a ``.log`` beside the library.
+``nvcc`` compiles each ``csrc/<name>.cu`` into its own shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds).  The builds happen at first use, all sources at
+once in parallel, into ``build/bflbm_tpu_torch/`` beside the package, and
+are cached by a hash of the source, the shared headers and the flags.
+``-Xptxas -v`` output (registers, spills) is kept in a ``.log`` beside
+each library.
+
+Every library exports ``bflbm_set_tables(device, c, minv, gw)``, which
+fills its ``__constant__`` lattice tables, and ``bflbm_error_string``.
 """
 
 from __future__ import annotations
@@ -16,35 +20,36 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List
 
 import numpy as np
 
-from ..lattice import C, M_INV
+from ..lattice import C, CS2, M_INV, W
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_step.cu",)
+SOURCES = ("fused_step", "density_psi")   # csrc/<name>.cu, one library each
+_HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib: Optional[ctypes.CDLL] = None
-_tables_set = set()   # device indices whose __constant__ tables are filled
+_libs: Dict[str, ctypes.CDLL] = {}
+_tables_set = set()   # (name, device index) whose tables are filled
 
 
 def build_dir() -> Path:
     return Path(__file__).resolve().parents[2] / "build" / "bflbm_tpu_torch"
 
 
-def source_hash() -> str:
+def source_hash(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+    for part in (f"{name}.cu",) + _HEADERS:
+        h.update(part.encode())
+        h.update((_CSRC / part).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return build_dir() / f"libfused_step.{source_hash()}.so"
+def library_path(name: str) -> Path:
+    return build_dir() / f"lib{name}.{source_hash(name)}.so"
 
 
 def _nvcc() -> str:
@@ -60,59 +65,85 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    so = library_path()
-    if so.exists():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)
-    return so
+def build() -> Dict[str, Path]:
+    """Compile every kernel library whose sources changed, one ``nvcc``
+    per source, all started together."""
+    todo = {}
+    for name in SOURCES:
+        so = library_path(name)
+        if not so.exists():
+            so.parent.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(_CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            todo[name] = (so, tmp, cmd, proc)
+    failed = []
+    for name, (so, tmp, cmd, proc) in todo.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {name}:\n"
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        so.with_suffix(".log").write_text(out)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in SOURCES}
 
 
 def ptxas_summary() -> List[str]:
-    """The ``-Xptxas -v`` register / spill lines of the current build."""
-    log = library_path().with_suffix(".log")
-    if not log.exists():
-        return []
-    return [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    """The ``-Xptxas -v`` register / spill lines of the current builds."""
+    out = []
+    for name in SOURCES:
+        log = library_path(name).with_suffix(".log")
+        if log.exists():
+            out += [f"{name}: {ln.strip()}"
+                    for ln in log.read_text().splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]
+    return out
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bflbm_set_tables.argtypes = [i, p, p]
+    lib.bflbm_set_tables.argtypes = [i, p, p, p]
     lib.bflbm_set_tables.restype = i
-    lib.bflbm_fused_step.argtypes = [i, p, p, p, p, i, i, i, i, i,
-                                     f, f, f, i, p, p]
-    lib.bflbm_fused_step.restype = i
     lib.bflbm_error_string.argtypes = [i]
     lib.bflbm_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "bflbm_fused_step"):
+        lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
+                                         f, f, f, i, i, p, f, f, f, p]
+        lib.bflbm_fused_step.restype = i
+    if hasattr(lib, "bflbm_density_psi"):
+        lib.bflbm_density_psi.argtypes = [i, p, p, p, i, i, i, i, f, p]
+        lib.bflbm_density_psi.restype = i
 
 
-def load(device) -> ctypes.CDLL:
-    """The kernel library, built if needed, with the lattice tables
-    (C, M_INV) filled into the device's __constant__ memory."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        _declare(lib)
-        _lib = lib
+def load(name: str, device) -> ctypes.CDLL:
+    """Kernel library `name`, built if needed (with all the others), with
+    the lattice tables (C, M_INV, w / cs^2) filled into the device's
+    __constant__ memory."""
+    if name not in SOURCES:
+        raise ValueError(f"unknown kernel library {name!r}")
+    if name not in _libs:
+        paths = build()
+        for n, so in paths.items():
+            if n not in _libs:
+                lib = ctypes.CDLL(str(so))
+                _declare(lib)
+                _libs[n] = lib
+    lib = _libs[name]
     idx = device.index if device.index is not None else 0
-    if idx not in _tables_set:
+    if (name, idx) not in _tables_set:
         c = np.ascontiguousarray(C, dtype=np.int32)
         minv = np.ascontiguousarray(M_INV, dtype=np.float32)
-        rc = _lib.bflbm_set_tables(idx, c.ctypes.data, minv.ctypes.data)
+        gw = np.ascontiguousarray(W / CS2, dtype=np.float32)
+        rc = lib.bflbm_set_tables(idx, c.ctypes.data, minv.ctypes.data,
+                                  gw.ctypes.data)
         if rc != 0:
-            raise RuntimeError("setting the kernel tables failed: "
-                               + _lib.bflbm_error_string(rc).decode())
-        _tables_set.add(idx)
-    return _lib
+            raise RuntimeError(f"setting the {name} kernel tables failed: "
+                               + lib.bflbm_error_string(rc).decode())
+        _tables_set.add((name, idx))
+    return lib

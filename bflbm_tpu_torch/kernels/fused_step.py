@@ -5,11 +5,17 @@ state labeled ``step == k`` streams to the standard post-stream state of
 step k, and one K (pull stream, then the step-k collide with the noise
 keyed by (word_k, k)) advances it to label k + 1.
 
-:func:`fused_stream_collide` launches the hand-written CUDA kernel
-``csrc/fused_step.cu`` on CUDA tensors and runs its plain PyTorch version
-:func:`k_step_reference` on CPU tensors.  The kernel covers the main
-path's mode: alpha0 = alpha1 = 0, tau_f = tau_g = 1/2, kBT = 0 or the
-hash stream with u8 deviates.
+:func:`fused_stream_collide` launches the hand-written CUDA kernels on
+CUDA tensors and runs their plain PyTorch versions on CPU tensors.  The
+kernels cover exact relaxation (tau_f = tau_g = 1/2) with alpha1 = 0,
+kBT = 0 or the hash stream with u8 or clt4 deviates:
+
+- uncoupled (alpha0 = 0): one launch of ``csrc/fused_step.cu``
+  (:func:`launch_k`, plain version :func:`k_step_reference`);
+- coupled (alpha0 != 0): the density pre-pass ``csrc/density_psi.cu``
+  (:func:`density_psi`, plain version :func:`density_psi_reference`)
+  writes psi of the streamed densities, then the K kernel reads its
+  neighbours' psi for the Shan-Chen force.
 
 The noise bits are those of the JAX package's coordinate-keyed hash
 stream (``bflbm_tpu/kernels/fused_step.py:hash_words``): two rounds of
@@ -38,6 +44,7 @@ from ..lattice import B, CS2, Q
 from ..ops import collide as collide_ops
 from ..ops import hydro as hydro_ops
 from ..ops import noise as noise_ops
+from ..ops import stencil as stencil_ops
 from ..ops import stream as stream_ops
 from ..state import SimState, draw_words
 
@@ -59,6 +66,10 @@ _U8_OFF = float(-127.5 / np.sqrt(_U8_VAR))
 _CLT4_VAR = 4.0 * (65536.0 - 1.0) / 12.0
 _CLT4_SCALE = float(1.0 / np.sqrt(_CLT4_VAR))
 _CLT4_OFF = float(-510.0 / np.sqrt(_CLT4_VAR))
+
+# The generators the kernel runs: name -> (kernel code, scale, offset).
+NOISE_DISTS = {"u8": (0, _U8_SCALE, _U8_OFF),
+               "clt4": (1, _CLT4_SCALE, _CLT4_OFF)}
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -105,85 +116,228 @@ def clt4_normal(w: torch.Tensor, dtype) -> torch.Tensor:
     return s.to(dtype) * _CLT4_SCALE + _CLT4_OFF
 
 
+def check_noise_dist(noise_dist: str) -> None:
+    """Raise for a generator the kernels do not run."""
+    if noise_dist not in NOISE_DISTS:
+        raise NotImplementedError(
+            f"noise_dist={noise_dist!r} is not ported yet (ROADMAP Queue 2, "
+            f"K3); the kernels run {sorted(NOISE_DISTS)}")
+
+
 # ---------------------------------------------------------------------------
-# One K step: plain version and kernel wrapper.
+# Plain versions of the kernels.
 # ---------------------------------------------------------------------------
 
 def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
-                     params: LBMParams) -> Tuple[torch.Tensor, torch.Tensor]:
+                     params: LBMParams, noise_dist: str = "u8"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K = collide∘stream of a post-collide state:
-    stream -> hydrovars_bar -> hash-u8 noise (word, step) -> hydrovars ->
-    collide."""
+    stream -> hydrovars_bar -> hash noise (word, step) -> hydrovars (with
+    the Shan-Chen force when alpha0 != 0) -> collide."""
+    check_noise_dist(noise_dist)
     fs = stream_ops.stream(f)
     gs = stream_ops.stream(g)
     hbar = hydro_ops.hydrovars_bar(fs, gs, params)
     xi_f, xi_g = noise_ops.thermal_noise_hash(word, step, hbar.rho, hbar.phi,
-                                              params)
+                                              params, noise_dist)
     h = hydro_ops.hydrovars(fs, gs, xi_f, xi_g, params, hbar)
     return collide_ops.collide(fs, gs, h, xi_f, xi_g, params)
 
 
-# Kernel launches made by fused_stream_collide (CUDA tensors only).
+def density_psi_reference(f: torch.Tensor, g: torch.Tensor,
+                          params: LBMParams) -> torch.Tensor:
+    """Plain density pre-pass: (psi(rho_s), psi(phi_s)) of the streamed
+    state, a (2, X, Y, Z) tensor."""
+    rho = stream_ops.stream(f).sum(dim=0)
+    phi = stream_ops.stream(g).sum(dim=0)
+    return torch.stack([
+        stencil_ops.pseudopotential(n, params.use_sc_pseudo,
+                                    params.sc_ref_density)
+        for n in (rho, phi)])
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+# Launches of the K kernel (launch_k) and of the density pre-pass
+# (density_psi), on CUDA tensors only.
 launches = 0
+density_launches = 0
 
 
 def unsupported_reason(params: LBMParams) -> Optional[str]:
-    """Why the CUDA kernel cannot run this configuration, or None."""
-    if params.alpha0 != 0.0 or params.alpha1 != 0.0:
-        return ("alpha0/alpha1 != 0 needs the coupled kernel "
-                "(ROADMAP Queue 1 items 8-9, K1b/K1c)")
+    """Why the CUDA kernels cannot run this configuration, or None."""
+    if params.alpha1 != 0.0:
+        return ("alpha1 != 0 needs the square-gradient kernel "
+                "(ROADMAP Queue 1 item 9, K1c)")
     if params.tau_f != 0.5 or params.tau_g != 0.5:
         return "tau != 1/2 needs the general-tau kernel (ROADMAP K1d)"
-    if params.use_sc_pseudo:
-        return "the pseudopotential enters only the coupled kernel (K1b)"
     return None
 
 
+def is_coupled(params: LBMParams) -> bool:
+    """The Shan-Chen force is on: K needs the density pre-pass."""
+    return params.alpha0 != 0.0
+
+
 @functools.lru_cache(maxsize=16)
-def _noise_coef(kBT: float, lam_f: float, lam_g: float) -> Tuple[float, ...]:
-    """[pref_mom, cf(a=4..18), cg(a=4..18), u8 scale, u8 offset]."""
+def _noise_coef(kBT: float, lam_f: float, lam_g: float,
+                noise_dist: str) -> Tuple[float, ...]:
+    """[pref_mom, cf(a=4..18), cg(a=4..18), deviate scale, offset]."""
     pref_f = 2.0 * (lam_f - 0.5 * lam_f * lam_f) * kBT
     pref_g = 2.0 * (lam_g - 0.5 * lam_g * lam_g) * kBT
     cf = [float(np.sqrt(pref_f / CS2 * B[a])) for a in range(4, Q)]
     cg = [float(np.sqrt(pref_g / CS2 * B[a])) for a in range(4, Q)]
-    return tuple([pref_f] + cf + cg + [_U8_SCALE, _U8_OFF])
+    _, scale, off = NOISE_DISTS[noise_dist]
+    return tuple([pref_f] + cf + cg + [scale, off])
 
 
 def _as_i32(v: int) -> int:
     return ((int(v) + 2 ** 31) % 2 ** 32) - 2 ** 31
 
 
-def _check_pops(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+def _check_field(name: str, t: torch.Tensor, like: torch.Tensor,
+                 lead: int) -> None:
+    """t is a contiguous float32 (lead, X, Y, Z) tensor on like's device,
+    with like's (X, Y, Z)."""
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, f on {like.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.shape != like.shape or t.dim() != 4 or t.shape[0] != Q:
-        raise ValueError(f"{name} must have shape (19, X, Y, Z) like f, "
-                         f"got {tuple(t.shape)}")
+    if t.dim() != 4 or t.shape[0] != lead or t.shape[1:] != like.shape[1:]:
+        raise ValueError(f"{name} must have shape ({lead}, X, Y, Z) with f's "
+                         f"X, Y, Z, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_no_alias(name: str, t: torch.Tensor, inputs) -> None:
+    if any(t.data_ptr() == i.data_ptr() for i in inputs):
+        raise ValueError(f"{name} aliases an input: the pull stream "
+                         "cannot run in place")
+
+
+def _grid_dims(f: torch.Tensor) -> Tuple[int, int, int]:
+    X, Y, Z = (int(s) for s in f.shape[1:])
+    if X > 65535 or Y > 65535:
+        raise ValueError(f"X and Y must be <= 65535 (grid limits), got "
+                         f"{(X, Y)}")
+    return X, Y, Z
+
+
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.bflbm_error_string(rc).decode())
+
+
+def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """psi of the streamed densities of the post-collide pair (f, g), a
+    (2, X, Y, Z) tensor (written into `out` when given; it must not
+    alias f or g).
+
+    CPU tensors run :func:`density_psi_reference`.  CUDA tensors launch
+    ``csrc/density_psi.cu`` or raise."""
+    global density_launches
+    if g.device != f.device:
+        raise ValueError(f"g is on {g.device}, f on {f.device}")
+    if f.device.type == "cpu":
+        ref = density_psi_reference(f, g, params)
+        if out is None:
+            return ref
+        return out.copy_(ref)
+    if f.device.type != "cuda":
+        raise ValueError(f"no density pre-pass for device {f.device}")
+    _check_field("f", f, f, Q)
+    _check_field("g", g, f, Q)
+    if out is None:
+        out = torch.empty((2,) + tuple(f.shape[1:]), dtype=f.dtype,
+                          device=f.device)
+    _check_field("psi", out, f, 2)
+    _check_no_alias("psi", out, (f, g))
+    X, Y, Z = _grid_dims(f)
+    from . import _build
+
+    lib = _build.load("density_psi", f.device)
+    rc = lib.bflbm_density_psi(
+        f.device.index, f.data_ptr(), g.data_ptr(), out.data_ptr(), X, Y, Z,
+        int(params.use_sc_pseudo), float(params.sc_ref_density),
+        torch.cuda.current_stream(f.device).cuda_stream)
+    _raise_on(rc, lib, "density_psi")
+    density_launches += 1
+    return out
 
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
+def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
+             params: LBMParams, out: Pair, psi: Optional[torch.Tensor],
+             noise_dist: str = "u8") -> Pair:
+    """Launch the K kernel on CUDA tensors: f, g -> out.  psi: the
+    pre-pass output of (f, g) for a coupled configuration, None for an
+    uncoupled one.  Raises for what the kernel does not take."""
+    global launches
+    reason = unsupported_reason(params)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    check_noise_dist(noise_dist)
+    if f.device.type != "cuda":
+        raise ValueError(f"the K kernel runs on CUDA tensors, not {f.device}")
+    _check_field("f", f, f, Q)
+    _check_field("g", g, f, Q)
+    for name, t in zip(("out[0]", "out[1]"), out):
+        _check_field(name, t, f, Q)
+        _check_no_alias(name, t, (f, g))
+    if is_coupled(params) != (psi is not None):
+        raise ValueError("psi must be given exactly when alpha0 != 0")
+    if psi is not None:
+        _check_field("psi", psi, f, 2)
+        _check_no_alias("psi", psi, (f, g) + tuple(out))
+    X, Y, Z = _grid_dims(f)
+    from . import _build
+
+    lib = _build.load("fused_step", f.device)
+    coef = (ctypes.c_float * 33)(*_noise_coef(
+        float(params.kBT), params.lam_f, params.lam_g, noise_dist))
+    rc = lib.bflbm_fused_step(
+        f.device.index, f.data_ptr(), g.data_ptr(),
+        None if psi is None else psi.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
+        _as_i32(word), _as_i32(step), params.div_eps,
+        0.5 * params.lam_f, 0.5 * params.lam_g, int(params.noise_on),
+        NOISE_DISTS[noise_dist][0], coef, -CS2 * params.alpha0,
+        1.0 / (1.0 + 1.0 / (2.0 * params.tau_f)),
+        1.0 / (1.0 + 1.0 / (2.0 * params.tau_g)),
+        torch.cuda.current_stream(f.device).cuda_stream)
+    _raise_on(rc, lib, "fused_step")
+    launches += 1
+    return out
+
+
 def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
                          step: int, params: LBMParams,
-                         out: Optional[Pair] = None) -> Pair:
+                         out: Optional[Pair] = None, *,
+                         noise_dist: str = "u8",
+                         psi: Optional[torch.Tensor] = None) -> Pair:
     """One K step of the post-collide pair (f, g) with noise word `word`
     at step label `step`; returns the new pair (written into `out` when
     given — it must not alias f or g: the pull reads neighbours).
+    noise_dist: "u8" or "clt4".  psi: a (2, X, Y, Z) float32 scratch for
+    the density pre-pass of a coupled configuration (allocated when not
+    given).
 
     CPU tensors run :func:`k_step_reference`.  CUDA tensors launch the
-    CUDA kernel, or raise: NotImplementedError for a configuration the
-    kernel does not cover, RuntimeError for a failed build or launch.
+    CUDA kernels (the pre-pass, then K, on the current stream), or
+    raise: NotImplementedError for a configuration the kernels do not
+    cover, RuntimeError for a failed build or launch.
     """
-    global launches
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
     if f.device.type == "cpu":
-        fo, go = k_step_reference(f, g, word, step, params)
+        fo, go = k_step_reference(f, g, word, step, params, noise_dist)
         if out is None:
             return fo, go
         out[0].copy_(fo)
@@ -194,35 +348,14 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
     reason = unsupported_reason(params)
     if reason is not None:
         raise NotImplementedError(reason)
-    _check_pops("f", f, f)
-    _check_pops("g", g, f)
+    check_noise_dist(noise_dist)
     if out is None:
         out = (torch.empty_like(f), torch.empty_like(g))
-    for name, t in zip(("out[0]", "out[1]"), out):
-        _check_pops(name, t, f)
-        if t.data_ptr() in (f.data_ptr(), g.data_ptr()):
-            raise ValueError(f"{name} aliases an input: the pull stream "
-                             "cannot run in place")
-    X, Y, Z = (int(s) for s in f.shape[1:])
-    if X > 65535 or Y > 65535:
-        raise ValueError(f"X and Y must be <= 65535 (grid limits), got "
-                         f"{(X, Y)}")
-    from . import _build
-
-    lib = _build.load(f.device)
-    coef = (ctypes.c_float * 33)(*_noise_coef(
-        float(params.kBT), params.lam_f, params.lam_g))
-    rc = lib.bflbm_fused_step(
-        f.device.index, f.data_ptr(), g.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
-        _as_i32(word), _as_i32(step), params.div_eps,
-        0.5 * params.lam_f, 0.5 * params.lam_g, int(params.noise_on), coef,
-        torch.cuda.current_stream(f.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("fused_step kernel launch failed: "
-                           + lib.bflbm_error_string(rc).decode())
-    launches += 1
-    return out
+    if is_coupled(params):
+        psi = density_psi(f, g, params, out=psi)
+    else:
+        psi = None
+    return launch_k(f, g, word, step, params, out, psi, noise_dist)
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +384,17 @@ def _maybe_restore(prev_step: int, st: SimState, mass_restore) -> SimState:
     return st
 
 
-def make_ksteps(params: LBMParams, n: int, mass_restore=None):
+def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
+                noise_dist: str = "u8"):
     """fn(s, words=None) -> s: n K steps of a post-collide SimState, one
-    launch per step (block 1), ping-ponging two buffer pairs.
+    K launch per step (block 1; a coupled configuration adds one pre-pass
+    launch), ping-ponging two buffer pairs and, when coupled, reusing one
+    psi scratch for the chunk.
 
     The input's buffers are reused as the second pair, so `s` is
     consumed.  words: the n per-step noise words (default: drawn from
     s.gen).  mass_restore: optional (interval, m0f, m0g)."""
+    check_noise_dist(noise_dist)
 
     def run_k(s: SimState, words: Optional[Sequence[int]] = None) -> SimState:
         if words is None:
@@ -266,15 +403,19 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None):
             raise ValueError(f"need {n} words, got {len(words)}")
         cur = s
         spare = None
+        psi = None
+        if is_coupled(params) and s.f.device.type == "cuda" and n:
+            psi = torch.empty((2,) + tuple(s.f.shape[1:]), dtype=s.f.dtype,
+                              device=s.f.device)
         for w in words:
             if spare is None:
                 spare = (torch.empty_like(cur.f), torch.empty_like(cur.g))
             fo, go = fused_stream_collide(cur.f, cur.g, w, cur.step, params,
-                                          out=spare)
+                                          out=spare, noise_dist=noise_dist,
+                                          psi=psi)
             spare = (cur.f, cur.g)
             nxt = cur.replace(f=fo, g=go, step=cur.step + 1)
             cur = _maybe_restore(cur.step, nxt, mass_restore)
         return cur
 
     return run_k
-

@@ -16,6 +16,9 @@ exit``.
 Every step consumes one noise word: ``enter(state, word)`` and
 ``advance(pc, n, words)`` take them explicitly, or draw them from the
 state's generator.
+
+:func:`make_session` is the entry point for a configuration: it returns
+a :class:`FusedSession` or raises for what the kernels cannot run.
 """
 
 from __future__ import annotations
@@ -33,16 +36,20 @@ from . import fused_step
 
 
 class FusedSession:
-    """Single-device session over the fused K-step kernel.
+    """Single-device session over the fused K-step kernels.
 
-    mass_restore_int: cadence (in steps) of the global exact-mass
-    restore (:func:`fused_step.mass_restore_step`); 0 disables it.  The
+    noise_dist: the hash-stream generator, "u8" or "clt4" (both the
+    entry prelude and the kernel use it).  mass_restore_int: cadence (in
+    steps) of the global exact-mass restore
+    (:func:`fused_step.mass_restore_step`); 0 disables it.  The
     invariants (m0f, m0g) are captured at the first :meth:`enter`."""
 
     def __init__(self, params: LBMParams, shape: Tuple[int, int, int], *,
-                 mass_restore_int: int = 1000):
+                 noise_dist: str = "u8", mass_restore_int: int = 1000):
+        fused_step.check_noise_dist(noise_dist)
         self.params = params
         self.shape = tuple(int(s) for s in shape)
+        self.noise_dist = noise_dist
         self.mass_restore_int = int(mass_restore_int or 0)
         self._m0 = None
 
@@ -61,7 +68,8 @@ class FusedSession:
         if self.mass_restore_int and self._m0 is None:
             self._m0 = (state.f.sum(dtype=torch.float64),
                         state.g.sum(dtype=torch.float64))
-        h, xi_f, xi_g = model.prelude(state, self.params, word)
+        h, xi_f, xi_g = model.prelude(state, self.params, word,
+                                      noise_dist=self.noise_dist)
         f1, g1 = collide_ops.collide(state.f, state.g, h, xi_f, xi_g,
                                      self.params)
         return state.replace(f=f1, g=g1, step=state.step + 1)
@@ -72,7 +80,8 @@ class FusedSession:
         buffers become the ping-pong partner of the kernel loop."""
         if n <= 0:
             return pc
-        run = fused_step.make_ksteps(self.params, n, self._mass_restore_arg())
+        run = fused_step.make_ksteps(self.params, n, self._mass_restore_arg(),
+                                     noise_dist=self.noise_dist)
         return run(pc, words)
 
     def exit_view(self, pc: SimState) -> SimState:
@@ -82,3 +91,16 @@ class FusedSession:
                           g=stream_ops.stream(pc.g))
 
     exit = exit_view
+
+
+def make_session(params: LBMParams, shape, *, noise_dist: str = "u8",
+                 mass_restore_int: int = 1000) -> FusedSession:
+    """The single-device session for this configuration (the counterpart
+    of ``bflbm_tpu.kernels.session.make_session`` without a mesh).
+    Raises NotImplementedError, naming the ROADMAP item, for what the
+    kernels cannot run; there is no plain-torch engine to fall back to."""
+    reason = fused_step.unsupported_reason(params)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    return FusedSession(params, shape, noise_dist=noise_dist,
+                        mass_restore_int=mass_restore_int)

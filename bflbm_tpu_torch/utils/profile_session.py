@@ -2,28 +2,32 @@
 
     python -m bflbm_tpu_torch.utils.profile_session [--n 256] [--chunk 100]
 
-For the main path (a uniform mixture, tau = 1/2, alpha = 0) at kBT =
-1e-5 and at kBT = 0 it prints:
+For the mixture path (a uniform mixture, tau = 1/2, alpha = 0, u8) at
+kBT = 1e-5 and at kBT = 0, and for the coupled path (the droplet-fluct
+physics: droplet-eq with kBT = 1e-5, alpha0 = 1.5, clt4) it prints:
 
 - ``enter``: the first call of the process (lazy CUDA initialisation
   included) and a warmed call; ``exit_view``;
 - ``advance(chunk)``: the best of `repeats` runs between synchronize
   barriers (:func:`time_steps`) and its MLUPS;
 - host enqueue per launch: the host time of one ``advance(chunk)``
-  without a barrier, divided by `chunk`, outside the profiler and inside
-  it (the profiler adds host work to every launch);
+  without a barrier, divided by its launches (one per step, two when
+  coupled), outside the profiler and inside it (the profiler adds host
+  work to every launch);
 - from ``torch.profiler`` over one ``advance(chunk)``: the device time
   and count of each kernel, and the device's idle share of the traced
   advance's wall time (1 - union of kernel intervals / wall).
 
-The last line is one JSON object with every number.  Exits 1, printing
-no result, without a CUDA device.
+The first line names the card and its power limit (``nvidia-smi``); the
+last line is one JSON object with every number.  Exits 1, printing no
+result, without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -51,21 +55,28 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile_config(kBT: float, n: int, chunk: int, repeats: int,
+CASES = (("mixture", 1e-5), ("mixture", 0.0), ("droplet", 1e-5))
+
+
+def profile_config(case: str, kBT: float, n: int, chunk: int, repeats: int,
                    device) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..config import LBMParams
-    from ..kernels.session import FusedSession
+    from ..config import preset
+    from ..kernels import fused_step
+    from ..kernels.session import make_session
     from ..models import binary_fluid as model
     from .timing import time_steps
 
     shape = (n, n, n)
     cells = n ** 3
-    params = LBMParams(kBT=kBT)
-    state = model.init_mixture(shape, params, device=device)
-    sess = FusedSession(params, shape)
+    name, dist = {"mixture": ("bench-256", "u8"),
+                  "droplet": ("droplet-eq", "clt4")}[case]
+    cfg = preset(name).replace(shape=shape).with_params(kBT=kBT)
+    params = cfg.params
+    state = model.make_initial_state(cfg, device=device)
+    sess = make_session(params, shape, noise_dist=dist)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     pc = sess.enter(state)
@@ -85,14 +96,15 @@ def profile_config(kBT: float, n: int, chunk: int, repeats: int,
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     run()
-    enqueue_us = (time.perf_counter() - t0) / chunk * 1e6
+    n_launch = chunk * (2 if fused_step.is_coupled(params) else 1)
+    enqueue_us = (time.perf_counter() - t0) / n_launch * 1e6
     torch.cuda.synchronize(device)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
-        enqueue_prof_us = (time.perf_counter() - t0) / chunk * 1e6
+        enqueue_prof_us = (time.perf_counter() - t0) / n_launch * 1e6
         torch.cuda.synchronize(device)
         traced_wall_us = (time.perf_counter() - t0) * 1e6
     kernels = _kernel_intervals(prof)
@@ -106,7 +118,8 @@ def profile_config(kBT: float, n: int, chunk: int, repeats: int,
     del box, pc
     torch.cuda.empty_cache()
     return {
-        "kBT": kBT, "shape": list(shape), "chunk": chunk,
+        "case": case, "noise_dist": dist, "kBT": kBT,
+        "alpha0": params.alpha0, "shape": list(shape), "chunk": chunk,
         "enter_first_ms": enter_first_ms, "enter_ms": enter_ms,
         "exit_view_ms": exit_ms,
         "advance_ms": adv["best_s"] * 1e3,
@@ -136,17 +149,23 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    print(f"device {torch.cuda.get_device_name(device)}, torch "
-          f"{torch.__version__}, cuda {torch.version.cuda}", flush=True)
+    # a card set below its maximum power runs slower under load
+    card = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"device {card}, torch {torch.__version__}, cuda "
+          f"{torch.version.cuda}", flush=True)
     results = []
-    for kBT in (1e-5, 0.0):
-        r = profile_config(kBT, args.n, args.chunk, args.repeats, device)
+    for case, kBT in CASES:
+        r = profile_config(case, kBT, args.n, args.chunk, args.repeats,
+                           device)
         idle = ("not measured (no device events in the trace)"
                 if r["idle_share"] is None else f"{r['idle_share']:.4f}")
-        print(f"kBT={kBT}: enter first {r['enter_first_ms']:.1f} ms, warm "
-              f"{r['enter_ms']:.2f} ms; exit_view {r['exit_view_ms']:.2f} "
-              f"ms; advance({args.chunk}) {r['advance_ms']:.2f} ms = "
-              f"{r['mlups']:.1f} MLUPS; enqueue "
+        print(f"{case} kBT={kBT}: enter first {r['enter_first_ms']:.1f} "
+              f"ms, warm {r['enter_ms']:.2f} ms; exit_view "
+              f"{r['exit_view_ms']:.2f} ms; advance({args.chunk}) "
+              f"{r['advance_ms']:.2f} ms = {r['mlups']:.1f} MLUPS; enqueue "
               f"{r['enqueue_us_per_launch']:.1f} us/launch "
               f"({r['enqueue_us_per_launch_profiled']:.1f} under the "
               f"profiler); idle share {idle}", flush=True)
@@ -155,7 +174,7 @@ def main(argv=None) -> int:
                   f"{name[:90]}", flush=True)
         results.append(r)
     print(json.dumps({"device": torch.cuda.get_device_name(device),
-                      "configs": results}), flush=True)
+                      "card": card, "configs": results}), flush=True)
     return 0
 
 

@@ -10,22 +10,36 @@ Phases (each raises on failure; the script then exits non-zero):
 
 0. the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions; no CUDA device -> exit 1 with no result;
-1. build the fused K-step CUDA kernel and print the build time and the
-   ptxas register / spill counts;
-2. hold the kernel against its plain PyTorch version on the card: one K
-   on a perturbed state at 32^3 (kBT = 0 and 1e-5) and at 256^3, max
-   |delta| <= 2e-5; time both at 256^3; a 32^3 session (enter + 4 + 5 K
-   steps + exit) against the plain step chain with the same words;
-3. the main path: a 256^3 uniform mixture at kBT = 1e-5 driven by
+1. build every kernel library (one ``nvcc`` per source, in parallel) and
+   print the build time and the ptxas register / spill counts of every
+   instantiation;
+2. the uncoupled K kernel against its plain PyTorch version on the card:
+   one K on a perturbed state at 32^3 (kBT = 0 and 1e-5) and at 256^3,
+   max |delta| <= 2e-5; time both at 256^3; a 32^3 session (enter + 4 +
+   5 K steps + exit) against the plain step chain with the same words;
+3. the mixture path: a 256^3 uniform mixture at kBT = 1e-5 driven by
    FusedSession — enter, 11 x advance(100) (crossing the mass restore at
    step 1000), exit_view — with the launch count, finiteness and the
    total masses and the density equipartition checked, and the session
-   rate in MLUPS.
+   rate in MLUPS;
+4. the coupled kernels (density pre-pass A, coupled K step B) against
+   their plain versions, max |delta| <= 2e-5: 32^3 droplets (kBT 0; kBT
+   1e-5 with u8 and with clt4; the pseudopotential), the flat interface
+   at its own shape 8x256x64 (interface-fluct physics, clt4) and the
+   256^3 droplet (clt4), where A, B (and B in its other modes), the pair,
+   the plain versions and a library convolution are timed; a 32^3
+   coupled session (1 + 4 + 5 steps) against the plain chain;
+5. the coupled path: the droplet-fluct physics at 256^3 (make_initial_
+   state of droplet-eq with kBT = 1e-5, make_session, clt4) — enter,
+   11 x advance(100), exit_view — with both kernels' launch counts,
+   finiteness, the masses after the restore, the droplet's centre of mass
+   and volume ratio, and the session MLUPS.
 
 The line before the last is a JSON object with the per-kernel record;
 the last line is the status JSON.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,21 +48,64 @@ import time
 TOL = 2e-5            # f32 kernel vs plain torch: 1/x vs divide, FMA
 MASS_RTOL = 1e-6
 VAR_RTOL = 0.02       # 16.7M cells: sampling error ~1e-3
+COM_TOL = 0.25        # cells
+VOL_RANGE = (0.85, 1.05)
 CS2 = 1.0 / 3.0
 SMALL = (32, 32, 32)
 SHAPE = (256, 256, 256)
+INTERFACE = (8, 256, 64)
 KBT = 1e-5
 CHUNK, NCHUNKS = 100, 11
-BYTES_PER_CELL = 2 * 19 * 4 * 2   # read + write 19 f32 per species
+NREP = 20             # launches per timed run
+# The card's published peaks (H100 SXM data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+# Bytes each kernel must move per cell (each input read once, each output
+# written once) and operations per cell counted from its source (an FMA
+# counts 2; integer hash operations count 1 at the float32 rate):
+#   K uncoupled, u8: pull sums 266, back transforms 1404, noise ~300, rest
+#     ~130;
+#   K coupled, clt4: + gradients 216, forces and Guo rows ~80, clt4 words
+#     ~560 in place of u8's ~170;
+#   density pre-pass: 38 adds (+2 exp under the pseudopotential).
+KERNELS = {
+    "k1a": dict(bytes=2 * 19 * 4 * 2, ops=2100),
+    "a": dict(bytes=2 * 19 * 4 + 2 * 4, ops=40),
+    "b": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=2800),
+}
+SRC = "bflbm_tpu_torch/kernels/csrc/"
+TPU_KERNEL = "bflbm_tpu/kernels/fused_step.py:1956"
 
 
 def _maxdiff(a, b):
     return float((a - b).abs().max())
 
 
+def _check(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def _bound_ms(key, cells):
+    """The least time for the kernel's work at `cells` cells, and what
+    sets it."""
+    k = KERNELS[key]
+    t_bytes = k["bytes"] * cells / HBM_BPS * 1e3
+    t_ops = k["ops"] * cells / F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _check_finite(*ts):
+    import torch
+
+    for t in ts:
+        _check(bool(torch.isfinite(t).all()), "non-finite values")
+
+
 def _kernel_vs_plain(shape, params, word, step, device):
-    """One K through the kernel and through k_step_reference; returns
-    (max |delta|, kernel outputs, plain outputs, inputs)."""
+    """One uncoupled K through the kernel and through k_step_reference;
+    returns (max |delta|, kernel outputs, inputs)."""
     import torch
 
     from bflbm_tpu_torch.kernels import fused_step
@@ -58,48 +115,161 @@ def _kernel_vs_plain(shape, params, word, step, device):
     before = fused_step.launches
     fo, go = fused_step.fused_stream_collide(f, g, word, step, params)
     torch.cuda.synchronize()
-    if fused_step.launches != before + 1:
-        raise AssertionError(f"launches went {before} -> "
-                             f"{fused_step.launches}, expected +1")
+    _check(fused_step.launches == before + 1,
+           f"launches went {before} -> {fused_step.launches}, expected +1")
     fr, gr = fused_step.k_step_reference(f, g, word, step, params)
-    for t in (fo, go):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError("kernel output not finite")
+    _check_finite(fo, go)
     err = max(_maxdiff(fo, fr), _maxdiff(go, gr))
     print(f"[phase 2] K at {shape} kBT={params.kBT}: max|kernel - plain| = "
           f"{err:.3e} (tol {TOL})", flush=True)
-    if not err <= TOL:
-        raise AssertionError(f"kernel disagrees with plain K: {err} > {TOL}")
+    _check(err <= TOL, f"kernel disagrees with plain K: {err} > {TOL}")
     return err, (fo, go), (f, g)
 
 
-def _session_vs_chain(device):
+def _session_vs_chain(params, f, g, noise_dist, tag):
     """32^3 slice end to end: enter + advance(4) + advance(5) + exit with
     injected words against the plain model chain of 10 steps (no mass
     restore on either side)."""
     import torch
 
-    from bflbm_tpu_torch.config import LBMParams
     from bflbm_tpu_torch.kernels.session import FusedSession
     from bflbm_tpu_torch.models import binary_fluid as model
     from bflbm_tpu_torch.state import init_state
 
-    params = LBMParams(kBT=KBT)
     words = [int(w) for w in torch.randint(-2 ** 31, 2 ** 31 - 1, (10,),
                                            generator=torch.Generator()
                                            .manual_seed(3)).tolist()]
-    f, g = model.perturbed_populations(SMALL, 11, device=device)
-    ref = model.nsteps(init_state(f.clone(), g.clone(), 0), params, 10, words)
-    sess = FusedSession(params, SMALL, mass_restore_int=0)
+    ref = model.nsteps(init_state(f.clone(), g.clone(), 0), params, 10, words,
+                       noise_dist=noise_dist)
+    sess = FusedSession(params, SMALL, noise_dist=noise_dist,
+                        mass_restore_int=0)
     pc = sess.enter(init_state(f, g, 0), words[0])
     pc = sess.advance(pc, 4, words[1:5])
     pc = sess.advance(pc, 5, words[5:])
     got = sess.exit(pc)
     torch.cuda.synchronize()
     err = max(_maxdiff(got.f, ref.f), _maxdiff(got.g, ref.g))
-    print(f"[phase 2] 32^3 session (1+4+5 steps) vs plain chain: "
+    print(f"[{tag}] 32^3 session (1+4+5 steps) vs plain chain: "
           f"max|delta| = {err:.3e}", flush=True)
+    _check(err <= TOL, f"session disagrees with plain chain: {err}")
     return err
+
+
+def _run_session(sess, state, tag):
+    """enter + NCHUNKS x advance(CHUNK) + exit_view with the launch
+    counts set to 0 just before, checking the step, finiteness and the
+    masses; returns (view, (K launches, pre-pass launches), advance
+    seconds, enter seconds)."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+
+    m0f = float(state.f.sum(dtype=torch.float64))
+    m0g = float(state.g.sum(dtype=torch.float64))
+
+    def rel_mass(s):
+        return (abs(float(s.f.sum(dtype=torch.float64)) - m0f) / m0f,
+                abs(float(s.g.sum(dtype=torch.float64)) - m0g) / m0g)
+
+    torch.cuda.synchronize()
+    fused_step.launches = 0
+    fused_step.density_launches = 0
+    t0 = time.perf_counter()
+    pc = sess.enter(state)
+    torch.cuda.synchronize()
+    t_enter = time.perf_counter() - t0
+    masses = {}
+    t_adv = 0.0
+    for _ in range(NCHUNKS):
+        t0 = time.perf_counter()
+        pc = sess.advance(pc, CHUNK)
+        torch.cuda.synchronize()
+        t_adv += time.perf_counter() - t0
+        if pc.step in (901, 1001):
+            masses[pc.step] = rel_mass(pc)
+    view = sess.exit_view(pc)
+    torch.cuda.synchronize()
+    counts = (fused_step.launches, fused_step.density_launches)
+    del pc
+    masses["end"] = rel_mass(view)
+    n_k = CHUNK * NCHUNKS
+    print(f"[{tag}] step {view.step}, launches K {counts[0]}, density "
+          f"pre-pass {counts[1]}", flush=True)
+    _check(view.step == 1 + n_k and tuple(view.f.shape) == (19,) + SHAPE,
+           f"bad result: step {view.step}, shape {tuple(view.f.shape)}")
+    _check_finite(view.f, view.g)
+    print(f"[{tag}] relative mass defect (f, g): step 901 "
+          f"{masses[901][0]:.3e} {masses[901][1]:.3e}; after the restore at "
+          f"step 1000 (step 1001) {masses[1001][0]:.3e} "
+          f"{masses[1001][1]:.3e}; step {view.step} {masses['end'][0]:.3e} "
+          f"{masses['end'][1]:.3e} (tol {MASS_RTOL} after the restore)",
+          flush=True)
+    _check(max(masses[1001] + masses["end"]) <= MASS_RTOL,
+           "mass not conserved to the tolerance")
+    return view, counts, t_adv, t_enter
+
+
+def _time_ms(run, cells, n):
+    from bflbm_tpu_torch.utils.timing import time_steps
+
+    return time_steps(run, cells, n)["best_s"] / n * 1e3
+
+
+def _perturbed_droplet(shape, params, seed, device, **init):
+    from bflbm_tpu_torch.models import binary_fluid as model
+
+    base = model.init_droplet(shape, params, device="cpu", **init)
+    return model.perturbed_populations(shape, seed, base=base, device=device)
+
+
+def _coupled_vs_plain(f, g, params, dist, tag, errs):
+    """Kernels A and B (through fused_stream_collide) against the plain
+    pre-pass and K on one input; appends to errs["a"], errs["b"] and
+    returns the kernel outputs."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+
+    before = (fused_step.launches, fused_step.density_launches)
+    psi = fused_step.density_psi(f, g, params)
+    fo, go = fused_step.fused_stream_collide(f, g, 24680, 1357, params,
+                                             noise_dist=dist)
+    torch.cuda.synchronize()
+    _check((fused_step.launches, fused_step.density_launches)
+           == (before[0] + 1, before[1] + 2),
+           "coupled K did not launch the pre-pass and K once each")
+    _check_finite(psi, fo, go)
+    err_a = _maxdiff(psi, fused_step.density_psi_reference(f, g, params))
+    fr, gr = fused_step.k_step_reference(f, g, 24680, 1357, params, dist)
+    err_b = max(_maxdiff(fo, fr), _maxdiff(go, gr))
+    del fr, gr
+    print(f"[phase 4] {tag}: max|A - plain| = {err_a:.3e}, "
+          f"max|K - plain| = {err_b:.3e} (tol {TOL})", flush=True)
+    _check(err_a <= TOL and err_b <= TOL,
+           f"coupled kernels disagree with plain: {err_a}, {err_b}")
+    errs["a"].append(err_a)
+    errs["b"].append(err_b)
+    return psi, (fo, go)
+
+
+def _library_density(f, g, device):
+    """The pre-pass as one library call: a circular 3x3x3 convolution of
+    the 38 populations with one-hot taps at -c_i (its time is a
+    yardstick; the port never calls it).  Returns (module, input)."""
+    import torch
+
+    from bflbm_tpu_torch.lattice import C, Q
+
+    conv = torch.nn.Conv3d(2 * Q, 2, 3, padding=1, padding_mode="circular",
+                           bias=False, device=device)
+    w = torch.zeros_like(conv.weight)
+    for s in range(2):
+        for i in range(Q):
+            cx, cy, cz = (int(v) for v in C[i])
+            w[s, s * Q + i, 1 - cx, 1 - cy, 1 - cz] = 1.0
+    with torch.no_grad():
+        conv.weight.copy_(w)
+    return conv, torch.cat([f, g])[None]
 
 
 def main() -> int:
@@ -109,10 +279,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured",
               file=sys.stderr)
         return 1
+    from bflbm_tpu_torch import config
     from bflbm_tpu_torch.config import LBMParams
     from bflbm_tpu_torch.kernels import _build, fused_step
-    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.kernels.session import FusedSession, make_session
     from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.observables import stats
     from bflbm_tpu_torch.utils.timing import time_steps
 
     smi = subprocess.run(
@@ -126,107 +298,67 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
 
     # -- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
-    _build.load(dev)
-    print(f"[phase 1] kernel built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s: {_build.library_path()}",
+    for name in _build.SOURCES:
+        _build.load(name, dev)
+    print(f"[phase 1] kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{[str(_build.library_path(n)) for n in _build.SOURCES]}",
           flush=True)
     for ln in _build.ptxas_summary():
         print(f"[phase 1] ptxas: {ln}", flush=True)
 
-    # -- phase 2: kernel vs plain --------------------------------------------
-    errs = []
+    # -- phase 2: uncoupled kernel vs plain ----------------------------------
+    errs_k1a = []
     for kbt in (0.0, KBT):
         err, _, _ = _kernel_vs_plain(SMALL, LBMParams(kBT=kbt),
                                      -123456789, 5, dev)
-        errs.append(err)
+        errs_k1a.append(err)
     params = LBMParams(kBT=KBT)
     err, (fo, go), (f, g) = _kernel_vs_plain(SHAPE, params, 987654321,
                                              1234, dev)
-    errs.append(err)
-    cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
+    errs_k1a.append(err)
 
     # kernel, plain K and copy times: best of 3 runs between synchronize
-    # barriers (the kernel ping-pongs two pairs over 20 launches a run)
-    nrep = 20
+    # barriers (the kernel ping-pongs two pairs over NREP launches a run)
     bufs = [(f, g), (fo, go)]
 
     def kernel_run():
-        for i in range(nrep):
+        for i in range(NREP):
             fused_step.fused_stream_collide(*bufs[i % 2], 1, i, params,
                                             out=bufs[(i + 1) % 2])
 
-    kernel_ms = time_steps(kernel_run, cells, nrep)["best_s"] / nrep * 1e3
-    plain_ms = time_steps(
-        lambda: fused_step.k_step_reference(f, g, 1, 0, params),
-        cells, 1)["best_s"] * 1e3
+    k1a_ms = _time_ms(kernel_run, cells, NREP)
+    k1a_plain_ms = _time_ms(
+        lambda: fused_step.k_step_reference(f, g, 1, 0, params), cells, 1)
     # device copy rate of one population array (read + write)
     dst = torch.empty_like(f)
     copy_s = time_steps(lambda: [dst.copy_(f) for _ in range(10)],
                         cells, 10)["best_s"]
     copy_gbs = 2 * f.numel() * 4 * 10 / copy_s / 1e9
-    kernel_gbs = BYTES_PER_CELL * cells / (kernel_ms * 1e-3) / 1e9
-    print(f"[phase 2] K at 256^3: kernel {kernel_ms:.4f} ms "
-          f"({cells / kernel_ms / 1e3:.1f} MLUPS, {kernel_gbs:.1f} GB/s at "
-          f"{BYTES_PER_CELL} B/cell), plain torch {plain_ms:.2f} ms; "
-          f"torch copy {copy_gbs:.1f} GB/s", flush=True)
+    k1a_gbs = KERNELS["k1a"]["bytes"] * cells / (k1a_ms * 1e-3) / 1e9
+    print(f"[phase 2] K at 256^3: kernel {k1a_ms:.4f} ms "
+          f"({cells / k1a_ms / 1e3:.1f} MLUPS, {k1a_gbs:.1f} GB/s at "
+          f"{KERNELS['k1a']['bytes']} B/cell), plain torch "
+          f"{k1a_plain_ms:.2f} ms; torch copy {copy_gbs:.1f} GB/s",
+          flush=True)
     del f, g, fo, go, bufs, dst
-    errs.append(_session_vs_chain(dev))
-    if not max(errs) <= TOL:
-        raise AssertionError(f"session disagrees with plain chain: {errs}")
+    small_f, small_g = model.perturbed_populations(SMALL, 11, device=dev)
+    errs_k1a.append(_session_vs_chain(params, small_f, small_g, "u8",
+                                      "phase 2"))
     torch.cuda.empty_cache()
 
-    # -- phase 3: the main path ---------------------------------------------
+    # -- phase 3: the mixture path ------------------------------------------
     state = model.init_mixture(SHAPE, params, device=dev)
-    m0f = float(state.f.sum(dtype=torch.float64))
-    m0g = float(state.g.sum(dtype=torch.float64))
-    sess = FusedSession(params, SHAPE)
-    torch.cuda.synchronize()
-    fused_step.launches = 0
-    t0 = time.perf_counter()
-    pc = sess.enter(state)
-    torch.cuda.synchronize()
-    t_enter = time.perf_counter() - t0
+    view, counts, t_adv, t_enter = _run_session(
+        FusedSession(params, SHAPE), state, "phase 3")
     del state
-
-    def rel_mass(s):
-        return (abs(float(s.f.sum(dtype=torch.float64)) - m0f) / m0f,
-                abs(float(s.g.sum(dtype=torch.float64)) - m0g) / m0g)
-
-    t_adv = 0.0
-    for _ in range(NCHUNKS):
-        t0 = time.perf_counter()
-        pc = sess.advance(pc, CHUNK)
-        torch.cuda.synchronize()
-        t_adv += time.perf_counter() - t0
-        if pc.step == 901:
-            before_restore = rel_mass(pc)
-        elif pc.step == 1001:
-            after_restore = rel_mass(pc)
-    view = sess.exit_view(pc)
-    torch.cuda.synchronize()
-    launches = fused_step.launches
     n_k = CHUNK * NCHUNKS
-    print(f"[phase 3] step {view.step}, launches {launches} "
-          f"(expected {n_k})", flush=True)
-    if launches != n_k:
-        raise AssertionError(f"launches {launches} != {n_k}")
-    if view.step != 1 + n_k or tuple(view.f.shape) != (19,) + SHAPE:
-        raise AssertionError(f"bad result: step {view.step}, "
-                             f"shape {tuple(view.f.shape)}")
-    for t in (view.f, view.g):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError("main path produced non-finite values")
-    final = rel_mass(view)
-    print(f"[phase 3] relative mass defect (f, g): step 901 "
-          f"{before_restore[0]:.3e} {before_restore[1]:.3e}; after the "
-          f"restore at step 1000 (step 1001) {after_restore[0]:.3e} "
-          f"{after_restore[1]:.3e}; step {view.step} {final[0]:.3e} "
-          f"{final[1]:.3e} (tol {MASS_RTOL} after the restore)", flush=True)
-    if not max(after_restore + final) <= MASS_RTOL:
-        raise AssertionError("mass not conserved to the tolerance")
+    _check(counts == (n_k, 0), f"launches {counts} != ({n_k}, 0)")
+    k1a_launches = counts[0]
     # equation-of-state equipartition: the equal-time density structure
     # factor of the ideal mixture is flat, var(rho_t) = rho_t kBT / cs^2
     rho_t = view.f.sum(0) + view.g.sum(0)
@@ -234,25 +366,142 @@ def main() -> int:
     print(f"[phase 3] total density mean {float(rho_t.mean()):.7f}, "
           f"var / (rho kBT / cs^2) = {var_ratio:.4f} "
           f"(tol {VAR_RTOL})", flush=True)
-    if not abs(var_ratio - 1.0) <= VAR_RTOL:
-        raise AssertionError(f"density fluctuations off equipartition: "
-                             f"{var_ratio}")
-    mlups = cells * n_k / t_adv / 1e6
+    _check(abs(var_ratio - 1.0) <= VAR_RTOL,
+           f"density fluctuations off equipartition: {var_ratio}")
     print(f"[phase 3] enter {t_enter * 1e3:.1f} ms; "
           f"session: {n_k} K steps at 256^3 in {t_adv:.3f} s = "
-          f"{mlups:.1f} MLUPS (plain-torch K: {plain_ms:.2f} ms/step = "
-          f"{cells / plain_ms / 1e3:.1f} MLUPS)", flush=True)
+          f"{cells * n_k / t_adv / 1e6:.1f} MLUPS (plain-torch K: "
+          f"{k1a_plain_ms:.2f} ms/step = "
+          f"{cells / k1a_plain_ms / 1e3:.1f} MLUPS)", flush=True)
+    del view, rho_t
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_stream_collide",
-        "route": "cuda",
-        "source": "bflbm_tpu_torch/kernels/csrc/fused_step.cu",
-        "replaces": "bflbm_tpu/kernels/fused_step.py:1956",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    # -- phase 4: coupled kernels vs plain ----------------------------------
+    errs = {"a": [], "b": []}
+    droplet = dict(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0)
+    for tag, kw, dist in (
+            ("32^3 droplet kBT=0", dict(), "u8"),
+            ("32^3 droplet kBT=1e-5 u8", dict(kBT=KBT), "u8"),
+            ("32^3 droplet kBT=1e-5 clt4", dict(kBT=KBT), "clt4"),
+            ("32^3 droplet pseudopotential clt4",
+             dict(kBT=KBT, use_sc_pseudo=True), "clt4")):
+        p = LBMParams(**dict(droplet, **kw))
+        f, g = _perturbed_droplet(SMALL, p, 21, dev, radius=0.3)
+        _coupled_vs_plain(f, g, p, dist, tag, errs)
+    icfg = config.preset("interface-fluct").replace(shape=INTERFACE)
+    stripe = model.init_stripe(INTERFACE, icfg.params, device="cpu")
+    f, g = model.perturbed_populations(INTERFACE, 22, base=stripe, device=dev)
+    _coupled_vs_plain(f, g, icfg.params, "clt4",
+                      "interface 8x256x64 (interface-fluct, clt4)", errs)
+
+    # 256^3: the main path's own post-collide state, one step in
+    dcfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+        kBT=KBT)
+    dparams = dcfg.params
+    pc = FusedSession(dparams, SHAPE, noise_dist="clt4").enter(
+        model.make_initial_state(dcfg, device=dev))
+    f, g = pc.f, pc.g
+    del pc
+    psi, (fo, go) = _coupled_vs_plain(f, g, dparams, "clt4",
+                                      "256^3 droplet (clt4)", errs)
+    a_ms = _time_ms(lambda: [fused_step.density_psi(f, g, dparams, out=psi)
+                             for _ in range(NREP)], cells, NREP)
+    b_ms = _time_ms(lambda: [fused_step.launch_k(f, g, 1, i, dparams,
+                                                 (fo, go), psi, "clt4")
+                             for i in range(NREP)], cells, NREP)
+    bufs = [(f, g), (fo, go)]
+
+    def pair_run():
+        for i in range(NREP):
+            fused_step.fused_stream_collide(*bufs[i % 2], 1, i, dparams,
+                                            out=bufs[(i + 1) % 2],
+                                            noise_dist="clt4", psi=psi)
+
+    pair_ms = _time_ms(pair_run, cells, NREP)
+    # kernel B's time in its other modes on the same input: what the
+    # force and the generator cost
+    modes = {"coupled clt4": b_ms}
+    for tag, p, dist in (
+            ("coupled u8", dparams, "u8"),
+            ("coupled kBT=0", dataclasses.replace(dparams, kBT=0.0), "u8"),
+            ("uncoupled clt4", dataclasses.replace(dparams, alpha0=0.0),
+             "clt4"),
+            ("uncoupled u8", dataclasses.replace(dparams, alpha0=0.0),
+             "u8")):
+        q = psi if fused_step.is_coupled(p) else None
+        modes[tag] = _time_ms(
+            lambda: [fused_step.launch_k(f, g, 1, i, p, (fo, go), q, dist)
+                     for i in range(NREP)], cells, NREP)
+    print("[phase 4] K at 256^3 by mode, same input: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in modes.items()), flush=True)
+    a_plain_ms = _time_ms(
+        lambda: fused_step.density_psi_reference(f, g, dparams), cells, 1)
+    b_plain_ms = _time_ms(
+        lambda: fused_step.k_step_reference(f, g, 1, 0, dparams, "clt4"),
+        cells, 1)
+    conv, conv_in = _library_density(f, g, dev)
+    with torch.no_grad():
+        lib_err = _maxdiff(conv(conv_in)[0],
+                           fused_step.density_psi(f, g, dparams))
+        a_lib_ms = _time_ms(lambda: conv(conv_in), cells, 1)
+    del conv, conv_in
+    a_bytes, b_bytes = KERNELS["a"]["bytes"], KERNELS["b"]["bytes"]
+    print(f"[phase 4] 256^3 coupled: pre-pass A {a_ms:.4f} ms "
+          f"({a_bytes * cells / a_ms / 1e6:.1f} GB/s at {a_bytes} B/cell), "
+          f"K B {b_ms:.4f} ms ({b_bytes * cells / b_ms / 1e6:.1f} GB/s at "
+          f"{b_bytes} B/cell), pair {pair_ms:.4f} ms "
+          f"({cells / pair_ms / 1e3:.1f} MLUPS, "
+          f"{(a_bytes + b_bytes) * cells / pair_ms / 1e6:.1f} GB/s); "
+          f"plain pre-pass {a_plain_ms:.2f} ms, plain coupled K "
+          f"{b_plain_ms:.2f} ms; library Conv3d pre-pass {a_lib_ms:.3f} ms "
+          f"(max|conv - A| {lib_err:.3e})", flush=True)
+    del f, g, fo, go, psi, bufs
+    torch.cuda.empty_cache()
+    sp = LBMParams(**dict(droplet, kBT=KBT))
+    f, g = _perturbed_droplet(SMALL, sp, 23, dev, radius=0.3)
+    errs["b"].append(_session_vs_chain(sp, f, g, "clt4", "phase 4"))
+    del f, g
+
+    # -- phase 5: the coupled path -------------------------------------------
+    state = model.make_initial_state(dcfg, device=dev)
+    com0 = stats.center_of_mass(state.f.sum(0))
+    sess = make_session(dparams, SHAPE, noise_dist="clt4")
+    view, counts, t_adv, t_enter = _run_session(sess, state, "phase 5")
+    del state
+    _check(counts == (n_k, n_k), f"launches {counts} != ({n_k}, {n_k})")
+    rho = view.f.sum(0)
+    drift = float((stats.center_of_mass(rho) - com0).norm())
+    r0 = dcfg.init_radius * SHAPE[0]
+    vol = float(stats.droplet_volume_ratio(rho, 1.5, r0))
+    print(f"[phase 5] droplet centre of mass {com0.tolist()} -> drift "
+          f"{drift:.4e} cells (tol {COM_TOL}); volume ratio at rho = 1.5 "
+          f"{vol:.4f} (range {VOL_RANGE}); rho min {float(rho.min()):.3e}, "
+          f"phi min {float(view.g.sum(0).min()):.3e}", flush=True)
+    _check(drift <= COM_TOL, f"droplet drifted {drift} cells")
+    _check(VOL_RANGE[0] <= vol <= VOL_RANGE[1], f"volume ratio {vol}")
+    print(f"[phase 5] enter {t_enter * 1e3:.1f} ms; session: {n_k} coupled "
+          f"steps at 256^3 in {t_adv:.3f} s = "
+          f"{cells * n_k / t_adv / 1e6:.1f} MLUPS", flush=True)
+    del view, rho
+
+    record = []
+    for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
+            ("k1a", "k_step_kernel (uncoupled, u8)", "fused_step.cu",
+             k1a_ms, k1a_plain_ms, None, k1a_launches, max(errs_k1a),
+             "K1a: alpha0 = alpha1 = 0, tau 1/2, hash u8"),
+            ("a", "density_psi_kernel", "density_psi.cu", a_ms, a_plain_ms,
+             a_lib_ms, counts[1], max(errs["a"]),
+             "K1b density_ext + psi (fused_step.py:753-783)"),
+            ("b", "k_step_kernel (coupled, clt4)", "fused_step.cu", b_ms,
+             b_plain_ms, None, counts[0], max(errs["b"]),
+             "K1b: alpha0 != 0, tau 1/2, hash clt4 (_clt4_normal :607)")):
+        bound, by = _bound_ms(key, cells)
+        record.append({
+            "name": name, "route": "cuda", "source": SRC + src,
+            "replaces": TPU_KERNEL, "mode": mode, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
 
 Marked ``gpu``: each test skips without a CUDA device.  The module
 imports no JAX, so on a machine without JAX it runs with
@@ -81,7 +82,7 @@ def test_session_matches_plain_chain(cuda):
 @pytest.mark.gpu
 def test_kernel_refuses_unsupported(cuda):
     f, g = model.perturbed_populations((4, 4, 32), 4, device=cuda)
-    for params, item in ((LBMParams(alpha0=1.0), "K1b"),
+    for params, item in ((LBMParams(alpha0=1.0, alpha1=0.2), "K1c"),
                          (LBMParams(tau_f=0.8), "K1d")):
         with pytest.raises(NotImplementedError, match=item):
             fused_step.fused_stream_collide(f, g, 1, 1, params)
@@ -91,3 +92,91 @@ def test_kernel_refuses_unsupported(cuda):
     with pytest.raises(TypeError, match="float32"):
         fused_step.fused_stream_collide(f.double(), g.double(), 1, 1,
                                         LBMParams())
+    with pytest.raises(NotImplementedError, match="K3"):
+        fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(kBT=1e-5),
+                                        noise_dist="clt2")
+    with pytest.raises(ValueError, match="alias"):
+        fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(alpha0=1.5),
+                                        psi=f[:2])
+
+
+def _droplet(shape, device, rho_lo, seed, **kw):
+    """Perturbed droplet populations on the card, radius 0.3 of X."""
+    params = LBMParams(alpha0=1.5, kappa=0.1, rho_lo=rho_lo, rho_hi=3.0,
+                       **kw)
+    base = model.init_droplet(shape, params, radius=0.3, device="cpu")
+    f, g = model.perturbed_populations(shape, seed, base=base, device=device)
+    return params, f, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rho_lo,kw,dist", [
+    (0.0, dict(), "u8"),
+    (0.0, dict(kBT=1e-5), "u8"),
+    (0.0, dict(kBT=1e-5), "clt4"),
+    (0.1, dict(kBT=1e-5, use_sc_pseudo=True), "clt4"),
+])
+def test_coupled_kernel_matches_plain(cuda, rho_lo, kw, dist):
+    params, f, g = _droplet((32, 32, 32), cuda, rho_lo, 5, **kw)
+    before = (fused_step.launches, fused_step.density_launches)
+    fo, go = fused_step.fused_stream_collide(f, g, 12345, 678, params,
+                                             noise_dist=dist)
+    torch.cuda.synchronize()
+    assert (fused_step.launches, fused_step.density_launches) == (
+        before[0] + 1, before[1] + 1)
+    fr, gr = fused_step.k_step_reference(f, g, 12345, 678, params, dist)
+    assert max(_maxdiff(fo, fr), _maxdiff(go, gr)) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sc", [False, True])
+def test_density_psi_matches_plain(cuda, sc):
+    params, f, g = _droplet((8, 24, 40), cuda, 0.0, 6, use_sc_pseudo=sc,
+                            sc_ref_density=1.5)
+    got = fused_step.density_psi(f, g, params)
+    torch.cuda.synchronize()
+    assert _maxdiff(got, fused_step.density_psi_reference(f, g, params)) \
+        <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dist", ["u8", "clt4"])
+def test_kernel_noise_bits_per_generator(cuda, dist):
+    """The kernel draws the words of hash_normal_stack(dist): at kBT =
+    1e-2 the noise kick is ~1e-2 per population, so kernel(kBT) -
+    kernel(0) matching plain(kBT) - plain(0) to 2e-5 leaves no room for a
+    wrong word or byte order; the next word's kick does not match."""
+    f, g = model.perturbed_populations((8, 8, 128), 7, device=cuda)
+    on, off = LBMParams(kBT=1e-2), LBMParams(kBT=0.0)
+
+    def kick(fn, word):
+        return fn(f, g, word, 3, on, noise_dist=dist)[0] \
+            - fn(f, g, word, 3, off, noise_dist=dist)[0]
+
+    def plain(f_, g_, w, s, p, noise_dist):
+        return fused_step.k_step_reference(f_, g_, w, s, p, noise_dist)
+
+    dk = kick(fused_step.fused_stream_collide, 9)
+    dp = kick(plain, 9)
+    assert float(dp.abs().max()) > 100 * ATOL
+    assert _maxdiff(dk, dp) <= ATOL
+    assert _maxdiff(kick(plain, 10), dk) > 100 * ATOL
+
+
+@pytest.mark.gpu
+def test_coupled_session_matches_plain_chain(cuda):
+    shape = (16, 16, 32)
+    params, f, g = _droplet(shape, cuda, 0.0, 8, kBT=1e-5)
+    words = [5 * k - 17 for k in range(10)]
+    ref = model.nsteps(init_state(f.clone(), g.clone(), 0), params, 10,
+                       words, noise_dist="clt4")
+    # no restore: its uniform ~1e-9 shift of f_0 moves cells with rho near
+    # 0 across the |rho| > eps guard, and the plain chain has none
+    sess = FusedSession(params, shape, noise_dist="clt4", mass_restore_int=0)
+    before = (fused_step.launches, fused_step.density_launches)
+    pc = sess.enter(init_state(f, g, 0), words[0])
+    pc = sess.advance(pc, 9, words[1:])
+    got = sess.exit(pc)
+    assert (fused_step.launches, fused_step.density_launches) == (
+        before[0] + 9, before[1] + 9)
+    assert max(_maxdiff(got.f, ref.f), _maxdiff(got.g, ref.g)) <= ATOL

@@ -42,7 +42,8 @@ def test_params_from_dict_rejects_unknown_fields():
 
 def test_state_from_arrays():
     f, g = perturbed_pops((4, 6, 8), 51)
-    st = interop.state_from_arrays(f, g, np.int32(12), seed=3)
+    st = interop.state_from_arrays(f, g, np.int32(12), seed=3,
+                                  device="cpu")
     assert st.step == 12 and st.shape == (4, 6, 8)
     assert st.f.dtype == torch.float32 and st.f.is_contiguous()
     np.testing.assert_array_equal(to_np(st.f), f)
@@ -53,7 +54,8 @@ def test_load_jax_checkpoint(tmp_path):
     f, g = perturbed_pops((4, 4, 8), 52)
     js = jinit(jnp.asarray(f), jnp.asarray(g), 9, step=33)
     jckpt.save_state(str(tmp_path / "ck"), js)
-    st = interop.load_jax_checkpoint(str(tmp_path / "ck"), seed=5)
+    st = interop.load_jax_checkpoint(str(tmp_path / "ck"), seed=5,
+                                    device="cpu")
     assert st.step == 33
     np.testing.assert_array_equal(to_np(st.f), f)
     np.testing.assert_array_equal(to_np(st.g), g)
@@ -63,7 +65,7 @@ def test_load_jax_checkpoint(tmp_path):
 
 def test_init_mixture_matches_jax():
     jst = jmodel.init_mixture((4, 6, 8), JParams(), dtype=jnp.float32)
-    tst = tmodel.init_mixture((4, 6, 8), TParams())
+    tst = tmodel.init_mixture((4, 6, 8), TParams(), device="cpu")
     assert tst.step == 0 and tst.f.dtype == torch.float32
     np.testing.assert_array_equal(to_np(tst.f), np.asarray(jst.f))
     np.testing.assert_array_equal(to_np(tst.g), np.asarray(jst.g))
@@ -113,7 +115,8 @@ def test_jax_key_words_reach_the_port():
     want, _ = jmodel.step(jinit(jnp.asarray(f), jnp.asarray(g), 7),
                           JParams(kBT=1e-5), noise_source="hash",
                           noise_dist="u8")
-    got, _ = tmodel.step(interop.state_from_arrays(f, g, 0, seed=7),
+    got, _ = tmodel.step(interop.state_from_arrays(f, g, 0, seed=7,
+                                                   device="cpu"),
                          TParams(kBT=1e-5), w)
     np.testing.assert_allclose(to_np(got.f), np.asarray(want.f), rtol=0,
                                atol=2e-5)

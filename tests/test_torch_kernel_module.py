@@ -101,11 +101,13 @@ def test_wrapper_refuses_other_devices():
 @pytest.mark.parametrize("kw,item", [
     (dict(), None),
     (dict(kBT=1e-5), None),
-    (dict(alpha0=1.1), "K1b"),
+    (dict(alpha0=1.1), None),
     (dict(alpha1=0.3), "K1c"),
     (dict(tau_f=0.8), "K1d"),
     (dict(tau_g=0.7), "K1d"),
-    (dict(use_sc_pseudo=True), "K1b"),
+    (dict(use_sc_pseudo=True), None),
+    (dict(alpha0=1.5, alpha1=0.3), "K1c"),
+    (dict(alpha0=1.5, use_sc_pseudo=True, tau_g=0.7), "K1d"),
 ])
 def test_unsupported_reason(kw, item):
     reason = tfs.unsupported_reason(TParams(**kw))
@@ -180,9 +182,15 @@ def test_maybe_restore_cadence(prev, new, applied):
 
 
 def test_build_is_keyed_by_sources():
-    so = _build.library_path()
-    assert so.parent == _build.build_dir()
-    assert so.parent.parts[-2:] == ("build", "bflbm_tpu_torch")
-    assert _build.source_hash() in so.name
+    assert _build.SOURCES == ("fused_step", "density_psi")
+    for name in _build.SOURCES:
+        so = _build.library_path(name)
+        assert so.parent == _build.build_dir()
+        assert so.parent.parts[-2:] == ("build", "bflbm_tpu_torch")
+        assert so.name.startswith(f"lib{name}.")
+        assert _build.source_hash(name) in so.name
+    assert _build.source_hash("fused_step") != _build.source_hash(
+        "density_psi")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
 
