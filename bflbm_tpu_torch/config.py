@@ -74,11 +74,10 @@ class LBMParams:
 @dataclass(frozen=True)
 class RunConfig:
     """Execution configuration (reference: ``main_run_job.cpp:77-106``);
-    field by field ``bflbm_tpu.config.RunConfig``.  The production run
-    loop (``bflbm_tpu.run``) that reads the output and cadence fields is
-    not ported yet (ROADMAP Queue 1 item 7); the session and the initializers read
-    shape, params, seed, dtype, init*, checkpoint_path, reseed and
-    noise_dist."""
+    field by field ``bflbm_tpu.config.RunConfig``, read by the run
+    driver :func:`bflbm_tpu_torch.run.run`.  Every draw of the port is
+    the coordinate-keyed hash stream, so ``noise_source`` has no effect
+    here; ``noise_dist`` picks its generator."""
 
     shape: Tuple[int, int, int] = (32, 32, 32)
     params: LBMParams = field(default_factory=LBMParams)
@@ -106,8 +105,8 @@ class RunConfig:
     reseed: bool = False         # checkpoint init: seed the noise words
     #                              from `seed`, not from the stored key
     noise_source: str = "threefry"
-    noise_dist: str = "clt4"     # hash-stream generator (the port's
-    #                              session runs "u8" and "clt4")
+    noise_dist: str = "clt4"     # hash-stream generator: clt4, u8,
+    #                              clt2 or bm
     droplet_int: int = 0
     chunk_cap: int = 1000
 

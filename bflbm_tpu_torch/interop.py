@@ -81,9 +81,6 @@ def load_jax_checkpoint(path: str, seed: Optional[int] = None,
     is a different (equally valid) stream.  To continue a JAX run
     bitwise, derive its per-step words on the JAX side and pass them
     explicitly (``FusedSession.advance(pc, n, words=...)``)."""
-    if not path.endswith(".npz"):
-        path = path + ".npz"
-    with np.load(path) as d:
-        if seed is None:
-            seed = seed_from_key(d["key"])
-        return state_from_arrays(d["f"], d["g"], d["step"], seed, device)
+    from .io.checkpoint import load_state
+
+    return load_state(path, seed=seed, device=device)

@@ -1,14 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles each ``csrc/<name>.cu`` into its own shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The builds happen at first use, all sources at
-once in parallel, into ``build/bflbm_tpu_torch/`` beside the package, and
-are cached by a hash of the source, the shared headers and the flags.
+``nvcc`` compiles each library of :data:`LIBRARIES` — a ``csrc/*.cu``
+source and its ``-D`` flags — into its own shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  ``fused_step.cu`` is built four times, once per relaxation
+(``BFLBM_GENERAL_RELAX``) and force (``BFLBM_FORCE``), so that its
+quarters compile in parallel.  The builds happen at first use, all
+libraries at once in parallel, into ``build/bflbm_tpu_torch/`` beside
+the package, and are cached by a hash of the source, the shared headers
+and the flags.
 ``-Xptxas -v`` output (registers, spills) is kept in a ``.log`` beside
 each library.
 
-Every library exports ``bflbm_set_tables(device, c, minv, gw)``, which
+Every library exports ``bflbm_set_tables(device, c, m, minv, gw)``, which
 fills its ``__constant__`` lattice tables, and ``bflbm_error_string``.
 """
 
@@ -17,22 +21,37 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
 
-from ..lattice import C, CS2, M_INV, W
+from ..lattice import C, CS2, M, M_INV, W
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_step", "density_psi")   # csrc/<name>.cu, one library each
+# library name -> (source in csrc/, extra nvcc flags)
+LIBRARIES = {
+    "fused_step": ("fused_step.cu", ("-DBFLBM_GENERAL_RELAX=0",
+                                     "-DBFLBM_FORCE=0")),
+    "fused_step_force": ("fused_step.cu", ("-DBFLBM_GENERAL_RELAX=0",
+                                           "-DBFLBM_FORCE=1")),
+    "fused_step_general": ("fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1",
+                                             "-DBFLBM_FORCE=0")),
+    "fused_step_general_force": ("fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1",
+                                                   "-DBFLBM_FORCE=1")),
+    "density_psi": ("density_psi.cu", ()),
+}
+SOURCES = tuple(LIBRARIES)
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}   # wall seconds of the last nvcc runs
 _tables_set = set()   # (name, device index) whose tables are filled
 
 
@@ -41,8 +60,9 @@ def build_dir() -> Path:
 
 
 def source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for part in (f"{name}.cu",) + _HEADERS:
+    src, defines = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
+    for part in (src,) + _HEADERS:
         h.update(part.encode())
         h.update((_CSRC / part).read_bytes())
     return h.hexdigest()[:16]
@@ -67,21 +87,24 @@ def _nvcc() -> str:
 
 def build() -> Dict[str, Path]:
     """Compile every kernel library whose sources changed, one ``nvcc``
-    per source, all started together."""
+    per library, all started together."""
     todo = {}
+    t0 = time.perf_counter()
     for name in SOURCES:
         so = library_path(name)
         if not so.exists():
             so.parent.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(_CSRC / f"{name}.cu")]
+            src, defines = LIBRARIES[name]
+            cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+                   str(_CSRC / src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             todo[name] = (so, tmp, cmd, proc)
     failed = []
     for name, (so, tmp, cmd, proc) in todo.items():
         out, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}) for {name}:\n"
                           f"{' '.join(cmd)}\n{out}")
@@ -94,27 +117,44 @@ def build() -> Dict[str, Path]:
 
 
 def ptxas_summary() -> List[str]:
-    """The ``-Xptxas -v`` register / spill lines of the current builds."""
+    """One line per kernel instantiation of the current builds: its
+    template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF>)
+    with the ``-Xptxas -v`` registers and spills."""
     out = []
     for name in SOURCES:
         log = library_path(name).with_suffix(".log")
-        if log.exists():
-            out += [f"{name}: {ln.strip()}"
-                    for ln in log.read_text().splitlines()
-                    if "registers" in ln or "spill" in ln
-                    or "Compiling entry" in ln]
+        if not log.exists():
+            continue
+        entry, spill = None, ""
+        for ln in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                mangled = m.group(1)
+                kern = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+                args = re.findall(r"L[bi](\d+)E", mangled)
+                entry = (f"{kern.group(1) if kern else mangled}"
+                         f"<{','.join(args)}>")
+            elif "spill" in ln:
+                spill = ln.strip()
+            elif "registers" in ln and entry is not None:
+                regs = re.search(r"Used (\d+) registers", ln)
+                out.append(f"{name} {entry}: "
+                           f"{regs.group(1) if regs else ln.strip()} "
+                           f"registers, {spill}")
+                entry = None
     return out
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bflbm_set_tables.argtypes = [i, p, p, p]
+    lib.bflbm_set_tables.argtypes = [i, p, p, p, p]
     lib.bflbm_set_tables.restype = i
     lib.bflbm_error_string.argtypes = [i]
     lib.bflbm_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "bflbm_fused_step"):
-        lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
-                                         f, f, f, i, i, p, f, f, f, p]
+        lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, p, i, i, i, i,
+                                         i, f, f, f, f, f, i, i, p, f, f,
+                                         f, p]
         lib.bflbm_fused_step.restype = i
     if hasattr(lib, "bflbm_density_psi"):
         lib.bflbm_density_psi.argtypes = [i, p, p, p, i, i, i, i, f, p]
@@ -123,7 +163,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def load(name: str, device) -> ctypes.CDLL:
     """Kernel library `name`, built if needed (with all the others), with
-    the lattice tables (C, M_INV, w / cs^2) filled into the device's
+    the lattice tables (C, M, M_INV, w / cs^2) filled into the device's
     __constant__ memory."""
     if name not in SOURCES:
         raise ValueError(f"unknown kernel library {name!r}")
@@ -138,10 +178,11 @@ def load(name: str, device) -> ctypes.CDLL:
     idx = device.index if device.index is not None else 0
     if (name, idx) not in _tables_set:
         c = np.ascontiguousarray(C, dtype=np.int32)
+        m = np.ascontiguousarray(M, dtype=np.float32)
         minv = np.ascontiguousarray(M_INV, dtype=np.float32)
         gw = np.ascontiguousarray(W / CS2, dtype=np.float32)
-        rc = lib.bflbm_set_tables(idx, c.ctypes.data, minv.ctypes.data,
-                                  gw.ctypes.data)
+        rc = lib.bflbm_set_tables(idx, c.ctypes.data, m.ctypes.data,
+                                  minv.ctypes.data, gw.ctypes.data)
         if rc != 0:
             raise RuntimeError(f"setting the {name} kernel tables failed: "
                                + lib.bflbm_error_string(rc).decode())

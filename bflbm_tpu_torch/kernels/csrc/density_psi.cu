@@ -59,7 +59,7 @@ density_psi_kernel(const float* __restrict__ fin,
 
 // Every kernel library takes the same table setter; this one needs only C.
 extern "C" int bflbm_set_tables(int device, const int* c, const float*,
-                                const float*) {
+                                const float*, const float*) {
   DeviceGuard guard(device);
   cudaError_t e = guard.status();
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_C, c, sizeof(int) * Q * 3);

@@ -2,66 +2,93 @@
 // Hopper (sm_90a), one thread per cell.
 //
 // Replaces the TPU kernel bflbm_tpu/kernels/fused_step.py:_step_kernel /
-// _k_compute (the pl.pallas_call at fused_step.py:1956) in its exact-
-// relaxation modes (tau_f = tau_g = 1/2), one step per launch:
-//   - K1a, uncoupled (alpha0 = alpha1 = 0);
-//   - K1b, coupled: the Shan-Chen force of alpha0 != 0 (fused_step.py:
+// _k_compute (the pl.pallas_call at fused_step.py:1956) at block 1 in its
+// modes without alpha1, one step per launch, each a template flag:
+//   - FORCE: K1b, the Shan-Chen force of alpha0 != 0 (fused_step.py:
 //     748-808, 922-934, 982-988, 1009-1050), with psi of the streamed
 //     densities read from a (2, X, Y, Z) array that csrc/density_psi.cu
-//     writes just before, on the same stream;
-// and the coordinate-keyed hash noise with u8 or clt4 deviates, or noise
-// off.
+//     writes just before, on the same stream; without it K1a;
+//   - GENERAL: K1d, general relaxation (fused_step.py:843-851, 1051-1064):
+//     all 19 moments of the streamed populations, rows k < 10 relaxed
+//     towards m_eq at 1 / (tau + 1/2), ghost rows towards 0, the Guo rows
+//     and the noise added after; without it the exact relaxation of
+//     tau_f = tau_g = 1/2 (only the four conserved moments are consumed);
+//   - REF: K1e, USE_REF_STATE (fused_step.py:944-951, 1808-1817): the
+//     noise amplitudes read the COM-rolled (rho_eq, phi_eq) from a
+//     (2, X, Y, Z) operand instead of the live densities;
+//   - NOISE and DIST: the coordinate-keyed hash noise with u8, clt4, clt2
+//     (_clt2_pair :633) or Box-Muller (_bm_normals :668 over hash_uniforms
+//     :535) deviates, or noise off.
+// GENERAL and FORCE are chosen per library: the source is compiled four
+// times, with BFLBM_GENERAL_RELAX and BFLBM_FORCE each 0 and 1, so that the
+// builds run in parallel and each holds the 9 instantiations of its pair
+// (noise off, or one of four generators with or without REF).
 //
-// What bounds it: device memory.  A cell update reads the 19 float32
-// populations of each of two species and writes as many back,
-// 2 * 19 * 4 * 2 = 304 bytes (312 coupled, with psi), against roughly
-// 1,500-2,000 flops (the two 18x19 back transforms dominate): about 5-6
-// flops per byte, well below the card's float32 flop:byte balance.  So the
-// design keeps ONE pass over memory per step: each thread pulls its 38
-// inputs straight from device memory (the neighbours' overlapping reads,
-// of populations and of psi, are served by L1/L2), keeps every
-// intermediate in registers, and writes its 38 outputs once.  Threads run
-// along z, so a warp's loads and stores touch contiguous addresses.  A pull
-// cannot run in place, so the output is a separate buffer (the caller
-// ping-pongs two pairs).
+// What bounds it: device memory by its bytes, instructions in practice.  A
+// cell update reads the 19 float32 populations of each of two species and
+// writes as many back, 2 * 19 * 4 * 2 = 304 bytes (312 coupled, with psi;
+// 8 more with the ref operand), against roughly 1,500-3,000 operations
+// (the two 18x19 back transforms, the hash words; GENERAL adds two 15x19
+// forward transforms).  The design keeps ONE pass over memory per step:
+// each thread pulls its 38 inputs straight from device memory (the
+// neighbours' overlapping reads, of populations and of psi, are served by
+// L1/L2), keeps every intermediate in registers, and writes its 38 outputs
+// once.  Threads run along z, so a warp's loads and stores touch
+// contiguous addresses.  A pull cannot run in place, so the output is a
+// separate buffer (the caller ping-pongs two pairs).
 //
 // Per cell: pull stream with periodic wrap; the four conserved moments of
 // each species (the densities summed in the order i = 0..18, as the
-// density pre-pass sums them); coupled: the 19-point isotropic gradient
-// grad psi = sum_i (w_i / cs^2) c_i psi(x + c_i) and the accelerations
-// a_f = -cs^2 alpha0 psi(rho) grad psi(phi) / rho, a_g likewise; real
-// velocities with the friction, force and 0.5 xi / rho noise terms;
-// barycentric equilibrium; post-collide moments (momentum and stress rows
-// m_eq + Guo force moments + xi, ghost rows pure noise, mass row without
-// noise); back transform of rows 1..18 with M_INV and the rest population
+// density pre-pass sums them), and under GENERAL the 15 other rows through
+// M; coupled: the 19-point isotropic gradient grad psi = sum_i (w_i /
+// cs^2) c_i psi(x + c_i) and the accelerations a_f = -cs^2 alpha0 psi(rho)
+// grad psi(phi) / rho, a_g likewise; real velocities with the friction,
+// force and 0.5 xi / rho noise terms; barycentric equilibrium; post-collide
+// moments; back transform of rows 1..18 with M_INV and the rest population
 // by telescoping, f_0 = m_0 - sum_{i>=1} f_i.
 //
 // Noise bits are those of the JAX package's hash stream: h1 = mix32(cell ^
 // word) with cell = (x*Y + y)*Z + z in uint32, and hash word k =
 // mix32(h1 + (step*64 + k) * 0x9E3779B9).  Channel a of the 33 draws is
-// byte a % 4 of word a / 4 under u8 (9 words a cell), and the byte sum of
-// word a under clt4 (33 words a cell), scaled as b * scale + off.
+// byte a % 4 of word a / 4 under u8 (9 words a cell), the byte sum of word
+// a under clt4 (33 words), half a % 2 of word a / 2 under clt2 (17 words),
+// and under Box-Muller the cosine (even a) or sine (odd a) normal of pair
+// a / 2, whose radius comes from the uniform of word 2p and whose angle
+// from that of word 2p + 1 (34 words, the 34th normal unused).
 //
-// Tables: C, M_INV and the gradient weights w_i / cs^2 live in __constant__
-// memory, filled once per device by bflbm_set_tables from the Python
-// lattice module.  Element offsets are size_t (19*X*Y*Z exceeds int32 at
-// 512^3); the hashed cell index stays 32-bit, as in the JAX package.
-// Divisions are guarded, |x| > eps, and amplitudes take sqrt(|.|): near
-// rho_lo = 0 a density can be 0 or slightly negative.  Build without fast
-// math: it would move both.
+// Tables: C, M, M_INV and the gradient weights w_i / cs^2 live in
+// __constant__ memory, filled once per device by bflbm_set_tables from the
+// Python lattice module.  Element offsets are size_t (19*X*Y*Z exceeds
+// int32 at 512^3); the hashed cell index stays 32-bit, as in the JAX
+// package.  Divisions are guarded, |x| > eps, and amplitudes take
+// sqrt(|.|): near rho_lo = 0 a density can be 0 or slightly negative.
+// Build without fast math: it would move both, and Box-Muller's logf and
+// sincosf must stay the accurate library functions.
+
+#ifndef BFLBM_GENERAL_RELAX
+#define BFLBM_GENERAL_RELAX 0
+#endif
+#ifndef BFLBM_FORCE
+#define BFLBM_FORCE 0
+#endif
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int NGHOST = Q - 4;   // noisy stress + ghost modes a = 4..18
+constexpr int NDRAWS = 33;      // 3 momentum + 15 f-ghost + 15 g-ghost
 constexpr int NWORDS_U8 = 9;    // 33 u8 draws, four per hash word
+constexpr int NWORDS_CLT2 = 17; // 33 clt2 draws, two per hash word
+constexpr int NPAIR_BM = 17;    // Box-Muller pairs over 34 uniforms
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
 constexpr uint32_t DRAW_STRIDE = 64u;
+constexpr float TWO_PI = 6.283185307179586f;
 
-enum Dist : int { DIST_U8 = 0, DIST_CLT4 = 1 };
+enum Dist : int { DIST_U8 = 0, DIST_CLT4 = 1, DIST_CLT2 = 2, DIST_BM = 3 };
 
 __constant__ int c_C[Q][3];
+__constant__ float c_M[Q][Q];
 __constant__ float c_MINV[Q][Q];
 __constant__ float c_GW[Q];     // w_i / cs^2, the gradient weights
 
@@ -69,20 +96,36 @@ struct NoiseCoef {
   float pref_mom;       // 2 (lam_f - lam_f^2 / 2) kBT
   float cf[NGHOST];     // sqrt(pref_f / cs^2 * b_a), a = 4..18
   float cg[NGHOST];     // sqrt(pref_g / cs^2 * b_a)
-  float scale;          // deviate = b * scale + off: b a byte (u8) or
-  float off;            // the byte sum of a word (clt4)
+  float scale;          // deviate = b * scale + off: b a byte (u8), the
+  float off;            // byte sum of a word (clt4) or of a half (clt2)
 };
 
 struct Relax {
   float eps;            // |rho| guard of the divisions (FLT_EPSILON)
   float half_lam_f;     // lam_f / 2
   float half_lam_g;
+  float lam_f;          // 1 / (tau_f + 1/2), the GENERAL relaxation rate
+  float lam_g;
 };
 
 struct Force {          // coupled mode only
   float k;              // -cs^2 alpha0
   float s_f;            // Guo prefactor 1 / (1 + 1 / (2 tau_f))
   float s_g;
+};
+
+struct Args {
+  const float* fin;
+  const float* gin;
+  const float* psi;     // (2, X, Y, Z) or null (uncoupled)
+  const float* ref;     // (2, X, Y, Z) or null (live amplitudes)
+  float* fout;
+  float* gout;
+  int X, Y, Z;
+  uint32_t word, step;
+  Relax rx;
+  NoiseCoef nc;
+  Force fc;
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -137,6 +180,56 @@ struct Draws<DIST_CLT4> {
   }
 };
 
+template <>
+struct Draws<DIST_CLT2> {
+  uint32_t t[NWORDS_CLT2];   // the SWAR pair sums of each word
+  __device__ __forceinline__ Draws(uint32_t h1, uint32_t sbase) {
+#pragma unroll
+    for (int k = 0; k < NWORDS_CLT2; ++k) {
+      const uint32_t w = hash_word(h1, sbase, k);
+      t[k] = (w & 0x00FF00FFu) + ((w >> 8) & 0x00FF00FFu);
+    }
+  }
+  __device__ __forceinline__ float operator()(int a,
+                                              const NoiseCoef& nc) const {
+    const uint32_t v = (a & 1) ? (t[a >> 1] >> 16) : (t[a >> 1] & 0xFFFFu);
+    return static_cast<float>(v) * nc.scale + nc.off;
+  }
+};
+
+// A hash word's U(0, 1): the top 24 bits over 2^24 plus half a step, so
+// never 0 (the product is exact, so a contracted FMA rounds the same).
+__device__ __forceinline__ float hash_uniform(uint32_t w) {
+  return static_cast<float>(w >> 8) * (1.0f / 16777216.0f) +
+         (0.5f / 16777216.0f);
+}
+
+template <>
+struct Draws<DIST_BM> {
+  float n[NDRAWS];
+  __device__ __forceinline__ Draws(uint32_t h1, uint32_t sbase) {
+#pragma unroll
+    for (int p = 0; p < NPAIR_BM; ++p) {
+      const float u1 = hash_uniform(hash_word(h1, sbase, 2 * p));
+      const float u2 = hash_uniform(hash_word(h1, sbase, 2 * p + 1));
+      const float r = sqrtf(-2.0f * logf(u1));
+      const float th = TWO_PI * u2;
+      if (2 * p + 1 < NDRAWS) {
+        float sn, cs;
+        sincosf(th, &sn, &cs);
+        n[2 * p] = r * cs;
+        n[2 * p + 1] = r * sn;
+      } else {
+        n[2 * p] = r * cosf(th);
+      }
+    }
+  }
+  __device__ __forceinline__ float operator()(int a,
+                                              const NoiseCoef&) const {
+    return n[a];
+  }
+};
+
 // Equilibrium moments of one species at the barycentric velocity; the
 // ghost rows 10..18 are zero.
 __device__ __forceinline__ void eq_moments(float n, const float (&v)[3],
@@ -156,38 +249,66 @@ __device__ __forceinline__ void eq_moments(float n, const float (&v)[3],
   for (int k = 10; k < Q; ++k) m[k] = 0.0f;
 }
 
-// Guo force moments with the half-step prefactor s (rows 1..9), added to m,
-// at the species' own real velocity u and acceleration a.
-__device__ __forceinline__ void add_guo(float n, const float (&u)[3],
-                                        const float (&a)[3], float s,
-                                        float (&m)[Q]) {
+// Guo force moments with the half-step prefactor s (rows 1..9; ph[0] is
+// unused), at the species' own real velocity u and acceleration a.
+__device__ __forceinline__ void guo_moments(float n, const float (&u)[3],
+                                            const float (&a)[3], float s,
+                                            float (&ph)[10]) {
   const float au = a[0] * u[0] + a[1] * u[1] + a[2] * u[2];
   const float sn = s * n;
   const float s2n = (s * 2.0f) * n;
-  m[1] = m[1] + sn * a[0];
-  m[2] = m[2] + sn * a[1];
-  m[3] = m[3] + sn * a[2];
-  m[4] = m[4] + s2n * au;
-  m[5] = m[5] + sn * (6.0f * a[0] * u[0] - 2.0f * au);
-  m[6] = m[6] + s2n * (a[1] * u[1] - a[2] * u[2]);
-  m[7] = m[7] + sn * (a[0] * u[1] + a[1] * u[0]);
-  m[8] = m[8] + sn * (a[1] * u[2] + a[2] * u[1]);
-  m[9] = m[9] + sn * (a[0] * u[2] + a[2] * u[0]);
+  ph[0] = 0.0f;
+  ph[1] = sn * a[0];
+  ph[2] = sn * a[1];
+  ph[3] = sn * a[2];
+  ph[4] = s2n * au;
+  ph[5] = sn * (6.0f * a[0] * u[0] - 2.0f * au);
+  ph[6] = s2n * (a[1] * u[1] - a[2] * u[2]);
+  ph[7] = sn * (a[0] * u[1] + a[1] * u[0]);
+  ph[8] = sn * (a[1] * u[2] + a[2] * u[1]);
+  ph[9] = sn * (a[0] * u[2] + a[2] * u[0]);
 }
 
-// Noise kick under exact relaxation: momentum and stress rows m + xi, ghost
-// rows pure noise, the mass row without noise.
-__device__ __forceinline__ void add_noise(const float (&xi)[Q],
-                                          float (&m)[Q]) {
+// Post-collide moments of one species.  Exact relaxation: momentum and
+// stress rows m_eq + Guo + xi, ghost rows pure noise, the mass row without
+// noise.  GENERAL (fused_step.py:1051-1064): rows k < 10 relax towards m_eq
+// and ghost rows towards 0 at rate lam, r = lam (m_eq - m) (+ Guo on rows
+// 1..9), m + r, then + xi.  m holds the streamed moments under GENERAL and
+// is overwritten with the result.
+template <bool NOISE, bool FORCE, bool GENERAL>
+__device__ __forceinline__ void post_collide(float n, const float (&vb)[3],
+                                             const float (&u)[3],
+                                             const float (&a)[3], float s,
+                                             float lam, const float (&xi)[Q],
+                                             float (&m)[Q]) {
+  float meq[Q];
+  eq_moments(n, vb, meq);
+  float ph[10];
+  if (FORCE) guo_moments(n, u, a, s, ph);
+  if (GENERAL) {
 #pragma unroll
-  for (int k = 1; k < 10; ++k) m[k] = m[k] + xi[k];
+    for (int k = 1; k < Q; ++k) {
+      float r = k < 10 ? lam * (meq[k] - m[k]) : -lam * m[k];
+      if (FORCE && k < 10) r = r + ph[k];
+      m[k] = m[k] + r;
+      if (NOISE) m[k] = m[k] + xi[k];
+    }
+  } else {
+    m[0] = meq[0];
 #pragma unroll
-  for (int k = 10; k < Q; ++k) m[k] = xi[k];
+    for (int k = 1; k < 10; ++k) {
+      m[k] = meq[k];
+      if (FORCE) m[k] = m[k] + ph[k];
+      if (NOISE) m[k] = m[k] + xi[k];
+    }
+#pragma unroll
+    for (int k = 10; k < Q; ++k) m[k] = NOISE ? xi[k] : 0.0f;
+  }
 }
 
 // Moments -> populations: rows 1..18 through M_INV, the rest population by
-// telescoping so the stored cell mass is m_0 up to one rounding.  Without
-// noise the ghost rows are zero and are skipped.
+// telescoping so the stored cell mass is m_0 up to one rounding.  Under
+// exact relaxation without noise the ghost rows are zero and are skipped.
 template <int NROWS>
 __device__ __forceinline__ void store_pops(const float (&m)[Q],
                                            float* __restrict__ out,
@@ -204,33 +325,37 @@ __device__ __forceinline__ void store_pops(const float (&m)[Q],
   out[idx] = m[0] - s;
 }
 
-template <bool NOISE, int DIST, bool FORCE>
-__global__ void __launch_bounds__(BLOCK)
-k_step_kernel(const float* __restrict__ fin, const float* __restrict__ gin,
-              const float* __restrict__ psi, float* __restrict__ fout,
-              float* __restrict__ gout, int X, int Y, int Z, uint32_t word,
-              uint32_t step, Relax rx, NoiseCoef nc, Force fc) {
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF>
+__global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   const int z = blockIdx.x * BLOCK + threadIdx.x;
+  const int X = p.X, Y = p.Y, Z = p.Z;
   if (z >= Z) return;
   const int y = blockIdx.y;
   const int x = blockIdx.z;
   const size_t plane = static_cast<size_t>(X) * Y * Z;
   const size_t idx = cell_offset(x, y, z, Y, Z);
+  const Relax& rx = p.rx;
 
   // Pull stream: population i at x is the input's at x - c_i.  Exact
   // relaxation consumes only the four conserved moments of the streamed
-  // populations, so they are accumulated as the loads arrive.
+  // populations; GENERAL also accumulates rows 4..18 through M.  All are
+  // accumulated as the loads arrive.
   float rho = 0.0f, phi = 0.0f;
   float jf[3] = {0.0f, 0.0f, 0.0f};
   float jg[3] = {0.0f, 0.0f, 0.0f};
+  float mf[Q], mg[Q];
+  if (GENERAL) {
+#pragma unroll
+    for (int k = 4; k < Q; ++k) mf[k] = mg[k] = 0.0f;
+  }
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
     const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
     const size_t src = i * plane + cell_offset(wrap(x - cx, X),
                                                wrap(y - cy, Y),
                                                wrap(z - cz, Z), Y, Z);
-    const float fi = __ldg(fin + src);
-    const float gi = __ldg(gin + src);
+    const float fi = __ldg(p.fin + src);
+    const float gi = __ldg(p.gin + src);
     rho += fi;
     phi += gi;
     jf[0] += static_cast<float>(cx) * fi;
@@ -239,6 +364,13 @@ k_step_kernel(const float* __restrict__ fin, const float* __restrict__ gin,
     jg[0] += static_cast<float>(cx) * gi;
     jg[1] += static_cast<float>(cy) * gi;
     jg[2] += static_cast<float>(cz) * gi;
+    if (GENERAL) {
+#pragma unroll
+      for (int k = 4; k < Q; ++k) {
+        mf[k] = fmaf(c_M[k][i], fi, mf[k]);
+        mg[k] = fmaf(c_M[k][i], gi, mg[k]);
+      }
+    }
   }
 
   const float inv_rho = safe_inv(rho, rx.eps);
@@ -248,8 +380,9 @@ k_step_kernel(const float* __restrict__ fin, const float* __restrict__ gin,
   const float wg = rho * inv_rhot;
 
   // Shan-Chen accelerations from psi of the streamed densities.
-  float af[3], ag[3];
+  float af[3] = {0.0f, 0.0f, 0.0f}, ag[3] = {0.0f, 0.0f, 0.0f};
   if (FORCE) {
+    const float* psi = p.psi;
     float grad_rho[3] = {0.0f, 0.0f, 0.0f};
     float grad_phi[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -271,22 +404,31 @@ k_step_kernel(const float* __restrict__ fin, const float* __restrict__ gin,
     const float psi_phi = __ldg(psi + plane + idx);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      af[d] = fc.k * psi_rho * grad_phi[d] * inv_rho;
-      ag[d] = fc.k * psi_phi * grad_rho[d] * inv_phi;
+      af[d] = p.fc.k * psi_rho * grad_phi[d] * inv_rho;
+      ag[d] = p.fc.k * psi_phi * grad_rho[d] * inv_phi;
     }
   }
 
-  // Noise moments xi_f, xi_g (rows 1..18; row 0 carries none).
+  // Noise moments xi_f, xi_g (rows 1..18; row 0 carries none), with the
+  // amplitudes at the live densities or, under REF, at the stored ones.
   float xf[Q], xg[Q];
   if (NOISE) {
+    const NoiseCoef& nc = p.nc;
     const uint32_t cell =
         (static_cast<uint32_t>(x) * static_cast<uint32_t>(Y) +
          static_cast<uint32_t>(y)) * static_cast<uint32_t>(Z) +
         static_cast<uint32_t>(z);
-    const Draws<DIST> draw(mix32(cell ^ word), step * DRAW_STRIDE);
-    const float amp_mom = sqrtf(nc.pref_mom * fabsf(rho * phi * inv_rhot));
-    const float sq_rho = sqrtf(fabsf(rho));
-    const float sq_phi = sqrtf(fabsf(phi));
+    const Draws<DIST> draw(mix32(cell ^ p.word), p.step * DRAW_STRIDE);
+    float a_rho = rho, a_phi = phi, a_inv = inv_rhot;
+    if (REF) {
+      a_rho = __ldg(p.ref + idx);
+      a_phi = __ldg(p.ref + plane + idx);
+      a_inv = safe_inv(a_rho + a_phi, rx.eps);
+    }
+    const float amp_mom = sqrtf(nc.pref_mom * fabsf(a_rho * a_phi * a_inv));
+    const float sq_rho = sqrtf(fabsf(a_rho));
+    const float sq_phi = sqrtf(fabsf(a_phi));
+    xf[0] = xg[0] = 0.0f;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       const float m = amp_mom * draw(d, nc);
@@ -321,54 +463,57 @@ k_step_kernel(const float* __restrict__ fin, const float* __restrict__ gin,
     vb[d] = (rho * uf[d] + phi * ug[d]) * inv_rhot;
   }
 
-  constexpr int NROWS = NOISE ? Q : 10;
-  float m[Q];
-  eq_moments(rho, vb, m);
-  if (FORCE) add_guo(rho, uf, af, fc.s_f, m);
-  if (NOISE) add_noise(xf, m);
-  store_pops<NROWS>(m, fout, plane, idx);
-  eq_moments(phi, vb, m);
-  if (FORCE) add_guo(phi, ug, ag, fc.s_g, m);
-  if (NOISE) add_noise(xg, m);
-  store_pops<NROWS>(m, gout, plane, idx);
+  constexpr int NROWS = (NOISE || GENERAL) ? Q : 10;
+  mf[0] = rho;
+  mg[0] = phi;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    mf[1 + d] = jf[d];
+    mg[1 + d] = jg[d];
+  }
+  post_collide<NOISE, FORCE, GENERAL>(rho, vb, uf, af, p.fc.s_f, rx.lam_f,
+                                      xf, mf);
+  store_pops<NROWS>(mf, p.fout, plane, idx);
+  post_collide<NOISE, FORCE, GENERAL>(phi, vb, ug, ag, p.fc.s_g, rx.lam_g,
+                                      xg, mg);
+  store_pops<NROWS>(mg, p.gout, plane, idx);
 }
 
-template <bool NOISE, int DIST, bool FORCE>
-void launch(dim3 grid, cudaStream_t s, const float* fin, const float* gin,
-            const float* psi, float* fout, float* gout, int X, int Y, int Z,
-            uint32_t w, uint32_t st, const Relax& rx, const NoiseCoef& nc,
-            const Force& fc) {
-  k_step_kernel<NOISE, DIST, FORCE><<<grid, BLOCK, 0, s>>>(
-      fin, gin, psi, fout, gout, X, Y, Z, w, st, rx, nc, fc);
-}
-
-template <bool FORCE>
-int launch_mode(int noise_on, int dist, dim3 grid, cudaStream_t s,
-                const float* fin, const float* gin, const float* psi,
-                float* fout, float* gout, int X, int Y, int Z, uint32_t w,
-                uint32_t st, const Relax& rx, const NoiseCoef& nc,
-                const Force& fc) {
-  if (!noise_on)
-    launch<false, DIST_U8, FORCE>(grid, s, fin, gin, psi, fout, gout, X, Y,
-                                  Z, w, st, rx, nc, fc);
-  else if (dist == DIST_U8)
-    launch<true, DIST_U8, FORCE>(grid, s, fin, gin, psi, fout, gout, X, Y,
-                                 Z, w, st, rx, nc, fc);
-  else if (dist == DIST_CLT4)
-    launch<true, DIST_CLT4, FORCE>(grid, s, fin, gin, psi, fout, gout, X, Y,
-                                   Z, w, st, rx, nc, fc);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF>
+int launch(dim3 grid, cudaStream_t s, const Args& a) {
+  k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF><<<grid, BLOCK, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DIST, bool FORCE, bool GENERAL>
+int launch_noise(dim3 grid, cudaStream_t s, const Args& a) {
+  if (a.ref != nullptr)
+    return launch<true, DIST, FORCE, GENERAL, true>(grid, s, a);
+  return launch<true, DIST, FORCE, GENERAL, false>(grid, s, a);
+}
+
+template <bool FORCE, bool GENERAL>
+int launch_mode(int noise_on, int dist, dim3 grid, cudaStream_t s,
+                const Args& a) {
+  if (!noise_on)
+    return launch<false, DIST_U8, FORCE, GENERAL, false>(grid, s, a);
+  switch (dist) {
+    case DIST_U8: return launch_noise<DIST_U8, FORCE, GENERAL>(grid, s, a);
+    case DIST_CLT4: return launch_noise<DIST_CLT4, FORCE, GENERAL>(grid, s, a);
+    case DIST_CLT2: return launch_noise<DIST_CLT2, FORCE, GENERAL>(grid, s, a);
+    case DIST_BM: return launch_noise<DIST_BM, FORCE, GENERAL>(grid, s, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-extern "C" int bflbm_set_tables(int device, const int* c, const float* minv,
-                                const float* gw) {
+extern "C" int bflbm_set_tables(int device, const int* c, const float* m,
+                                const float* minv, const float* gw) {
   DeviceGuard guard(device);
   cudaError_t e = guard.status();
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_C, c, sizeof(int) * Q * 3);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_M, m, sizeof(float) * Q * Q);
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbol(c_MINV, minv, sizeof(float) * Q * Q);
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_GW, gw, sizeof(float) * Q);
@@ -377,39 +522,51 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float* minv,
 
 // One K step on device pointers (19, X, Y, Z) float32, z contiguous.
 // psi: the (2, X, Y, Z) psi densities of the streamed input for the coupled
-// mode, or null for the uncoupled one.  dist: 0 u8, 1 clt4.
-// coef: host array [pref_mom, cf[15], cg[15], scale, off].
-// force_k = -cs^2 alpha0; s_f, s_g the Guo prefactors.
-// Returns cudaGetLastError() after the launch.
+// mode (the BFLBM_FORCE=1 builds), or null for the uncoupled one; the other
+// gives cudaErrorInvalidValue.  ref: the (2, X, Y, Z) COM-rolled
+// (rho_eq, phi_eq) of USE_REF_STATE, or null (read only with noise on).
+// dist: 0 u8, 1 clt4, 2 clt2, 3 Box-Muller.  coef: host array [pref_mom,
+// cf[15], cg[15], scale, off].  lam_f, lam_g: 1 / (tau + 1/2), read by the
+// general-relaxation build.  force_k = -cs^2 alpha0; s_f, s_g the Guo
+// prefactors.  Returns cudaGetLastError() after the launch.
 extern "C" int bflbm_fused_step(int device, const float* fin,
                                 const float* gin, const float* psi,
-                                float* fout, float* gout, int X, int Y,
-                                int Z, int word, int step, float eps,
-                                float half_lam_f, float half_lam_g,
-                                int noise_on, int dist, const float* coef,
-                                float force_k, float s_f, float s_g,
-                                void* stream) {
+                                const float* ref, float* fout, float* gout,
+                                int X, int Y, int Z, int word, int step,
+                                float eps, float half_lam_f, float half_lam_g,
+                                float lam_f, float lam_g, int noise_on,
+                                int dist, const float* coef, float force_k,
+                                float s_f, float s_g, void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
-  const Relax rx{eps, half_lam_f, half_lam_g};
-  const Force fc{force_k, s_f, s_g};
-  NoiseCoef nc;
-  nc.pref_mom = coef[0];
-  for (int a = 0; a < NGHOST; ++a) {
-    nc.cf[a] = coef[1 + a];
-    nc.cg[a] = coef[1 + NGHOST + a];
+  Args a;
+  a.fin = fin;
+  a.gin = gin;
+  a.psi = psi;
+  a.ref = ref;
+  a.fout = fout;
+  a.gout = gout;
+  a.X = X;
+  a.Y = Y;
+  a.Z = Z;
+  a.word = static_cast<uint32_t>(word);
+  a.step = static_cast<uint32_t>(step);
+  a.rx = Relax{eps, half_lam_f, half_lam_g, lam_f, lam_g};
+  a.fc = Force{force_k, s_f, s_g};
+  a.nc.pref_mom = coef[0];
+  for (int k = 0; k < NGHOST; ++k) {
+    a.nc.cf[k] = coef[1 + k];
+    a.nc.cg[k] = coef[1 + NGHOST + k];
   }
-  nc.scale = coef[1 + 2 * NGHOST];
-  nc.off = coef[2 + 2 * NGHOST];
+  a.nc.scale = coef[1 + 2 * NGHOST];
+  a.nc.off = coef[2 + 2 * NGHOST];
   const dim3 grid = cell_grid(X, Y, Z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t w = static_cast<uint32_t>(word);
-  const uint32_t st = static_cast<uint32_t>(step);
-  if (psi != nullptr)
-    return launch_mode<true>(noise_on, dist, grid, s, fin, gin, psi, fout,
-                             gout, X, Y, Z, w, st, rx, nc, fc);
-  return launch_mode<false>(noise_on, dist, grid, s, fin, gin, psi, fout,
-                            gout, X, Y, Z, w, st, rx, nc, fc);
+  constexpr bool kGeneral = BFLBM_GENERAL_RELAX != 0;
+  constexpr bool kForce = BFLBM_FORCE != 0;
+  if ((psi != nullptr) != kForce)   // the other library's mode
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode<kForce, kGeneral>(noise_on, dist, grid, s, a);
 }
 
 extern "C" const char* bflbm_error_string(int code) {

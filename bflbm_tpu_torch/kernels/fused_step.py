@@ -7,8 +7,10 @@ keyed by (word_k, k)) advances it to label k + 1.
 
 :func:`fused_stream_collide` launches the hand-written CUDA kernels on
 CUDA tensors and runs their plain PyTorch versions on CPU tensors.  The
-kernels cover exact relaxation (tau_f = tau_g = 1/2) with alpha1 = 0,
-kBT = 0 or the hash stream with u8 or clt4 deviates:
+kernels cover alpha1 = 0 with exact (tau_f = tau_g = 1/2) or general
+relaxation, kBT = 0 or the hash stream with u8, clt4, clt2 or Box-Muller
+deviates, and noise amplitudes from the live densities or from a stored
+reference state (USE_REF_STATE, the ``ref`` operand):
 
 - uncoupled (alpha0 = 0): one launch of ``csrc/fused_step.cu``
   (:func:`launch_k`, plain version :func:`k_step_reference`);
@@ -34,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,9 +69,22 @@ _CLT4_VAR = 4.0 * (65536.0 - 1.0) / 12.0
 _CLT4_SCALE = float(1.0 / np.sqrt(_CLT4_VAR))
 _CLT4_OFF = float(-510.0 / np.sqrt(_CLT4_VAR))
 
-# The generators the kernel runs: name -> (kernel code, scale, offset).
+# CLT-2 byte-pair normal: each 16-bit half of a word summed as two bytes,
+# standardized — two per word.
+_CLT2_VAR = 2.0 * (65536.0 - 1.0) / 12.0
+_CLT2_SCALE = float(1.0 / np.sqrt(_CLT2_VAR))
+_CLT2_OFF = float(-255.0 / np.sqrt(_CLT2_VAR))
+
+# Box-Muller over hash uniforms (h >> 8) 2^-24 + 2^-25, strictly in (0, 1).
+_NPAIR = 17       # 34 uniforms -> 34 normals, of which 33 are used
+_TWO_PI = 6.283185307179586
+
+# The generators the kernel runs: name -> (kernel code, scale, offset);
+# Box-Muller needs no scale.
 NOISE_DISTS = {"u8": (0, _U8_SCALE, _U8_OFF),
-               "clt4": (1, _CLT4_SCALE, _CLT4_OFF)}
+               "clt4": (1, _CLT4_SCALE, _CLT4_OFF),
+               "clt2": (2, _CLT2_SCALE, _CLT2_OFF),
+               "bm": (3, 1.0, 0.0)}
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -116,12 +131,34 @@ def clt4_normal(w: torch.Tensor, dtype) -> torch.Tensor:
     return s.to(dtype) * _CLT4_SCALE + _CLT4_OFF
 
 
+def clt2_pair(w: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hash word -> (lo, hi) standardized byte-pair normals: bytes 0+1
+    and 2+3 summed in the two 16-bit halves of one add."""
+    t = (w & 0x00FF00FF) + ((w >> 8) & 0x00FF00FF)
+    return ((t & 0xFFFF).to(dtype) * _CLT2_SCALE + _CLT2_OFF,
+            (t >> 16).to(dtype) * _CLT2_SCALE + _CLT2_OFF)
+
+
+def hash_uniform(w: torch.Tensor, dtype) -> torch.Tensor:
+    """Hash word -> U(0, 1) strictly inside (0, 1): the top 24 bits
+    scaled by 2^-24, plus half of that step."""
+    return (w >> 8).to(dtype) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+
+
+def bm_pair(u1: torch.Tensor, u2: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Box-Muller: (r cos th, r sin th) with r = sqrt(-2 log u1) and
+    th = 2 pi u2."""
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    th = _TWO_PI * u2
+    return r * torch.cos(th), r * torch.sin(th)
+
+
 def check_noise_dist(noise_dist: str) -> None:
-    """Raise for a generator the kernels do not run."""
+    """Raise ValueError for a generator name the port does not know."""
     if noise_dist not in NOISE_DISTS:
-        raise NotImplementedError(
-            f"noise_dist={noise_dist!r} is not ported yet (ROADMAP Queue 2, "
-            f"K3); the kernels run {sorted(NOISE_DISTS)}")
+        raise ValueError(f"unknown noise_dist={noise_dist!r}; the kernels "
+                         f"run {sorted(NOISE_DISTS)}")
 
 
 # ---------------------------------------------------------------------------
@@ -129,17 +166,21 @@ def check_noise_dist(noise_dist: str) -> None:
 # ---------------------------------------------------------------------------
 
 def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
-                     params: LBMParams, noise_dist: str = "u8"
+                     params: LBMParams, noise_dist: str = "clt4",
+                     ref: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K = collide∘stream of a post-collide state:
     stream -> hydrovars_bar -> hash noise (word, step) -> hydrovars (with
-    the Shan-Chen force when alpha0 != 0) -> collide."""
+    the Shan-Chen force when alpha0 != 0) -> collide (exact or general
+    relaxation, :func:`general_relax`).  ref: optional (2, X, Y, Z)
+    COM-rolled (rho_eq, phi_eq) — the USE_REF_STATE noise amplitudes."""
     check_noise_dist(noise_dist)
     fs = stream_ops.stream(f)
     gs = stream_ops.stream(g)
     hbar = hydro_ops.hydrovars_bar(fs, gs, params)
+    ref_state = None if ref is None else (ref[0], ref[1], None)
     xi_f, xi_g = noise_ops.thermal_noise_hash(word, step, hbar.rho, hbar.phi,
-                                              params, noise_dist)
+                                              params, ref_state, noise_dist)
     h = hydro_ops.hydrovars(fs, gs, xi_f, xi_g, params, hbar)
     return collide_ops.collide(fs, gs, h, xi_f, xi_g, params)
 
@@ -161,9 +202,19 @@ def density_psi_reference(f: torch.Tensor, g: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # Launches of the K kernel (launch_k) and of the density pre-pass
-# (density_psi), on CUDA tensors only.
+# (density_psi), on CUDA tensors only; mode_launches counts the K
+# launches by mode: "general" (K1d), "ref" (K1e) and, for launches with
+# noise, the generator's name.
 launches = 0
 density_launches = 0
+mode_launches: Dict[str, int] = {}
+
+
+def reset_launch_counts() -> None:
+    global launches, density_launches
+    launches = 0
+    density_launches = 0
+    mode_launches.clear()
 
 
 def unsupported_reason(params: LBMParams) -> Optional[str]:
@@ -171,9 +222,15 @@ def unsupported_reason(params: LBMParams) -> Optional[str]:
     if params.alpha1 != 0.0:
         return ("alpha1 != 0 needs the square-gradient kernel "
                 "(ROADMAP Queue 1 item 9, K1c)")
-    if params.tau_f != 0.5 or params.tau_g != 0.5:
-        return "tau != 1/2 needs the general-tau kernel (ROADMAP K1d)"
     return None
+
+
+def general_relax(params: LBMParams) -> bool:
+    """K relaxes all 19 moments (tau != 1/2, or the test hook
+    ``ops.collide.FORCE_GENERAL_RELAX``) instead of the exact-relaxation
+    specialization; the plain collide reads the same switch."""
+    return (collide_ops.FORCE_GENERAL_RELAX
+            or params.tau_f != 0.5 or params.tau_g != 0.5)
 
 
 def is_coupled(params: LBMParams) -> bool:
@@ -275,10 +332,15 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
              params: LBMParams, out: Pair, psi: Optional[torch.Tensor],
-             noise_dist: str = "u8") -> Pair:
+             noise_dist: str = "clt4",
+             ref: Optional[torch.Tensor] = None) -> Pair:
     """Launch the K kernel on CUDA tensors: f, g -> out.  psi: the
     pre-pass output of (f, g) for a coupled configuration, None for an
-    uncoupled one.  Raises for what the kernel does not take."""
+    uncoupled one.  ref: the (2, X, Y, Z) USE_REF_STATE amplitude fields
+    or None (ignored when kBT = 0, as in the JAX kernel).  The library
+    is the build of ``fused_step.cu`` for the relaxation
+    (:func:`general_relax`) and the force.  Raises for what the kernel
+    does not take."""
     global launches
     reason = unsupported_reason(params)
     if reason is not None:
@@ -296,38 +358,54 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
     if psi is not None:
         _check_field("psi", psi, f, 2)
         _check_no_alias("psi", psi, (f, g) + tuple(out))
+    if ref is not None:
+        _check_field("ref", ref, f, 2)
+        _check_no_alias("ref", ref, tuple(out))
+        if not params.noise_on:
+            ref = None
     X, Y, Z = _grid_dims(f)
     from . import _build
 
-    lib = _build.load("fused_step", f.device)
+    lib = _build.load("fused_step" + ("_general" if general_relax(params)
+                                      else "")
+                      + ("_force" if psi is not None else ""), f.device)
     coef = (ctypes.c_float * 33)(*_noise_coef(
         float(params.kBT), params.lam_f, params.lam_g, noise_dist))
     rc = lib.bflbm_fused_step(
         f.device.index, f.data_ptr(), g.data_ptr(),
         None if psi is None else psi.data_ptr(),
+        None if ref is None else ref.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
         _as_i32(word), _as_i32(step), params.div_eps,
-        0.5 * params.lam_f, 0.5 * params.lam_g, int(params.noise_on),
-        NOISE_DISTS[noise_dist][0], coef, -CS2 * params.alpha0,
+        0.5 * params.lam_f, 0.5 * params.lam_g, params.lam_f, params.lam_g,
+        int(params.noise_on), NOISE_DISTS[noise_dist][0], coef,
+        -CS2 * params.alpha0,
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_f)),
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_g)),
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "fused_step")
     launches += 1
+    tags = ((["general"] if general_relax(params) else [])
+            + (["ref"] if ref is not None else [])
+            + ([noise_dist] if params.noise_on else []))
+    for tag in tags:
+        mode_launches[tag] = mode_launches.get(tag, 0) + 1
     return out
 
 
 def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
                          step: int, params: LBMParams,
                          out: Optional[Pair] = None, *,
-                         noise_dist: str = "u8",
-                         psi: Optional[torch.Tensor] = None) -> Pair:
+                         noise_dist: str = "clt4",
+                         psi: Optional[torch.Tensor] = None,
+                         ref: Optional[torch.Tensor] = None) -> Pair:
     """One K step of the post-collide pair (f, g) with noise word `word`
     at step label `step`; returns the new pair (written into `out` when
     given — it must not alias f or g: the pull reads neighbours).
-    noise_dist: "u8" or "clt4".  psi: a (2, X, Y, Z) float32 scratch for
-    the density pre-pass of a coupled configuration (allocated when not
-    given).
+    noise_dist: "clt4", "u8", "clt2" or "bm".  psi: a (2, X, Y, Z)
+    float32 scratch for the density pre-pass of a coupled configuration
+    (allocated when not given).  ref: the (2, X, Y, Z) COM-rolled
+    (rho_eq, phi_eq) of USE_REF_STATE, or None.
 
     CPU tensors run :func:`k_step_reference`.  CUDA tensors launch the
     CUDA kernels (the pre-pass, then K, on the current stream), or
@@ -337,7 +415,7 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
     if f.device.type == "cpu":
-        fo, go = k_step_reference(f, g, word, step, params, noise_dist)
+        fo, go = k_step_reference(f, g, word, step, params, noise_dist, ref)
         if out is None:
             return fo, go
         out[0].copy_(fo)
@@ -355,7 +433,7 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
         psi = density_psi(f, g, params, out=psi)
     else:
         psi = None
-    return launch_k(f, g, word, step, params, out, psi, noise_dist)
+    return launch_k(f, g, word, step, params, out, psi, noise_dist, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -385,18 +463,21 @@ def _maybe_restore(prev_step: int, st: SimState, mass_restore) -> SimState:
 
 
 def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
-                noise_dist: str = "u8"):
-    """fn(s, words=None) -> s: n K steps of a post-collide SimState, one
-    K launch per step (block 1; a coupled configuration adds one pre-pass
-    launch), ping-ponging two buffer pairs and, when coupled, reusing one
-    psi scratch for the chunk.
+                noise_dist: str = "clt4"):
+    """fn(s, words=None, ref=None) -> s: n K steps of a post-collide
+    SimState, one K launch per step (block 1; a coupled configuration
+    adds one pre-pass launch), ping-ponging two buffer pairs and, when
+    coupled, reusing one psi scratch for the chunk.
 
     The input's buffers are reused as the second pair, so `s` is
     consumed.  words: the n per-step noise words (default: drawn from
-    s.gen).  mass_restore: optional (interval, m0f, m0g)."""
+    s.gen).  ref: the (2, X, Y, Z) USE_REF_STATE amplitude fields, held
+    fixed for the n steps.  mass_restore: optional (interval, m0f,
+    m0g)."""
     check_noise_dist(noise_dist)
 
-    def run_k(s: SimState, words: Optional[Sequence[int]] = None) -> SimState:
+    def run_k(s: SimState, words: Optional[Sequence[int]] = None,
+              ref: Optional[torch.Tensor] = None) -> SimState:
         if words is None:
             words = draw_words(s.gen, n)
         if len(words) != n:
@@ -412,7 +493,7 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
                 spare = (torch.empty_like(cur.f), torch.empty_like(cur.g))
             fo, go = fused_stream_collide(cur.f, cur.g, w, cur.step, params,
                                           out=spare, noise_dist=noise_dist,
-                                          psi=psi)
+                                          psi=psi, ref=ref)
             spare = (cur.f, cur.g)
             nxt = cur.replace(f=fo, g=go, step=cur.step + 1)
             cur = _maybe_restore(cur.step, nxt, mass_restore)

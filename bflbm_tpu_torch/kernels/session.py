@@ -17,46 +17,84 @@ Every step consumes one noise word: ``enter(state, word)`` and
 ``advance(pc, n, words)`` take them explicitly, or draw them from the
 state's generator.
 
+USE_REF_STATE (``ref_fields``, LBM_binary.H:92-106): the noise
+amplitudes read the stored equilibrium (rho_eq, phi_eq) rolled into the
+instantaneous centre-of-mass frame.  The reference re-rolls every step;
+the session rolls once per sub-chunk and runs the sub-chunks
+transactionally (:meth:`FusedSession._advance_ref`, as
+``bflbm_tpu/kernels/session.py:244-280``), so that a COM cell-boundary
+crossing lands on a sub-chunk boundary and the trajectory is the per-step
+one.
+
 :func:`make_session` is the entry point for a configuration: it returns
 a :class:`FusedSession` or raises for what the kernels cannot run.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import LBMParams
 from ..models import binary_fluid as model
+from ..observables import stats
 from ..ops import collide as collide_ops
+from ..ops import noise as noise_ops
 from ..ops import stream as stream_ops
-from ..state import SimState
+from ..state import SimState, draw_words
 from . import fused_step
 
 
 class FusedSession:
     """Single-device session over the fused K-step kernels.
 
-    noise_dist: the hash-stream generator, "u8" or "clt4" (both the
-    entry prelude and the kernel use it).  mass_restore_int: cadence (in
-    steps) of the global exact-mass restore
-    (:func:`fused_step.mass_restore_step`); 0 disables it.  The
-    invariants (m0f, m0g) are captured at the first :meth:`enter`."""
+    noise_dist: the hash-stream generator, "clt4" (default, as in the
+    JAX package), "u8", "clt2" or "bm" (both the entry prelude and the
+    kernel use it).  mass_restore_int: cadence (in steps) of the global
+    exact-mass restore (:func:`fused_step.mass_restore_step`); 0
+    disables it.  The invariants (m0f, m0g) are captured at the first
+    :meth:`enter`.  ref_fields: optional (rho_eq, phi_eq, com_ref) of
+    USE_REF_STATE — the stored equilibrium densities (X, Y, Z) and the
+    centre of mass of rho_eq."""
+
+    _REF_CAP = 64   # longest transactional sub-chunk (ref_fields only)
 
     def __init__(self, params: LBMParams, shape: Tuple[int, int, int], *,
-                 noise_dist: str = "u8", mass_restore_int: int = 1000):
+                 noise_dist: str = "clt4", mass_restore_int: int = 1000,
+                 ref_fields=None):
         fused_step.check_noise_dist(noise_dist)
         self.params = params
         self.shape = tuple(int(s) for s in shape)
         self.noise_dist = noise_dist
         self.mass_restore_int = int(mass_restore_int or 0)
         self._m0 = None
+        self.use_ref = ref_fields is not None
+        self._viol = 0
+        self._ref_cap = self._REF_CAP
+        self.ref_backup_s = 0.0    # wall seconds of the rollback copies
+        self.ref_retry_steps = 0   # K steps run again after a rollback
+        if self.use_ref:
+            rho_eq, phi_eq, com_ref = ref_fields
+            self._rho_eq = torch.as_tensor(rho_eq)
+            self._phi_eq = torch.as_tensor(phi_eq)
+            self._com_ref = torch.as_tensor(com_ref, dtype=torch.float64)
+            if tuple(self._rho_eq.shape) != self.shape:
+                raise ValueError(f"ref field shape {tuple(self._rho_eq.shape)}"
+                                 f" != session shape {self.shape}")
 
     def _mass_restore_arg(self):
         if self.mass_restore_int and self._m0 is not None:
             return (self.mass_restore_int,) + tuple(self._m0)
         return None
+
+    def _ref_on(self, like: torch.Tensor) -> None:
+        """Move the ref fields to the state's device and dtype (once)."""
+        if self._rho_eq.device != like.device or \
+                self._rho_eq.dtype != like.dtype:
+            self._rho_eq = self._rho_eq.to(like.device, like.dtype)
+            self._phi_eq = self._phi_eq.to(like.device, like.dtype)
 
     def enter(self, state: SimState, word: Optional[int] = None) -> SimState:
         """Post-stream state (step t) -> resident post-collide state
@@ -68,21 +106,103 @@ class FusedSession:
         if self.mass_restore_int and self._m0 is None:
             self._m0 = (state.f.sum(dtype=torch.float64),
                         state.g.sum(dtype=torch.float64))
+        ref_state = None
+        if self.use_ref:
+            self._ref_on(state.f)
+            ref_state = (self._rho_eq, self._phi_eq, self._com_ref)
         h, xi_f, xi_g = model.prelude(state, self.params, word,
+                                      ref_state=ref_state,
                                       noise_dist=self.noise_dist)
         f1, g1 = collide_ops.collide(state.f, state.g, h, xi_f, xi_g,
                                      self.params)
         return state.replace(f=f1, g=g1, step=state.step + 1)
 
+    def _ksteps(self, n: int):
+        return fused_step.make_ksteps(self.params, n, self._mass_restore_arg(),
+                                      noise_dist=self.noise_dist)
+
     def advance(self, pc: SimState, n: int,
                 words: Optional[Sequence[int]] = None) -> SimState:
         """Advance the resident state n K steps.  Consumes pc: its
-        buffers become the ping-pong partner of the kernel loop."""
+        buffers become the ping-pong partner of the kernel loop.
+        USE_REF_STATE sessions run transactionally
+        (:meth:`_advance_ref`)."""
         if n <= 0:
             return pc
-        run = fused_step.make_ksteps(self.params, n, self._mass_restore_arg(),
-                                     noise_dist=self.noise_dist)
-        return run(pc, words)
+        if not self.use_ref:
+            return self._ksteps(n)(pc, words)
+        if words is None:
+            words = draw_words(pc.gen, n)
+        if len(words) != n:
+            raise ValueError(f"need {n} words, got {len(words)}")
+        return self._advance_ref(pc, list(words))
+
+    # -- USE_REF_STATE ---------------------------------------------------
+    def _ref_shift(self, f: torch.Tensor) -> List[int]:
+        """Integer COM shift of the state that post-collide f streams to.
+        The per-step path rolls from the post-stream density the prelude
+        sees; collide keeps each cell's mass, so the COM of pc.f is one
+        step stale: the mass field is streamed first (plain torch, not
+        the pre-pass kernel, so that the kernels' launch counts stay
+        those of the physical steps)."""
+        rho = stream_ops.stream(f).sum(dim=0)
+        com = stats.center_of_mass(rho)
+        return torch.round(com - self._com_ref.to(com.device)).to(
+            torch.int64).tolist()
+
+    def _rolled_ref(self, shift: Sequence[int]) -> torch.Tensor:
+        """(2, X, Y, Z) (rho_eq, phi_eq) rolled by `shift`: the kernel's
+        ref operand."""
+        return torch.stack([noise_ops._roll3(self._rho_eq, shift),
+                            noise_ops._roll3(self._phi_eq, shift)])
+
+    def _advance_ref(self, pc: SimState, words: List[int]) -> SimState:
+        """Transactional USE_REF_STATE advance
+        (``bflbm_tpu/kernels/session.py:244-280``): sub-chunks of at most
+        ``_REF_CAP`` steps, each run with the ref fields rolled by the
+        COM shift at its start; when the shift at its end differs (a
+        cell-boundary crossing inside a sub-chunk of more than one step)
+        the state is restored from a copy and the sub-chunk halved, until
+        the crossing lands on a sub-chunk boundary.  A crossing inside a
+        one-step sub-chunk is accepted and counted
+        (:meth:`ref_violations`): its roll came from the COM at that
+        step's start, as in the reference.  A retried sub-chunk replays
+        the same words: they are drawn once for the whole advance.  Cost:
+        one device copy of the state and one host sync per sub-chunk."""
+        self._ref_on(pc.f)
+        done = 0
+        cap = self._ref_cap
+        shift0 = self._ref_shift(pc.f)
+        while done < len(words):
+            n_i = min(len(words) - done, cap)
+            backup = None
+            if n_i > 1:
+                t0 = time.perf_counter()
+                backup = pc.replace(f=pc.f.clone(), g=pc.g.clone())
+                if pc.f.is_cuda:   # the shift's host read synced before
+                    torch.cuda.synchronize(pc.f.device)
+                self.ref_backup_s += time.perf_counter() - t0
+            out = self._ksteps(n_i)(pc, words[done:done + n_i],
+                                    self._rolled_ref(shift0))
+            shift1 = self._ref_shift(out.f)
+            if shift1 != shift0 and n_i > 1:
+                pc = backup
+                self.ref_retry_steps += n_i
+                cap = max(1, n_i // 2)
+                continue
+            if shift1 != shift0:
+                self._viol += 1
+            pc, shift0 = out, shift1
+            done += n_i
+            cap = min(self._REF_CAP, cap * 2)
+        self._ref_cap = cap
+        return pc
+
+    def ref_violations(self) -> int:
+        """COM cell-boundary crossings the transactional advance isolated
+        to one-step sub-chunks: how often the droplet crossed a cell
+        boundary (each handled at step granularity)."""
+        return self._viol
 
     def exit_view(self, pc: SimState) -> SimState:
         """Post-stream view of the resident state at its current step;
@@ -93,14 +213,17 @@ class FusedSession:
     exit = exit_view
 
 
-def make_session(params: LBMParams, shape, *, noise_dist: str = "u8",
-                 mass_restore_int: int = 1000) -> FusedSession:
+def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
+                 mass_restore_int: int = 1000,
+                 ref_fields=None) -> FusedSession:
     """The single-device session for this configuration (the counterpart
     of ``bflbm_tpu.kernels.session.make_session`` without a mesh).
     Raises NotImplementedError, naming the ROADMAP item, for what the
-    kernels cannot run; there is no plain-torch engine to fall back to."""
+    kernels cannot run (alpha1, K1c); there is no plain-torch engine to
+    fall back to."""
     reason = fused_step.unsupported_reason(params)
     if reason is not None:
         raise NotImplementedError(reason)
     return FusedSession(params, shape, noise_dist=noise_dist,
-                        mass_restore_int=mass_restore_int)
+                        mass_restore_int=mass_restore_int,
+                        ref_fields=ref_fields)

@@ -8,8 +8,9 @@ as in the JAX package) is
     collide:  MRT relaxation + forcing + noise in moment space
     stream:   pull shifts
 
-Noise comes from the coordinate-keyed hash stream with u8 or clt4
-deviates (the generators the CUDA kernel runs), keyed by one int32 word
+Noise comes from the coordinate-keyed hash stream with clt4 (the
+default, as in the JAX package), u8, clt2 or Box-Muller deviates (the
+generators the CUDA kernel runs), keyed by one int32 word
 per physical step and by ``state.step`` (the JAX package's
 ``noise_source="hash"``), so a trajectory is a pure function of its word
 sequence.  A word is drawn from ``state.gen`` for every step, noise on or
@@ -31,28 +32,54 @@ from ..config import DEFAULT_DTYPE, LBMParams, RunConfig
 from ..lattice import Q, W
 from ..ops import collide as collide_ops
 from ..ops import hydro as hydro_ops
+from ..ops import moments as moments_ops
 from ..ops import noise as noise_ops
 from ..ops import stream as stream_ops
 from ..state import SimState, draw_words, init_state
 
 
+def _noise_ref(hbar: hydro_ops.HydroBar, ref_state):
+    """The (rho_eq, phi_eq, com_shift) the amplitudes read: the COM of
+    the current density against com_ref, or a zero shift when com_ref is
+    None (fields already rolled, as the kernel sessions pass them)."""
+    if ref_state is None:
+        return None
+    rho_eq, phi_eq, com_ref = ref_state
+    if com_ref is None:
+        return (rho_eq, phi_eq, None)
+    from ..observables import stats
+
+    com = stats.center_of_mass(hbar.rho)
+    return (rho_eq, phi_eq,
+            com - torch.as_tensor(com_ref, dtype=com.dtype, device=com.device))
+
+
 def prelude(state: SimState, params: LBMParams, word: Optional[int] = None,
-            *, noise_dist: str = "u8"):
+            *, ref_state=None, noise_dist: str = "clt4"):
     """Noise draw + real-hydrovar reconstruction of the current state.
-    Returns (hydro, xi_f, xi_g)."""
+    Returns (hydro, xi_f, xi_g).
+
+    ref_state: optional (rho_eq, phi_eq, com_ref) — the reference's
+    USE_REF_STATE noise path (LBM_binary.H:92-106): amplitudes evaluated
+    at the stored equilibrium state translated into the instantaneous
+    centre-of-mass frame; com_ref=None marks the fields as already
+    rolled."""
     hbar = hydro_ops.hydrovars_bar(state.f, state.g, params)
     if word is None:
         (word,) = draw_words(state.gen, 1)
     xi_f, xi_g = noise_ops.thermal_noise_hash(
-        word, state.step, hbar.rho, hbar.phi, params, noise_dist)
+        word, state.step, hbar.rho, hbar.phi, params,
+        _noise_ref(hbar, ref_state) if params.noise_on else None, noise_dist)
     h = hydro_ops.hydrovars(state.f, state.g, xi_f, xi_g, params, hbar)
     return h, xi_f, xi_g
 
 
 def step(state: SimState, params: LBMParams, word: Optional[int] = None, *,
-         noise_dist: str = "u8") -> Tuple[SimState, hydro_ops.Hydro]:
+         ref_state=None, noise_dist: str = "clt4"
+         ) -> Tuple[SimState, hydro_ops.Hydro]:
     """One full LB timestep; returns (new_state, hydro-at-step-start)."""
-    h, xi_f, xi_g = prelude(state, params, word, noise_dist=noise_dist)
+    h, xi_f, xi_g = prelude(state, params, word, ref_state=ref_state,
+                            noise_dist=noise_dist)
     f1, g1 = collide_ops.collide(state.f, state.g, h, xi_f, xi_g, params)
     f2 = stream_ops.stream(f1)
     g2 = stream_ops.stream(g1)
@@ -60,15 +87,16 @@ def step(state: SimState, params: LBMParams, word: Optional[int] = None, *,
 
 
 def nsteps(state: SimState, params: LBMParams, n: int,
-           words: Optional[Sequence[int]] = None, *,
-           noise_dist: str = "u8") -> SimState:
+           words: Optional[Sequence[int]] = None, *, ref_state=None,
+           noise_dist: str = "clt4") -> SimState:
     """n steps; words: optional per-step noise words (default: drawn)."""
     if words is None:
         words = draw_words(state.gen, n)
     if len(words) != n:
         raise ValueError(f"need {n} words, got {len(words)}")
     for w in words:
-        state, _ = step(state, params, w, noise_dist=noise_dist)
+        state, _ = step(state, params, w, ref_state=ref_state,
+                        noise_dist=noise_dist)
     return state
 
 
@@ -169,11 +197,13 @@ def init_checkpoint(f, g, seed: int, step: int, device="cuda") -> SimState:
 def make_initial_state(cfg: RunConfig, device="cuda") -> SimState:
     """Dispatch on cfg.init the way main_run_job.cpp:248-292 does.
 
-    init="checkpoint" reads a JAX npz checkpoint
-    (:func:`bflbm_tpu_torch.interop.load_jax_checkpoint`).  Its threefry
-    key cannot be continued in torch: the generator is seeded from the
-    stored key, or from cfg.seed when cfg.reseed (independent ensembles
-    branching from one checkpoint)."""
+    init="checkpoint" reads a checkpoint of the port, whose generator
+    continues the stored word stream, or of the JAX package, whose
+    threefry key cannot be continued in torch: the generator is then
+    seeded from the stored key
+    (:func:`bflbm_tpu_torch.io.checkpoint.load_state`).  cfg.reseed seeds
+    it from cfg.seed instead (independent ensembles branching from one
+    checkpoint)."""
     p = cfg.params
     if cfg.init == "mixture":
         return init_mixture(cfg.shape, p, cfg.seed, cfg.dtype, device=device)
@@ -184,13 +214,13 @@ def make_initial_state(cfg: RunConfig, device="cuda") -> SimState:
         return init_droplet(cfg.shape, p, cfg.seed, cfg.dtype,
                             cfg.init_radius, cfg.init_width, device=device)
     if cfg.init == "checkpoint":
-        from ..interop import load_jax_checkpoint
+        from ..io.checkpoint import load_state
 
         if not cfg.checkpoint_path:
             raise ValueError("init='checkpoint' requires checkpoint_path")
-        return load_jax_checkpoint(cfg.checkpoint_path,
-                                   seed=cfg.seed if cfg.reseed else None,
-                                   device=device)
+        return load_state(cfg.checkpoint_path,
+                          seed=cfg.seed if cfg.reseed else None,
+                          device=device)
     raise ValueError(f"unknown init kind {cfg.init!r}")
 
 
@@ -211,3 +241,20 @@ def perturbed_populations(shape, seed: int, *, rho0: float = 1.0,
         a = b * (1.0 + 0.05 * rng.standard_normal((Q,) + tuple(shape)))
         out.append(torch.as_tensor(a.astype(np.float32), device=device))
     return out[0], out[1]
+
+
+def boosted_state(shape, u3, seed: int = 7, device=None):
+    """(state, rho, phi): equilibrium populations of an off-centre blob
+    along z, rho = 0.05 + 3 exp(-(z - Z/4)^2 / 72) and phi = rho / 2,
+    moving at the velocity u3.  With alpha0 = 0 its centre of mass
+    advances ~|u3| cells a step: what the USE_REF_STATE roll must follow
+    (``tests/test_session.py:_boosted_state``).  Test input."""
+    zz = torch.arange(shape[2], dtype=torch.float32, device=device)
+    blob = 0.05 + 3.0 * torch.exp(-0.5 * ((zz - shape[2] / 4) / 6.0) ** 2)
+    rho = blob.expand(tuple(shape)).contiguous()
+    phi = 0.5 * rho
+    u = torch.stack([torch.full(tuple(shape), v, dtype=torch.float32,
+                                device=device) for v in u3])
+    f = moments_ops.populations(collide_ops.equilibrium_moments(rho, u))
+    g = moments_ops.populations(collide_ops.equilibrium_moments(phi, u))
+    return init_state(f, g, seed), rho, phi

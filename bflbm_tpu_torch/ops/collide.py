@@ -20,6 +20,11 @@ from ..lattice import Q
 from .hydro import Hydro
 from .moments import moments, populations
 
+# Test hook (tests/test_torch_general_tau.py): route tau = 1/2 through the
+# general relaxation update instead of the exact-relaxation branch, in the
+# plain collide and in the CUDA K kernel (kernels.fused_step.general_relax).
+FORCE_GENERAL_RELAX = False
+
 
 def equilibrium_moments(n: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """m_eq(n, u): mass, momentum and the second-order stress modes;
@@ -72,7 +77,8 @@ def collide(f: torch.Tensor, g: torch.Tensor, h: Hydro,
     phi_f = force_moments(rho, h.uf, h.af, params.tau_f)
     phi_g = force_moments(phi, h.ug, h.ag, params.tau_g)
 
-    if params.tau_f == 0.5 and params.tau_g == 0.5:
+    if (params.tau_f == 0.5 and params.tau_g == 0.5
+            and not FORCE_GENERAL_RELAX):
         # Exact relaxation (lambda_bar = 1): every non-conserved moment is
         # replaced by m_eq + Phi + xi, so the incoming moments are never
         # needed.

@@ -23,6 +23,20 @@ from ..lattice import C, CS2
 from . import stencil
 from .moments import contract
 
+# Output schema of the reference plotfiles (AMReX_FileIO.H:209-295 /
+# main_run_job.cpp:147): 22 components, in the order :func:`pack` stacks
+# them; frames and structure factors are keyed by these names.
+HYDRO_NAMES: Tuple[str, ...] = (
+    "rho", "phi",
+    "ufx", "ufy", "ufz",
+    "p_bulk",
+    "ugx", "ugy", "ugz",
+    "afx", "afy", "afz",
+    "agx", "agy", "agz",
+    "ubx", "uby", "ubz",
+    "nfbarx", "ngbarx", "ufbarx", "ugbarx",
+)
+
 
 class HydroBar(NamedTuple):
     """Modified (bare LB) fields."""
@@ -129,7 +143,8 @@ def hydrovars_with_acc(f: torch.Tensor, g: torch.Tensor, hbar: HydroBar,
 
 
 def pack(h: Hydro) -> torch.Tensor:
-    """Stack to the reference's 22-component output schema."""
+    """Stack to the reference's 22-component output schema
+    (:data:`HYDRO_NAMES`)."""
     return torch.cat([
         h.rho[None], h.phi[None],
         h.uf,

@@ -66,38 +66,77 @@ def _apply_amplitudes(n: torch.Tensor, rho, phi, params: LBMParams,
     return xi_f, xi_g
 
 
+def _roll3(field: torch.Tensor, shift) -> torch.Tensor:
+    """Periodic translation by an integer 3-vector: cell x samples the
+    field at x - shift (the COM-frame shift of USE_REF_STATE)."""
+    return torch.roll(field, tuple(int(s) for s in shift), (0, 1, 2))
+
+
+def _amplitude_fields(rho, phi, ref_state):
+    """The (rho, phi) pair the amplitudes are evaluated at: the live
+    densities, or — USE_REF_STATE (LBM_binary.H:92-106) — a stored
+    equilibrium state translated by the integer COM displacement.
+    ref_state: (rho_eq, phi_eq, com_shift); com_shift None means the
+    fields are already rolled."""
+    if ref_state is None:
+        return rho, phi
+    rho_eq, phi_eq, com_shift = ref_state
+    rho_eq = torch.as_tensor(rho_eq, dtype=rho.dtype, device=rho.device)
+    phi_eq = torch.as_tensor(phi_eq, dtype=rho.dtype, device=rho.device)
+    if com_shift is None:
+        return rho_eq, phi_eq
+    shift = torch.round(torch.as_tensor(com_shift)).to(torch.int64).tolist()
+    return _roll3(rho_eq, shift), _roll3(phi_eq, shift)
+
+
 def hash_normal_stack(word: int, step: int, shape, dtype,
-                      dist: str = "u8", device=None) -> torch.Tensor:
+                      dist: str = "clt4", device=None) -> torch.Tensor:
     """(33, X, Y, Z) standard deviates of the coordinate-keyed hash
     stream, in kernel channel order.
 
-    Channel a is draw a of the kernel's ``normal(a)`` interleave: with
-    dist="u8" byte a % 4 of hash word a // 4, with dist="clt4" the byte
-    sum of hash word a.  Bitwise the stream the CUDA kernel consumes.
+    Channel a is draw a of the kernel's ``normal(a)`` interleave (JAX
+    ``n1[a//2]`` for even a, ``n2[a//2]`` for odd a): with dist="u8"
+    byte a % 4 of hash word a // 4; "clt4" the byte sum of hash word a;
+    "clt2" half a % 2 of hash word a // 2; "bm" the cosine (even a) or
+    sine (odd a) Box-Muller normal of the uniforms of words a - a % 2
+    and a - a % 2 + 1.  Bitwise the stream the CUDA kernel consumes for
+    u8, clt4 and clt2; Box-Muller's log, cos and sin round differently
+    on every platform.
     """
-    from ..kernels.fused_step import clt4_normal, hash_words, u8_quad
+    from ..kernels import fused_step as fs
 
+    fs.check_noise_dist(dist)
     if dist == "u8":
-        ws = hash_words(word, step, shape, (N_CHANNELS + 3) // 4, device)
-        draws = [d for w in ws for d in u8_quad(w, dtype)]
+        ws = fs.hash_words(word, step, shape, (N_CHANNELS + 3) // 4, device)
+        draws = [d for w in ws for d in fs.u8_quad(w, dtype)]
     elif dist == "clt4":
-        ws = hash_words(word, step, shape, N_CHANNELS, device)
-        draws = [clt4_normal(w, dtype) for w in ws]
+        ws = fs.hash_words(word, step, shape, N_CHANNELS, device)
+        draws = [fs.clt4_normal(w, dtype) for w in ws]
+    elif dist == "clt2":
+        ws = fs.hash_words(word, step, shape, fs._NPAIR, device)
+        draws = [d for w in ws for d in fs.clt2_pair(w, dtype)]
     else:
-        raise NotImplementedError(
-            f"dist={dist!r} is not ported yet (ROADMAP Queue 2, K3)")
+        us = [fs.hash_uniform(w, dtype)
+              for w in fs.hash_words(word, step, shape, 2 * fs._NPAIR,
+                                     device)]
+        draws = [d for p in range(fs._NPAIR)
+                 for d in fs.bm_pair(us[2 * p], us[2 * p + 1])]
     return torch.stack(draws[:N_CHANNELS])
 
 
 def thermal_noise_hash(word: int, step: int, rho: torch.Tensor,
                        phi: torch.Tensor, params: LBMParams,
-                       dist: str = "u8") -> Tuple[torch.Tensor, torch.Tensor]:
+                       ref_state=None, dist: str = "clt4"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-mode noise moments (xi_f, xi_g), each (19, X, Y, Z), from the
-    hash stream keyed by (word, step); zeros when kBT == 0."""
+    hash stream keyed by (word, step); zeros when kBT == 0.  ref_state:
+    optional (rho_eq, phi_eq, com_shift) — the USE_REF_STATE amplitudes
+    (:func:`_amplitude_fields`)."""
     shape = tuple(rho.shape)
     dtype = rho.dtype
     if not params.noise_on:
         z = torch.zeros((Q,) + shape, dtype=dtype, device=rho.device)
         return z, z
+    rho, phi = _amplitude_fields(rho, phi, ref_state)
     n = hash_normal_stack(word, step, shape, dtype, dist, rho.device)
     return _apply_amplitudes(n, rho, phi, params, dtype)

@@ -53,3 +53,18 @@ def draw_words(gen: torch.Generator, n: int) -> List[int]:
     package draws (``randint(minval=int32 min, maxval=int32 max)``)."""
     return torch.randint(_I32_MIN, _I32_MAX, (int(n),), generator=gen,
                          dtype=torch.int64).tolist()
+
+
+def peek_words(gen: torch.Generator, n: int) -> List[int]:
+    """The next n words of `gen` without consuming them (a copy draws
+    them): what an observable view uses, so that the trajectory does not
+    depend on the observable cadence."""
+    return draw_words(generator_from_state(gen.get_state()), n)
+
+
+def generator_from_state(state: torch.Tensor) -> torch.Generator:
+    """A CPU generator continuing from ``gen.get_state()`` (a uint8
+    tensor, as checkpoints store it)."""
+    gen = torch.Generator(device="cpu")
+    gen.set_state(torch.as_tensor(state, dtype=torch.uint8).cpu())
+    return gen

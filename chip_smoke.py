@@ -33,10 +33,30 @@ Phases (each raises on failure; the script then exits non-zero):
    state of droplet-eq with kBT = 1e-5, make_session, clt4) — enter,
    11 x advance(100), exit_view — with both kernels' launch counts,
    finiteness, the masses after the restore, the droplet's centre of mass
-   and volume ratio, and the session MLUPS.
+   and volume ratio, and the session MLUPS;
+6. the K modes of the run driver's flags against their plain versions,
+   max |delta| <= 2e-5: general tau (K1d, kBT 0 and 1e-5 with clt4, and
+   the FORCE_GENERAL_RELAX hook at tau 1/2), the USE_REF_STATE operand
+   (K1e, clt4 and u8), the clt2 and Box-Muller generators (uncoupled and
+   coupled) on 32^3 droplets and on the 256^3 droplet, where B is timed
+   in each mode beside its plain version; a ref session through a COM
+   cell-boundary crossing against the plain per-step chain;
+7. the run driver at 256^3, in a temporary directory under build/ that
+   is removed afterwards: (1) the droplet-eq equilibration through
+   ``run.main`` (400 steps; checkpoint, equilibrium artifact, convergence
+   report, frames, droplet records, 399 launches of each kernel); (2) the
+   fluctuating continuation through ``run.run`` with USE_REF_STATE and
+   clt4 (1100 steps; launches, the ref-roll counter, the masses after the
+   restore at step 1000, the droplet's drift and radius, the driver's
+   MLUPS and its time split); (3) short continuations through ``main``
+   with ``--tau-f/--tau-g --noise-dist clt2`` and with ``--noise-dist
+   bm``; (4) S(k) through the driver on a 64^3 mixture (the density
+   structure factor over kBT / cs^2 within 5% of 1).
 
-The line before the last is a JSON object with the per-kernel record;
-the last line is the status JSON.
+Each phase prints its wall time.  Phase 0 prints the card's name and
+power limit on a line of its own, as ``nvidia-smi`` gives them; the line
+before the last is a JSON object with the per-kernel record; the last
+line is the status JSON.
 """
 
 import dataclasses
@@ -69,10 +89,20 @@ F32_OPS = 67e12
 #   K coupled, clt4: + gradients 216, forces and Guo rows ~80, clt4 words
 #     ~560 in place of u8's ~170;
 #   density pre-pass: 38 adds (+2 exp under the pseudopotential).
+#   K1d (general tau, coupled): + two 15-row forward transforms (1140) and
+#     the 19-row relaxation of both species (~230);
+#   K1e (ref, coupled): B + 8 B/cell for the ref operand, same operations;
+#   clt2 (coupled): 17 hash words in place of clt4's 33 (~-250);
+#   Box-Muller (coupled): 34 hash words, 17 logf + sincosf + sqrtf
+#     (~100 each) in place of the byte sums.
 KERNELS = {
     "k1a": dict(bytes=2 * 19 * 4 * 2, ops=2100),
     "a": dict(bytes=2 * 19 * 4 + 2 * 4, ops=40),
     "b": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=2800),
+    "k1d": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=4170),
+    "k1e": dict(bytes=2 * 19 * 4 * 2 + 2 * 4 + 2 * 4, ops=2810),
+    "clt2": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=2550),
+    "bm": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=4500),
 }
 SRC = "bflbm_tpu_torch/kernels/csrc/"
 TPU_KERNEL = "bflbm_tpu/kernels/fused_step.py:1956"
@@ -113,11 +143,12 @@ def _kernel_vs_plain(shape, params, word, step, device):
 
     f, g = perturbed_populations(shape, 7, device=device)
     before = fused_step.launches
-    fo, go = fused_step.fused_stream_collide(f, g, word, step, params)
+    fo, go = fused_step.fused_stream_collide(f, g, word, step, params,
+                                             noise_dist="u8")
     torch.cuda.synchronize()
     _check(fused_step.launches == before + 1,
            f"launches went {before} -> {fused_step.launches}, expected +1")
-    fr, gr = fused_step.k_step_reference(f, g, word, step, params)
+    fr, gr = fused_step.k_step_reference(f, g, word, step, params, "u8")
     _check_finite(fo, go)
     err = max(_maxdiff(fo, fr), _maxdiff(go, gr))
     print(f"[phase 2] K at {shape} kBT={params.kBT}: max|kernel - plain| = "
@@ -172,8 +203,7 @@ def _run_session(sess, state, tag):
                 abs(float(s.g.sum(dtype=torch.float64)) - m0g) / m0g)
 
     torch.cuda.synchronize()
-    fused_step.launches = 0
-    fused_step.density_launches = 0
+    fused_step.reset_launch_counts()
     t0 = time.perf_counter()
     pc = sess.enter(state)
     torch.cuda.synchronize()
@@ -272,6 +302,348 @@ def _library_density(f, g, device):
     return conv, torch.cat([f, g])[None]
 
 
+# -- phase 6: the K modes of the driver's flags ------------------------------
+
+def _mode_vs_plain(f, g, params, dist, ref, tag):
+    """One K (pre-pass included when coupled) through the kernels and
+    through the plain K in the same mode; returns max |delta|."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+
+    before = fused_step.launches
+    fo, go = fused_step.fused_stream_collide(f, g, 13579, 2468, params,
+                                             noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    _check(fused_step.launches == before + 1, f"{tag}: K did not launch")
+    _check_finite(fo, go)
+    fr, gr = fused_step.k_step_reference(f, g, 13579, 2468, params, dist,
+                                         ref)
+    err = max(_maxdiff(fo, fr), _maxdiff(go, gr))
+    print(f"[phase 6] {tag}: max|K - plain| = {err:.3e} (tol {TOL})",
+          flush=True)
+    _check(err <= TOL, f"{tag}: kernel disagrees with plain K: {err}")
+    return err
+
+
+def _ref_operand(f, g, shift):
+    """A (2, X, Y, Z) USE_REF_STATE operand: the state's densities rolled
+    by `shift` (what the session passes: rolled stored densities)."""
+    import torch
+
+    return torch.stack([f.sum(0), g.sum(0)]).roll(shift, (1, 2, 3)) \
+        .contiguous()
+
+
+def _modes_small(dev, errs):
+    """The new modes on perturbed 32^3 droplets, against the plain K."""
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.ops import collide as collide_ops
+
+    droplet = dict(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0)
+    for kbt in (0.0, KBT):
+        p = LBMParams(**dict(droplet, rho_lo=0.1, tau_f=0.7, tau_g=0.6,
+                             kBT=kbt))
+        f, g = _perturbed_droplet(SMALL, p, 31, dev, radius=0.3)
+        errs["k1d"].append(_mode_vs_plain(
+            f, g, p, "clt4", None, f"32^3 general tau 0.7/0.6 kBT={kbt}"))
+    p = LBMParams(**dict(droplet, kBT=KBT))
+    f, g = _perturbed_droplet(SMALL, p, 32, dev, radius=0.3)
+    collide_ops.FORCE_GENERAL_RELAX = True
+    try:
+        errs["k1d"].append(_mode_vs_plain(
+            f, g, p, "clt4", None, "32^3 FORCE_GENERAL_RELAX at tau 1/2"))
+    finally:
+        collide_ops.FORCE_GENERAL_RELAX = False
+    ref = _ref_operand(f, g, (3, -2, 5))
+    for dist in ("clt4", "u8"):
+        errs["k1e"].append(_mode_vs_plain(f, g, p, dist, ref,
+                                          f"32^3 ref operand, {dist}"))
+    for dist in ("clt2", "bm"):
+        for a0 in (0.0, 1.5):
+            q = LBMParams(**dict(droplet, kBT=KBT, alpha0=a0))
+            errs[dist].append(_mode_vs_plain(
+                f, g, q, dist, None, f"32^3 {dist}, alpha0={a0}"))
+
+
+def _ref_session_crossing(dev):
+    """The transactional ref session through a COM cell-boundary crossing
+    against the plain chain that re-rolls every step."""
+    import torch
+
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.observables import stats
+
+    params = LBMParams(alpha0=0.0, kBT=1e-8)
+    shape = (8, 8, 128)
+    state, rho, phi = model.boosted_state(shape, (0.0, 0.0, 0.35),
+                                         device=dev)
+    com = stats.center_of_mass(rho)
+    words = [11 * k + 5 for k in range(8)]
+    ref = model.nsteps(state.replace(f=state.f.clone(), g=state.g.clone()),
+                       params, 8, words, ref_state=(rho, phi, com))
+    sess = FusedSession(params, shape, mass_restore_int=0,
+                        ref_fields=(rho, phi, com))
+    pc = sess.enter(state, words[0])
+    pc = sess.advance(pc, 7, words[1:])
+    got = sess.exit(pc)
+    torch.cuda.synchronize()
+    err = max(_maxdiff(got.f, ref.f), _maxdiff(got.g, ref.g))
+    print(f"[phase 6] ref session 8x8x128 boosted blob (1+7 steps): "
+          f"crossings {sess.ref_violations()}, steps rerun "
+          f"{sess.ref_retry_steps}; max|session - plain chain| = "
+          f"{err:.3e} (tol {TOL})", flush=True)
+    _check(sess.ref_violations() > 0, "no COM crossing in the ref session")
+    _check(err <= TOL, f"ref session disagrees with the plain chain: {err}")
+    return err
+
+
+def _modes_256(dcfg, dev, cells, errs):
+    """The new modes of B on the 256^3 droplet one step in: max |delta|
+    against the plain K, kernel B timed in each mode beside the plain K,
+    B's present coupled clt4 time on the same input, and Box-Muller with
+    the ref operand (the instantiation whose ptxas output shows a
+    spill)."""
+    import dataclasses
+
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+
+    dparams = dcfg.params
+    pc = FusedSession(dparams, SHAPE).enter(
+        model.make_initial_state(dcfg, device=dev))
+    f, g = pc.f, pc.g
+    del pc
+    psi = fused_step.density_psi(f, g, dparams)
+    fo, go = torch.empty_like(f), torch.empty_like(g)
+    ref = _ref_operand(f, g, (1, -1, 2))
+    general = dataclasses.replace(dparams, tau_f=0.7, tau_g=0.6)
+    out = {}
+    for key, p, dist, r in (("b", dparams, "clt4", None),
+                            ("clt2", dparams, "clt2", None),
+                            ("bm", dparams, "bm", None),
+                            ("k1e", dparams, "clt4", ref),
+                            ("k1d", general, "clt4", None),
+                            ("bm + ref", dparams, "bm", ref)):
+        if key not in ("b", "bm + ref"):
+            errs[key].append(_mode_vs_plain(f, g, p, dist, r,
+                                            f"256^3 droplet, {key}"))
+        ms = _time_ms(lambda: [fused_step.launch_k(f, g, 1, i, p, (fo, go),
+                                                   psi, dist, r)
+                               for i in range(NREP)], cells, NREP)
+        plain_ms = _time_ms(lambda: fused_step.k_step_reference(
+            f, g, 1, 0, p, dist, r), cells, 1)
+        out[key] = (ms, plain_ms)
+    print("[phase 6] B at 256^3 by mode, same input (kernel ms / plain "
+          "ms): " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.2f}"
+                             for k, v in out.items()), flush=True)
+    return out
+
+
+# -- phase 7: the run driver -------------------------------------------------
+
+def _metrics(path):
+    with open(path) as fh:
+        return [json.loads(ln) for ln in fh]
+
+
+def _print_split(tag, stats):
+    print(f"[{tag}] wall split (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stats.items()), flush=True)
+
+
+def _npz_masses(path):
+    import numpy as np
+
+    with np.load(path) as d:
+        return (float(d["f"].sum(dtype=np.float64)),
+                float(d["g"].sum(dtype=np.float64)))
+
+
+def _driver_eq(tmp, cells):
+    """(1) droplet-eq at 256^3 through the CLI."""
+    import os
+
+    import torch
+
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.kernels import fused_step
+
+    eq = os.path.join(tmp, "eq")
+    fused_step.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_mod.main(["--preset", "droplet-eq", "--shape",
+                  *(str(n) for n in SHAPE), "--nsteps", "400", "--plot-int",
+                  "200", "--print-int", "100", "--out", eq])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (fused_step.launches, fused_step.density_launches)
+    print(f"[phase 7] equilibration (main, 400 steps) in {wall:.2f} s; "
+          f"launches K {counts[0]}, pre-pass {counts[1]}", flush=True)
+    _print_split("phase 7", run_mod.last_run_stats)
+    _check(counts == (399, 399), f"launches {counts} != (399, 399)")
+    need = ["checkpoint0000400.npz", "checkpoint0000400.json",
+            "equilibrium.npz", "convergence.json", "metrics.jsonl"] + [
+        f"plt{s:07d}.npz" for s in (0, 200, 400)]
+    missing = [n for n in need if not os.path.exists(os.path.join(eq, n))]
+    _check(not missing, f"equilibration did not write {missing}")
+    with open(os.path.join(eq, "convergence.json")) as fh:
+        conv = json.load(fh)
+    recs = _metrics(os.path.join(eq, "metrics.jsonl"))
+    drops = [r for r in recs if "droplet_R_mass" in r]
+    print(f"[phase 7] convergence {conv}; droplet records at steps "
+          f"{[r['step'] for r in drops]}, R_mass "
+          f"{[round(r['droplet_R_mass'], 4) for r in drops]}", flush=True)
+    _check(conv["window_frames"] == 2 and len(drops) == 4,
+           "equilibrium window or droplet records wrong")
+    for s in (0, 200, 400):   # 1.47 GB each: free the disk for the rest
+        os.remove(os.path.join(eq, f"plt{s:07d}.npz"))
+    return eq, os.path.join(eq, "checkpoint0000400")
+
+
+def _driver_fluct(tmp, eq, ckpt, cells):
+    """(2) droplet-fluct continuation with USE_REF_STATE through run()."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.kernels import fused_step
+
+    m0 = _npz_masses(ckpt + ".npz")
+    cfg = config.preset("droplet-fluct").replace(
+        shape=SHAPE, checkpoint_path=ckpt, step_continue=400, nsteps=1100,
+        use_ref_state=True, ref_state_path=os.path.join(eq,
+                                                        "equilibrium.npz"),
+        plot_int=0, print_int=100, droplet_int=100,
+        out_dir=os.path.join(tmp, "fluct"))
+    fused_step.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = run_mod.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(run_mod.last_run_stats)
+    counts = (fused_step.launches, fused_step.density_launches)
+    modes = dict(fused_step.mode_launches)
+    retry = int(st["ref_retry_steps"])
+    print(f"[phase 7] continuation (run, ref + clt4, 1100 steps) in "
+          f"{wall:.2f} s: step {state.step}; launches K {counts[0]}, "
+          f"pre-pass {counts[1]}, by mode {modes}; steps rerun after a "
+          f"crossing {retry}", flush=True)
+    _print_split("phase 7", st)
+    _check(state.step == 1500, f"final step {state.step} != 1500")
+    _check(counts == (1099 + retry, 1099 + retry)
+           and modes.get("ref") == counts[0]
+           and modes.get("clt4") == counts[0],
+           f"launches {counts}, modes {modes}")
+    _check_finite(state.f, state.g)
+    recs = _metrics(os.path.join(cfg.out_dir, "metrics.jsonl"))
+    prints = [r for r in recs if "mass_f" in r]
+    _check(prints and all("ref_roll_violations" in r for r in prints),
+           "ref_roll_violations missing from the metrics")
+    defect = max(max(abs(r["mass_f"] - m0[0]) / m0[0],
+                     abs(r["mass_g"] - m0[1]) / m0[1])
+                 for r in prints if r["step"] >= 1000)
+    drops = [r for r in recs if "droplet_com" in r]
+    com = np.asarray([r["droplet_com"] for r in drops])
+    drift = float(np.linalg.norm(com[-1] - com[0]))
+    r_mass = [r["droplet_R_mass"] for r in drops]
+    r_dev = max(abs(r / r_mass[0] - 1.0) for r in r_mass)
+    mlups = prints[-1]["mlups"]
+    print(f"[phase 7] relative mass defect after the restore at step 1000 "
+          f"{defect:.3e} (tol {MASS_RTOL}); droplet COM drift {drift:.4e} "
+          f"cells (tol {COM_TOL}) over {len(drops)} records; R_mass "
+          f"{r_mass[0]:.4f} -> {r_mass[-1]:.4f} (max deviation "
+          f"{r_dev:.4f}, tol 0.02); ref_roll_violations "
+          f"{prints[-1]['ref_roll_violations']}", flush=True)
+    print(f"[phase 7] driver MLUPS over the loop {mlups:.1f} (session "
+          f"advance alone {1100 * cells / st['advance'] / 1e6:.1f}); ref "
+          f"backup copies {st['ref_backup']:.3f} s", flush=True)
+    _check(defect <= MASS_RTOL, f"mass defect {defect}")
+    _check(drift <= COM_TOL, f"droplet drifted {drift} cells")
+    _check(r_dev <= 0.02, f"droplet radius moved {r_dev}")
+    _check(os.path.exists(os.path.join(cfg.out_dir,
+                                       "checkpoint0001500.npz")),
+           "no end checkpoint")
+    return counts[0], mlups
+
+
+def _driver_flag_modes(tmp, eq, ckpt):
+    """(3) short continuations with the flags' other K modes: general tau,
+    clt2, Box-Muller; returns each mode's launches."""
+    import os
+    import shutil
+
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.kernels import fused_step
+
+    launches = {}
+    for key, tag, params, dist in (
+            ("k1d", "general", dict(tau_f=0.7, tau_g=0.6), "clt4"),
+            ("clt2", "clt2", {}, "clt2"),
+            ("bm", "bm", {}, "bm")):
+        cfg = config.preset("droplet-fluct").replace(
+            shape=SHAPE, checkpoint_path=ckpt, step_continue=400,
+            nsteps=50, plot_int=0, print_int=50, droplet_int=0,
+            out_dir=os.path.join(tmp, key)).with_params(**params)
+        fused_step.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = run_mod.run(cfg, noise_dist=dist)
+        torch.cuda.synchronize()
+        modes = dict(fused_step.mode_launches)
+        rec = _metrics(os.path.join(cfg.out_dir, "metrics.jsonl"))[-1]
+        print(f"[phase 7] continuation {key} (run, {dist}, 50 steps) in "
+              f"{time.perf_counter() - t0:.2f} s: launches K "
+              f"{fused_step.launches}, by mode {modes}; rho min "
+              f"{rec['min']:.4e} max {rec['max']:.4f}", flush=True)
+        _check(state.step == 450 and fused_step.launches == 49
+               and modes.get(tag) == 49, f"{key}: launches {modes}")
+        _check_finite(state.f, state.g)
+        launches[key] = modes.get(tag, 0)
+        del state
+        shutil.rmtree(cfg.out_dir)
+    return launches
+
+
+def _driver_structfact(tmp):
+    """(4) S(k) through the driver: the 64^3 mixture's density structure
+    factor, off k = 0, over kBT / cs^2."""
+    import os
+
+    import numpy as np
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch import run as run_mod
+
+    cfg = config.preset("mixture-fluct").replace(
+        shape=(64, 64, 64), init="mixture", step_continue=0, nsteps=600,
+        sf_window=400, sf_every=10, out_dir=os.path.join(tmp, "sk"))
+    t0 = time.perf_counter()
+    run_mod.run(cfg)
+    with np.load(os.path.join(cfg.out_dir, "structfact0000600.npz")) as d:
+        s_k = d["s_k"][0].real
+    centre = tuple(n // 2 for n in s_k.shape)
+    off = np.ones(s_k.shape, bool)
+    off[centre] = False
+    ratio = float(s_k[off].mean()) / (cfg.params.kBT / CS2)
+    print(f"[phase 7] S(k) through the driver, 64^3 mixture, 40 frames "
+          f"over steps 210-600, in {time.perf_counter() - t0:.2f} s: "
+          f"mean Re S_rho,rho(k != 0) / (kBT / cs^2) = {ratio:.4f} "
+          f"(tol 0.05)", flush=True)
+    _check(abs(ratio - 1.0) <= 0.05, f"S(k) ratio {ratio}")
+    return ratio
+
+
 def main() -> int:
     import torch
 
@@ -291,7 +663,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"[phase 0] {smi}", flush=True)
+    print(smi, flush=True)
     print(f"[phase 0] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     # plain float32 contractions must not run in TF32 on the card
@@ -299,17 +671,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
+    clock = [time.perf_counter()]
+
+    def phase_done(n):
+        now = time.perf_counter()
+        print(f"[phase {n}] wall {now - clock[0]:.2f} s", flush=True)
+        clock[0] = now
 
     # -- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
     for name in _build.SOURCES:
         _build.load(name, dev)
     print(f"[phase 1] kernels built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s: "
-          f"{[str(_build.library_path(n)) for n in _build.SOURCES]}",
+          f"{time.perf_counter() - t0:.2f} s (nvcc per library, started "
+          f"together: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                    _build.build_seconds.items())
+          + f"): {[str(_build.library_path(n)) for n in _build.SOURCES]}",
           flush=True)
     for ln in _build.ptxas_summary():
         print(f"[phase 1] ptxas: {ln}", flush=True)
+
+    phase_done(1)
 
     # -- phase 2: uncoupled kernel vs plain ----------------------------------
     errs_k1a = []
@@ -329,11 +711,13 @@ def main() -> int:
     def kernel_run():
         for i in range(NREP):
             fused_step.fused_stream_collide(*bufs[i % 2], 1, i, params,
-                                            out=bufs[(i + 1) % 2])
+                                            out=bufs[(i + 1) % 2],
+                                            noise_dist="u8")
 
     k1a_ms = _time_ms(kernel_run, cells, NREP)
     k1a_plain_ms = _time_ms(
-        lambda: fused_step.k_step_reference(f, g, 1, 0, params), cells, 1)
+        lambda: fused_step.k_step_reference(f, g, 1, 0, params, "u8"),
+        cells, 1)
     # device copy rate of one population array (read + write)
     dst = torch.empty_like(f)
     copy_s = time_steps(lambda: [dst.copy_(f) for _ in range(10)],
@@ -351,10 +735,12 @@ def main() -> int:
                                       "phase 2"))
     torch.cuda.empty_cache()
 
+    phase_done(2)
+
     # -- phase 3: the mixture path ------------------------------------------
     state = model.init_mixture(SHAPE, params, device=dev)
     view, counts, t_adv, t_enter = _run_session(
-        FusedSession(params, SHAPE), state, "phase 3")
+        FusedSession(params, SHAPE, noise_dist="u8"), state, "phase 3")
     del state
     n_k = CHUNK * NCHUNKS
     _check(counts == (n_k, 0), f"launches {counts} != ({n_k}, 0)")
@@ -375,6 +761,8 @@ def main() -> int:
           f"{cells / k1a_plain_ms / 1e3:.1f} MLUPS)", flush=True)
     del view, rho_t
     torch.cuda.empty_cache()
+
+    phase_done(3)
 
     # -- phase 4: coupled kernels vs plain ----------------------------------
     errs = {"a": [], "b": []}
@@ -462,6 +850,8 @@ def main() -> int:
     errs["b"].append(_session_vs_chain(sp, f, g, "clt4", "phase 4"))
     del f, g
 
+    phase_done(4)
+
     # -- phase 5: the coupled path -------------------------------------------
     state = model.make_initial_state(dcfg, device=dev)
     com0 = stats.center_of_mass(state.f.sum(0))
@@ -479,10 +869,44 @@ def main() -> int:
           f"phi min {float(view.g.sum(0).min()):.3e}", flush=True)
     _check(drift <= COM_TOL, f"droplet drifted {drift} cells")
     _check(VOL_RANGE[0] <= vol <= VOL_RANGE[1], f"volume ratio {vol}")
+    phase5_mlups = cells * n_k / t_adv / 1e6
     print(f"[phase 5] enter {t_enter * 1e3:.1f} ms; session: {n_k} coupled "
-          f"steps at 256^3 in {t_adv:.3f} s = "
-          f"{cells * n_k / t_adv / 1e6:.1f} MLUPS", flush=True)
-    del view, rho
+          f"steps at 256^3 in {t_adv:.3f} s = {phase5_mlups:.1f} MLUPS",
+          flush=True)
+    del view, rho, sess
+    torch.cuda.empty_cache()
+    phase_done(5)
+
+    # -- phase 6: the K modes of the driver's flags vs plain ----------------
+    new_errs = {k: [] for k in ("k1d", "k1e", "clt2", "bm")}
+    _modes_small(dev, new_errs)
+    new_errs["k1e"].append(_ref_session_crossing(dev))
+    torch.cuda.empty_cache()
+    mode_ms = _modes_256(dcfg, dev, cells, new_errs)
+    torch.cuda.empty_cache()
+    phase_done(6)
+
+    # -- phase 7: the run driver at 256^3 -------------------------------------
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        eq, ckpt = _driver_eq(tmp, cells)
+        torch.cuda.empty_cache()
+        k1e_launches, driver_mlups = _driver_fluct(tmp, eq, ckpt, cells)
+        print(f"[phase 7] driver MLUPS {driver_mlups:.1f} beside the bare "
+              f"session's {phase5_mlups:.1f} (phase 5)", flush=True)
+        torch.cuda.empty_cache()
+        flag_launches = _driver_flag_modes(tmp, eq, ckpt)
+        torch.cuda.empty_cache()
+        _driver_structfact(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done(7)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
@@ -494,7 +918,23 @@ def main() -> int:
              "K1b density_ext + psi (fused_step.py:753-783)"),
             ("b", "k_step_kernel (coupled, clt4)", "fused_step.cu", b_ms,
              b_plain_ms, None, counts[0], max(errs["b"]),
-             "K1b: alpha0 != 0, tau 1/2, hash clt4 (_clt4_normal :607)")):
+             "K1b: alpha0 != 0, tau 1/2, hash clt4 (_clt4_normal :607)"),
+            ("k1d", "k_step_kernel (coupled, general tau, clt4)",
+             "fused_step.cu", *mode_ms["k1d"], None, flag_launches["k1d"],
+             max(new_errs["k1d"]),
+             "K1d: general relaxation (:843-851, :1051-1064), tau_f 0.7, "
+             "tau_g 0.6"),
+            ("k1e", "k_step_kernel (coupled, USE_REF_STATE, clt4)",
+             "fused_step.cu", *mode_ms["k1e"], None, k1e_launches,
+             max(new_errs["k1e"]),
+             "K1e: ref_rp amplitudes from the rolled (2,X,Y,Z) equilibrium "
+             "(:944-951, :1808-1817)"),
+            ("clt2", "k_step_kernel (coupled, clt2)", "fused_step.cu",
+             *mode_ms["clt2"], None, flag_launches["clt2"],
+             max(new_errs["clt2"]), "K3: _clt2_pair :633"),
+            ("bm", "k_step_kernel (coupled, Box-Muller)", "fused_step.cu",
+             *mode_ms["bm"], None, flag_launches["bm"], max(new_errs["bm"]),
+             "K3: _bm_normals :668 over hash_uniforms :535")):
         bound, by = _bound_ms(key, cells)
         record.append({
             "name": name, "route": "cuda", "source": SRC + src,
@@ -502,7 +942,6 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     print(json.dumps({"kernels": record}), flush=True)
-    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -150,8 +150,8 @@ def test_coupled_make_ksteps_is_the_reference_chain():
     assert got.step == 8
     assert torch.equal(got.f, rf) and torch.equal(got.g, rg)
     # the generator matters: u8 gives another trajectory
-    u8 = tfs.make_ksteps(tp, 3)(tinit(f.clone(), g.clone(), 0, step=5),
-                                words)
+    u8 = tfs.make_ksteps(tp, 3, noise_dist="u8")(
+        tinit(f.clone(), g.clone(), 0, step=5), words)
     assert float((u8.f - rf).abs().max()) > 50 * ATOL
 
 
@@ -203,14 +203,26 @@ def test_coupled_session_chunk_split_invariance():
 
 @pytest.mark.parametrize("kw,dist,exc,item", [
     (dict(alpha1=0.3), "u8", NotImplementedError, "K1c"),
-    (dict(tau_f=0.8), "u8", NotImplementedError, "K1d"),
-    (dict(), "clt2", NotImplementedError, "K3"),
-    (dict(), "bm", NotImplementedError, "K3"),
+    (dict(alpha1=0.3, tau_f=0.8), "clt2", NotImplementedError, "K1c"),
+    (dict(), "normal", ValueError, "unknown noise_dist"),
 ])
 def test_make_session_refuses(kw, dist, exc, item):
+    """Only alpha1 (K1c) is refused, and an unknown generator name."""
     with pytest.raises(exc, match=item):
         make_session(TParams(**_kw(0.1, 1e-5, **kw)), (4, 4, 4),
                      noise_dist=dist)
+
+
+@pytest.mark.parametrize("kw,dist", [
+    (dict(tau_f=0.8), "u8"),
+    (dict(), "clt2"),
+    (dict(), "bm"),
+])
+def test_make_session_accepts_the_ported_modes(kw, dist):
+    """General tau (K1d) and the clt2 / Box-Muller generators (K3)."""
+    s = make_session(TParams(**_kw(0.1, 1e-5, **kw)), (4, 4, 4),
+                     noise_dist=dist)
+    assert isinstance(s, FusedSession) and s.noise_dist == dist
 
 
 def test_make_session_returns_a_fused_session():
@@ -223,7 +235,14 @@ def test_make_session_returns_a_fused_session():
 
 @pytest.mark.parametrize("dist", ["clt2", "bm", "normal"])
 def test_k_step_refuses_unported_dist(dist):
+    """clt2 and bm run (the plain K on CPU tensors); an unknown name is
+    refused."""
     f = torch.ones((19, 2, 2, 2))
-    with pytest.raises(NotImplementedError, match="K3"):
-        tfs.fused_stream_collide(f, f.clone(), 1, 1, TParams(kBT=1e-5),
-                                 noise_dist=dist)
+    if dist == "normal":
+        with pytest.raises(ValueError, match="unknown noise_dist"):
+            tfs.fused_stream_collide(f, f.clone(), 1, 1, TParams(kBT=1e-5),
+                                     noise_dist=dist)
+        return
+    fo, go = tfs.fused_stream_collide(f, f.clone(), 1, 1, TParams(kBT=1e-5),
+                                      noise_dist=dist)
+    assert bool(torch.isfinite(fo).all() and torch.isfinite(go).all())

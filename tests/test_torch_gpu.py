@@ -10,13 +10,18 @@ imports no JAX, so on a machine without JAX it runs with
 multiplies against divides, and FMA contraction differs.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
-from bflbm_tpu_torch.config import LBMParams
+from bflbm_tpu_torch import run as run_mod
+from bflbm_tpu_torch.config import LBMParams, preset
 from bflbm_tpu_torch.kernels import fused_step
 from bflbm_tpu_torch.kernels.session import FusedSession
 from bflbm_tpu_torch.models import binary_fluid as model
+from bflbm_tpu_torch.observables import stats
+from bflbm_tpu_torch.ops import collide as collide_ops
 from bflbm_tpu_torch.state import init_state
 
 ATOL = 2e-5
@@ -81,20 +86,27 @@ def test_session_matches_plain_chain(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_unsupported(cuda):
+    """Only alpha1 (K1c) is refused; general tau (K1d) and clt2 run."""
     f, g = model.perturbed_populations((4, 4, 32), 4, device=cuda)
-    for params, item in ((LBMParams(alpha0=1.0, alpha1=0.2), "K1c"),
-                         (LBMParams(tau_f=0.8), "K1d")):
-        with pytest.raises(NotImplementedError, match=item):
+    for params in (LBMParams(alpha0=1.0, alpha1=0.2),
+                   LBMParams(alpha1=0.2, tau_f=0.8)):
+        with pytest.raises(NotImplementedError, match="K1c"):
             fused_step.fused_stream_collide(f, g, 1, 1, params)
+    fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(tau_f=0.8))
     with pytest.raises(ValueError, match="alias"):
         fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(),
                                         out=(f, torch.empty_like(g)))
     with pytest.raises(TypeError, match="float32"):
         fused_step.fused_stream_collide(f.double(), g.double(), 1, 1,
                                         LBMParams())
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="unknown noise_dist"):
         fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(kBT=1e-5),
-                                        noise_dist="clt2")
+                                        noise_dist="normal")
+    fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(kBT=1e-5),
+                                    noise_dist="clt2")
+    with pytest.raises(ValueError, match="ref must have shape"):
+        fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(kBT=1e-5),
+                                        ref=f[:3].contiguous())
     with pytest.raises(ValueError, match="alias"):
         fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(alpha0=1.5),
                                         psi=f[:2])
@@ -140,12 +152,14 @@ def test_density_psi_matches_plain(cuda, sc):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dist", ["u8", "clt4"])
+@pytest.mark.parametrize("dist", ["u8", "clt4", "clt2", "bm"])
 def test_kernel_noise_bits_per_generator(cuda, dist):
     """The kernel draws the words of hash_normal_stack(dist): at kBT =
     1e-2 the noise kick is ~1e-2 per population, so kernel(kBT) -
     kernel(0) matching plain(kBT) - plain(0) to 2e-5 leaves no room for a
-    wrong word or byte order; the next word's kick does not match."""
+    wrong word or byte order (Box-Muller: its log, cos and sin differ by
+    ulps between the kernel and torch); the next word's kick does not
+    match."""
     f, g = model.perturbed_populations((8, 8, 128), 7, device=cuda)
     on, off = LBMParams(kBT=1e-2), LBMParams(kBT=0.0)
 
@@ -180,3 +194,121 @@ def test_coupled_session_matches_plain_chain(cuda):
     assert (fused_step.launches, fused_step.density_launches) == (
         before[0] + 9, before[1] + 9)
     assert max(_maxdiff(got.f, ref.f), _maxdiff(got.g, ref.g)) <= ATOL
+
+
+def _k_vs_plain(f, g, params, dist, ref=None):
+    """One K through the kernels and through the plain K; returns the
+    max |delta| after checking one K launch."""
+    before = fused_step.launches
+    fo, go = fused_step.fused_stream_collide(f, g, 2468, 97, params,
+                                             noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    assert fused_step.launches == before + 1
+    fr, gr = fused_step.k_step_reference(f, g, 2468, 97, params, dist, ref)
+    return max(_maxdiff(fo, fr), _maxdiff(go, gr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupled", [False, True])
+@pytest.mark.parametrize("dist", ["clt2", "bm"])
+def test_new_generators_match_plain(cuda, coupled, dist):
+    params, f, g = _droplet((32, 32, 32), cuda, 0.0, 9, kBT=1e-5)
+    if not coupled:
+        params = dataclasses.replace(params, alpha0=0.0)
+    assert _k_vs_plain(f, g, params, dist) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupled", [False, True])
+@pytest.mark.parametrize("kBT,dist", [(0.0, "clt4"), (1e-5, "clt4"),
+                                      (1e-5, "bm")])
+def test_general_tau_matches_plain(cuda, coupled, kBT, dist):
+    """K1d: tau_f = 0.7, tau_g = 0.6, all 19 moments relaxed."""
+    params, f, g = _droplet((32, 32, 32), cuda, 0.1, 10, kBT=kBT,
+                            tau_f=0.7, tau_g=0.6)
+    if not coupled:
+        params = dataclasses.replace(params, alpha0=0.0)
+    assert fused_step.general_relax(params)
+    assert _k_vs_plain(f, g, params, dist) <= ATOL
+
+
+@pytest.mark.gpu
+def test_force_general_relax_matches_plain(cuda, monkeypatch):
+    """The test hook routes tau 1/2 through the general kernel and the
+    general plain collide; both agree with each other and, to rounding,
+    with the exact relaxation."""
+    params, f, g = _droplet((32, 32, 32), cuda, 0.0, 11, kBT=1e-5)
+    exact = fused_step.fused_stream_collide(f, g, 5, 6, params)
+    monkeypatch.setattr(collide_ops, "FORCE_GENERAL_RELAX", True)
+    assert fused_step.general_relax(params)
+    assert _k_vs_plain(f, g, params, "clt4") <= ATOL
+    general = fused_step.fused_stream_collide(f, g, 5, 6, params)
+    assert _maxdiff(general[0], exact[0]) <= ATOL
+
+
+def _ref_fields(shape, device, shift):
+    """A (2, X, Y, Z) USE_REF_STATE operand: the densities of a droplet
+    rolled by `shift`."""
+    p = LBMParams(alpha0=1.5, kappa=0.1, rho_lo=0.05, rho_hi=2.5)
+    st = model.init_droplet(shape, p, radius=0.25, device=device)
+    return torch.stack([st.f.sum(0), st.g.sum(0)]).roll(shift, (1, 2, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupled", [False, True])
+@pytest.mark.parametrize("dist", ["clt4", "u8"])
+def test_ref_kernel_matches_plain(cuda, coupled, dist):
+    """K1e: the noise amplitudes read the ref operand; at kBT = 1e-2 its
+    kick differs from the live-density kick far above the tolerance."""
+    params, f, g = _droplet((32, 32, 32), cuda, 0.0, 12, kBT=1e-5)
+    if not coupled:
+        params = dataclasses.replace(params, alpha0=0.0)
+    ref = _ref_fields((32, 32, 32), cuda, (3, -2, 5)).contiguous()
+    assert _k_vs_plain(f, g, params, dist, ref) <= ATOL
+    loud = dataclasses.replace(params, kBT=1e-2)
+    with_ref = fused_step.fused_stream_collide(f, g, 1, 2, loud,
+                                               noise_dist=dist, ref=ref)
+    live = fused_step.fused_stream_collide(f, g, 1, 2, loud, noise_dist=dist)
+    assert _maxdiff(with_ref[0], live[0]) > 100 * ATOL
+    plain = fused_step.k_step_reference(f, g, 1, 2, loud, dist, ref)
+    assert _maxdiff(with_ref[0], plain[0]) <= 10 * ATOL
+
+
+@pytest.mark.gpu
+def test_ref_session_crossing_matches_plain_chain(cuda):
+    """The transactional USE_REF_STATE advance on the card lands on the
+    per-step plain chain (which re-rolls every step) through a COM
+    cell-boundary crossing."""
+    params = LBMParams(alpha0=0.0, kBT=1e-8)
+    shape = (8, 8, 128)
+    state, rho, phi = model.boosted_state(shape, (0.0, 0.0, 0.35),
+                                         device=cuda)
+    com = stats.center_of_mass(rho)
+    words = [11 * k + 5 for k in range(8)]
+    ref = model.nsteps(state.replace(f=state.f.clone(), g=state.g.clone()),
+                       params, 8, words, ref_state=(rho, phi, com))
+    sess = FusedSession(params, shape, mass_restore_int=0,
+                        ref_fields=(rho, phi, com))
+    before = fused_step.launches
+    pc = sess.enter(state, words[0])
+    pc = sess.advance(pc, 7, words[1:])
+    got = sess.exit(pc)
+    assert got.step == 8 and sess.ref_violations() > 0
+    assert fused_step.launches > before + 7   # rolled-back sub-chunks
+    assert max(_maxdiff(got.f, ref.f), _maxdiff(got.g, ref.g)) <= ATOL
+
+
+@pytest.mark.gpu
+def test_run_on_the_card_matches_cpu(cuda, tmp_path):
+    """The driver at 32^3, kBT = 0: the card's run ends where the CPU's
+    (plain K) does."""
+    cfg = preset("droplet-eq").replace(
+        shape=(32, 32, 32), nsteps=20, plot_int=10, print_int=10,
+        droplet_int=10, t_window=10)
+    gpu = run_mod.run(cfg.replace(out_dir=str(tmp_path / "gpu")))
+    cpu = run_mod.run(cfg.replace(out_dir=str(tmp_path / "cpu")),
+                      device="cpu")
+    assert gpu.step == cpu.step == 20 and gpu.f.is_cuda
+    assert max(_maxdiff(gpu.f.cpu(), cpu.f), _maxdiff(gpu.g.cpu(), cpu.g)) \
+        <= ATOL
+    assert (tmp_path / "gpu" / "equilibrium.npz").exists()

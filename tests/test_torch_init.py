@@ -18,12 +18,19 @@ from torch_parity import perturbed_pops, to_np, to_torch
 
 from bflbm_tpu import config as jconfig
 from bflbm_tpu.io import checkpoint as jckpt
+from bflbm_tpu.kernels import fused_step as jfs
 from bflbm_tpu.models import binary_fluid as jmodel
 from bflbm_tpu.observables import stats as jstats
+from bflbm_tpu.ops import noise as jnoise
 from bflbm_tpu.state import init_state as jinit
 from bflbm_tpu_torch import config as tconfig
 from bflbm_tpu_torch import interop
+from bflbm_tpu_torch import run as trun
+from bflbm_tpu_torch.io import checkpoint as tckpt
+from bflbm_tpu_torch.kernels import fused_step as tfs
+from bflbm_tpu_torch.kernels import session as tsession
 from bflbm_tpu_torch.models import binary_fluid as tmodel
+from bflbm_tpu_torch.ops import noise as tnoise
 from bflbm_tpu_torch.observables import stats as tstats
 from bflbm_tpu_torch.state import draw_words, make_generator
 
@@ -156,7 +163,33 @@ def test_center_of_mass_of_a_droplet():
     tmodel.init_mixture, tmodel.init_stripe, tmodel.init_droplet,
     tmodel.init_checkpoint, tmodel.make_initial_state,
     interop.state_from_arrays, interop.load_jax_checkpoint,
+    tckpt.load_state, trun.run,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def _default(fn, name="noise_dist"):
+    return inspect.signature(fn).parameters[name].default
+
+
+@pytest.mark.parametrize("fn", [
+    tmodel.prelude, tmodel.step, tmodel.nsteps, tfs.k_step_reference,
+    tfs.launch_k, tfs.fused_stream_collide, tfs.make_ksteps,
+    tsession.FusedSession, tsession.make_session,
+    tnoise.thermal_noise_hash,
+])
+def test_noise_dist_defaults_match_jax(fn):
+    """Every generator default of the port is JAX's: the model step
+    (bflbm_tpu/models/binary_fluid.py:38), the kernel's K loop
+    (fused_step.py:2098) and RunConfig (config.py:132)."""
+    want = {_default(jmodel.prelude), _default(jmodel.step),
+            _default(jfs.make_ksteps),
+            _default(jnoise.thermal_noise_hash, "dist"),
+            _default(jnoise.hash_normal_stack, "dist"),
+            jconfig.RunConfig().noise_dist}
+    assert want == {"clt4"}
+    name = "dist" if fn is tnoise.thermal_noise_hash else "noise_dist"
+    assert _default(fn, name) == "clt4"
+    assert _default(tnoise.hash_normal_stack, "dist") == "clt4"
 

@@ -117,6 +117,6 @@ def test_jax_key_words_reach_the_port():
                           noise_dist="u8")
     got, _ = tmodel.step(interop.state_from_arrays(f, g, 0, seed=7,
                                                    device="cpu"),
-                         TParams(kBT=1e-5), w)
+                         TParams(kBT=1e-5), w, noise_dist="u8")
     np.testing.assert_allclose(to_np(got.f), np.asarray(want.f), rtol=0,
                                atol=2e-5)

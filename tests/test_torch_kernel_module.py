@@ -51,7 +51,7 @@ def test_k_step_matches_pallas_interpret(kBT):
             jnp.asarray(g), block=1, noise_impl="hash", noise_dist="u8")
     before = tfs.launches
     got_f, got_g = tfs.fused_stream_collide(to_torch(f), to_torch(g), word,
-                                            step, tp)
+                                            step, tp, noise_dist="u8")
     assert tfs.launches == before   # CPU tensors: plain version, no launch
     _close(got_f, fo)
     _close(got_g, go)
@@ -75,7 +75,8 @@ def test_k_step_matches_model_step_composed(kBT):
                 g=jstream.stream(jnp.asarray(g)), key=key,
                 step=jnp.asarray(step, jnp.int32))
     want, _ = jmodel.step(js, jp, noise_source="hash", noise_dist="u8")
-    kf, kg = tfs.k_step_reference(to_torch(f), to_torch(g), word, step, tp)
+    kf, kg = tfs.k_step_reference(to_torch(f), to_torch(g), word, step, tp,
+                                  "u8")
     _close(tstream.stream(kf), want.f)
     _close(tstream.stream(kg), want.g)
 
@@ -103,11 +104,12 @@ def test_wrapper_refuses_other_devices():
     (dict(kBT=1e-5), None),
     (dict(alpha0=1.1), None),
     (dict(alpha1=0.3), "K1c"),
-    (dict(tau_f=0.8), "K1d"),
-    (dict(tau_g=0.7), "K1d"),
+    (dict(tau_f=0.8), None),
+    (dict(tau_g=0.7), None),
     (dict(use_sc_pseudo=True), None),
     (dict(alpha0=1.5, alpha1=0.3), "K1c"),
-    (dict(alpha0=1.5, use_sc_pseudo=True, tau_g=0.7), "K1d"),
+    (dict(alpha0=1.5, use_sc_pseudo=True, tau_g=0.7), None),
+    (dict(alpha1=0.3, tau_g=0.7), "K1c"),
 ])
 def test_unsupported_reason(kw, item):
     reason = tfs.unsupported_reason(TParams(**kw))
@@ -117,12 +119,16 @@ def test_unsupported_reason(kw, item):
         assert item in reason
 
 
-@pytest.mark.parametrize("dist", ["clt2", "bm"])
+@pytest.mark.parametrize("dist", ["normal", "clt8"])
 def test_unported_noise_dist(dist):
-    """Only u8 (the kernel's generator) and clt4 have a plain version;
-    the others name the ROADMAP item that ports them."""
-    with pytest.raises(NotImplementedError, match="K3"):
+    """The generators are u8, clt4, clt2 and bm; another name is an
+    error, in the noise stack and in the kernel wrapper."""
+    with pytest.raises(ValueError, match="unknown noise_dist"):
         tnoise.hash_normal_stack(1, 2, (2, 2, 2), torch.float32, dist)
+    f = torch.ones((19, 2, 2, 2))
+    with pytest.raises(ValueError, match="unknown noise_dist"):
+        tfs.fused_stream_collide(f, f.clone(), 1, 1, TParams(kBT=1e-5),
+                                 noise_dist=dist)
 
 
 def test_make_ksteps_is_the_reference_chain():
@@ -182,15 +188,18 @@ def test_maybe_restore_cadence(prev, new, applied):
 
 
 def test_build_is_keyed_by_sources():
-    assert _build.SOURCES == ("fused_step", "density_psi")
+    assert _build.SOURCES == ("fused_step", "fused_step_force",
+                              "fused_step_general",
+                              "fused_step_general_force", "density_psi")
     for name in _build.SOURCES:
         so = _build.library_path(name)
         assert so.parent == _build.build_dir()
         assert so.parent.parts[-2:] == ("build", "bflbm_tpu_torch")
         assert so.name.startswith(f"lib{name}.")
         assert _build.source_hash(name) in so.name
-    assert _build.source_hash("fused_step") != _build.source_hash(
-        "density_psi")
+    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 5
+    assert _build.LIBRARIES["fused_step_general_force"] == (
+        "fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 

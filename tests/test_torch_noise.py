@@ -69,7 +69,8 @@ def test_u8_channel_layout():
     """Channel a of the u8 stack is byte a % 4 of hash word a // 4 — the
     layout the CUDA kernel's u8_draw reads."""
     shape = (4, 4, 8)
-    stack = to_np(tnoise.hash_normal_stack(99, 3, shape, torch.float32))
+    stack = to_np(tnoise.hash_normal_stack(99, 3, shape, torch.float32,
+                                            "u8"))
     words = [to_np(w) for w in tfs.hash_words(99, 3, shape, 9)]
     for a in range(33):
         byte = (words[a // 4] >> (8 * (a % 4))) & 0xFF
@@ -85,7 +86,7 @@ def test_thermal_noise_hash(dist, kBT):
     f, g = perturbed_pops(shape, 21)
     rho, phi = f.sum(0), g.sum(0)
     got = tnoise.thermal_noise_hash(77, 5, to_torch(rho), to_torch(phi),
-                                    TParams(kBT=kBT), dist)
+                                    TParams(kBT=kBT), dist=dist)
     want = jnoise.thermal_noise_hash(77, 5, jnp.asarray(rho),
                                      jnp.asarray(phi), JParams(kBT=kBT),
                                      dist=dist)
@@ -95,5 +96,6 @@ def test_thermal_noise_hash(dist, kBT):
 
 
 def test_unported_dist_raises():
-    with pytest.raises(NotImplementedError, match="K3"):
-        tnoise.hash_normal_stack(1, 1, (2, 2, 2), torch.float32, "bm")
+    """A generator name the port does not know is an error."""
+    with pytest.raises(ValueError, match="unknown noise_dist"):
+        tnoise.hash_normal_stack(1, 1, (2, 2, 2), torch.float32, "normal")

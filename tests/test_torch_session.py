@@ -48,7 +48,8 @@ def _jax_chain(params, f, g, n, per_step=None):
 
 
 def _port_run(params, f, g, words, chunks, mass_restore_int=0, kick=None):
-    sess = FusedSession(params, SHAPE, mass_restore_int=mass_restore_int)
+    sess = FusedSession(params, SHAPE, mass_restore_int=mass_restore_int,
+                        noise_dist="u8")
     pc = sess.enter(tinit(to_torch(f), to_torch(g), SEED), words[0])
     if kick is not None:
         kick(pc)
@@ -91,7 +92,8 @@ def test_session_matches_plain_model_chain():
     words = [7 * k - 3 for k in range(N)]
     p = TParams(kBT=1e-5)
     got = _port_run(p, f, g, words, (2, 7))
-    ref = tmodel.nsteps(tinit(to_torch(f), to_torch(g), SEED), p, N, words)
+    ref = tmodel.nsteps(tinit(to_torch(f), to_torch(g), SEED), p, N, words,
+                        noise_dist="u8")
     np.testing.assert_allclose(to_np(got.f), to_np(ref.f), rtol=0, atol=ATOL)
     np.testing.assert_allclose(to_np(got.g), to_np(ref.g), rtol=0, atol=ATOL)
 
@@ -142,14 +144,21 @@ def test_session_checks_shape():
 
 
 def test_port_imports_no_jax():
-    """Every module of bflbm_tpu_torch imports without JAX or the JAX
-    package (checked in a fresh interpreter)."""
+    """Every module of bflbm_tpu_torch — the run driver, io and
+    observables among them — imports without JAX or the JAX package
+    (checked in a fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import bflbm_tpu_torch\n"
         "for m in pkgutil.walk_packages(bflbm_tpu_torch.__path__,\n"
         "                               'bflbm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = {'bflbm_tpu_torch.run', 'bflbm_tpu_torch.io.checkpoint',\n"
+        "        'bflbm_tpu_torch.io.fields', 'bflbm_tpu_torch.io.metrics',\n"
+        "        'bflbm_tpu_torch.observables.structfact',\n"
+        "        'bflbm_tpu_torch.observables.droplet',\n"
+        "        'bflbm_tpu_torch.utils.debug'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'bflbm_tpu' or k.startswith('bflbm_tpu.'))\n"
