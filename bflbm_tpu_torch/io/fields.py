@@ -1,17 +1,28 @@
-"""Hydro-field frame output (plotfile analog; ``bflbm_tpu/io/fields.py``).
+"""Hydro-field frame output (plotfile analog; ``bflbm_tpu/io/fields.py``,
+rule for rule).
 
-Frames are npz files keyed by the 22-component schema names
-(:data:`bflbm_tpu_torch.ops.hydro.HYDRO_NAMES`) plus ``step``, readable
-by the JAX package's ``read_frame`` and any numpy workflow.
-``np.savez_compressed`` is too slow for a 256^3 frame (1.47 GB), so
-``fmt="auto"`` compresses only frames below 32 MiB and writes larger
-ones with plain ``np.savez``.  The JAX package's native, HDF5 and AMReX
-containers are not ported (ROADMAP Queue 1 item 7).
+Frames are keyed by the 22-component schema names
+(:data:`bflbm_tpu_torch.ops.hydro.HYDRO_NAMES`).  Formats, as in the JAX
+package, and readable by both packages:
+
+- ``npz``: compressed npz with ``step``;
+- ``native``: the ``.bflbm`` container of the repository's native library
+  (:mod:`.native`), written in the call or, given ``writer=``, by an
+  :class:`.native.AsyncFieldWriter`'s background threads;
+- ``h5``: HDF5 through h5py (:mod:`.hdf5`; RuntimeError without h5py);
+- ``amrex``: an AMReX plotfile directory (:mod:`.amrex`);
+- ``auto``: ``native`` for frames of 32 MiB and more
+  (``np.savez_compressed`` is too slow for a 256^3 frame, 1.47 GB), npz
+  below.
+
+``native`` without the native library falls back to npz, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict
 
 import numpy as np
@@ -19,8 +30,7 @@ import torch
 
 from ..ops.hydro import HYDRO_NAMES
 
-_AUTO_COMPRESS_BYTES = 32 * 2 ** 20   # auto: compress frames below this
-_NOT_PORTED = ("native", "h5", "amrex")
+_AUTO_NATIVE_BYTES = 32 * 2 ** 20  # frames above this use the native writer
 
 
 def _host(a) -> np.ndarray:
@@ -35,26 +45,73 @@ def frame_path(out_dir: str, step: int, ndigits: int = 7,
 
 
 def write_frame(out_dir: str, step: int, packed_hydro,
-                fmt: str = "auto") -> str:
+                fmt: str = "auto", writer=None) -> str:
     """packed_hydro: (22, X, Y, Z) tensor or array in HYDRO_NAMES order.
-    fmt: "auto" (npz, compressed below 32 MiB) or "npz" (compressed)."""
-    if fmt in _NOT_PORTED:
-        raise NotImplementedError(
-            f"frame format {fmt!r} is not ported (ROADMAP Queue 1 item 7); "
-            "the port writes npz")
-    if fmt not in ("auto", "npz"):
+    fmt: "auto", "npz", "native", "h5" or "amrex" (module docstring).
+    writer: optional :class:`.native.AsyncFieldWriter` for native frames:
+    the fields are copied at submit and written by its threads."""
+    if fmt not in ("auto", "npz", "native", "h5", "amrex"):
         raise ValueError(f"unknown frame format {fmt!r}")
     os.makedirs(out_dir, exist_ok=True)
     arr = _host(packed_hydro)
+    if fmt == "auto":
+        fmt = "native" if arr.nbytes >= _AUTO_NATIVE_BYTES else "npz"
+    if fmt == "amrex":
+        from . import amrex
+
+        path = os.path.join(out_dir, f"plt{step:07d}")
+        amrex.write_plotfile(path, arr, HYDRO_NAMES, time=float(step),
+                             step=step)
+        return path
+    if fmt == "h5":
+        from . import hdf5
+
+        if not hdf5.available():
+            raise RuntimeError("fmt='h5' requires h5py")
+        return hdf5.write_frame_h5(frame_path(out_dir, step, ext="h5"),
+                                   step, arr, HYDRO_NAMES)
+    if fmt == "native":
+        from . import native
+
+        if writer is not None:
+            path = frame_path(out_dir, step, ext="bflbm")
+            writer.submit(path, list(HYDRO_NAMES),
+                          [np.ascontiguousarray(arr[i])
+                           for i in range(len(HYDRO_NAMES))])
+            return path
+        if native.available():
+            path = frame_path(out_dir, step, ext="bflbm")
+            native.write_fields(
+                path, {n: arr[i] for i, n in enumerate(HYDRO_NAMES)})
+            return path
     path = frame_path(out_dir, step)
-    save = (np.savez if fmt == "auto" and arr.nbytes >= _AUTO_COMPRESS_BYTES
-            else np.savez_compressed)
-    save(path, step=step, **{n: arr[i] for i, n in enumerate(HYDRO_NAMES)})
+    np.savez_compressed(path, step=step,
+                        **{n: arr[i] for i, n in enumerate(HYDRO_NAMES)})
     return path
 
 
 def read_frame(path: str) -> Dict[str, np.ndarray]:
-    """The arrays of an npz frame, by name."""
+    """The arrays of a frame, by name, with its step: an AMReX plotfile
+    directory, a ``.h5``, a ``.bflbm`` (the step from the file name) or
+    an npz file."""
+    if os.path.isdir(path):
+        from . import amrex
+
+        fields, meta = amrex.read_plotfile(path)
+        fields["step"] = np.asarray(meta["step"])
+        return fields
+    if path.endswith(".h5"):
+        from . import hdf5
+
+        return hdf5.read_frame_h5(path)
+    if path.endswith(".bflbm"):
+        from . import native
+
+        out = native.read_fields(path)
+        m = re.search(r"plt(\d+)\.bflbm$", path)
+        if m:
+            out["step"] = np.asarray(int(m.group(1)))
+        return out
     with np.load(path) as d:
         return {k: d[k] for k in d.files}
 

@@ -3,12 +3,15 @@
 ``nvcc`` compiles each library of :data:`LIBRARIES` — a ``csrc/*.cu``
 source and its ``-D`` flags — into its own shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  ``fused_step.cu`` is built four times, once per relaxation
-(``BFLBM_GENERAL_RELAX``) and force (``BFLBM_FORCE``), so that its
-quarters compile in parallel.  The builds happen at first use, all
-libraries at once in parallel, into ``build/bflbm_tpu_torch/`` beside
-the package, and are cached by a hash of the source, the shared headers
-and the flags.
+seconds).  ``fused_step.cu`` is built six times, once per relaxation
+(``BFLBM_GENERAL_RELAX``) and force (``BFLBM_FORCE``, and with it
+``BFLBM_A1``, the alpha1 square-gradient force), so that its parts
+compile in parallel.  The builds happen at first use, all libraries at
+once in parallel, into ``build/bflbm_tpu_torch/`` beside the package,
+and are cached by a hash of the source, the shared headers and the
+flags (:func:`digest`); a file lock (:func:`locked`) keeps processes that
+share the directory from building the same library twice, and every
+library is written to a temporary file and renamed into place.
 ``-Xptxas -v`` output (registers, spills) is kept in a ``.log`` beside
 each library.
 
@@ -18,7 +21,9 @@ fills its ``__constant__`` lattice tables, and ``bflbm_error_string``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -43,7 +48,14 @@ LIBRARIES = {
                                              "-DBFLBM_FORCE=0")),
     "fused_step_general_force": ("fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1",
                                                    "-DBFLBM_FORCE=1")),
+    "fused_step_force_a1": ("fused_step.cu", ("-DBFLBM_GENERAL_RELAX=0",
+                                              "-DBFLBM_FORCE=1",
+                                              "-DBFLBM_A1=1")),
+    "fused_step_general_force_a1": ("fused_step.cu",
+                                    ("-DBFLBM_GENERAL_RELAX=1",
+                                     "-DBFLBM_FORCE=1", "-DBFLBM_A1=1")),
     "density_psi": ("density_psi.cu", ()),
+    "laplacian_psi": ("laplacian_psi.cu", ()),
 }
 SOURCES = tuple(LIBRARIES)
 _HEADERS = ("common.cuh",)
@@ -59,13 +71,33 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[2] / "build" / "bflbm_tpu_torch"
 
 
+def digest(flags, files) -> str:
+    """16 hex digits of a hash of the compiler flags and the files' names
+    and contents: the key of a build."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in files:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def source_hash(name: str) -> str:
     src, defines = LIBRARIES[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
-    for part in (src,) + _HEADERS:
-        h.update(part.encode())
-        h.update((_CSRC / part).read_bytes())
-    return h.hexdigest()[:16]
+    return digest(NVCC_FLAGS + defines,
+                  [_CSRC / part for part in (src,) + _HEADERS])
+
+
+@contextlib.contextmanager
+def locked(path: Path):
+    """Hold an exclusive lock on ``<path>.lock`` for the block, so that
+    processes sharing a build directory build `path` once."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path.with_name(path.name + ".lock"), "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 def library_path(name: str) -> Path:
@@ -88,6 +120,11 @@ def _nvcc() -> str:
 def build() -> Dict[str, Path]:
     """Compile every kernel library whose sources changed, one ``nvcc``
     per library, all started together."""
+    with locked(build_dir() / "nvcc"):
+        return _build_unlocked()
+
+
+def _build_unlocked() -> Dict[str, Path]:
     todo = {}
     t0 = time.perf_counter()
     for name in SOURCES:
@@ -118,8 +155,8 @@ def build() -> Dict[str, Path]:
 
 def ptxas_summary() -> List[str]:
     """One line per kernel instantiation of the current builds: its
-    template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF>)
-    with the ``-Xptxas -v`` registers and spills."""
+    template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF,
+    A1>) with the ``-Xptxas -v`` registers and spills."""
     out = []
     for name in SOURCES:
         log = library_path(name).with_suffix(".log")
@@ -130,7 +167,7 @@ def ptxas_summary() -> List[str]:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 mangled = m.group(1)
-                kern = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+                kern = re.search(r"\d+([a-z_]+_kernel)[IE]", mangled)
                 args = re.findall(r"L[bi](\d+)E", mangled)
                 entry = (f"{kern.group(1) if kern else mangled}"
                          f"<{','.join(args)}>")
@@ -152,13 +189,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bflbm_error_string.argtypes = [i]
     lib.bflbm_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "bflbm_fused_step"):
-        lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, p, i, i, i, i,
-                                         i, f, f, f, f, f, i, i, p, f, f,
-                                         f, p]
+        lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
+                                         i, i, f, f, f, f, f, i, i, p, f,
+                                         f, f, f, p]
         lib.bflbm_fused_step.restype = i
     if hasattr(lib, "bflbm_density_psi"):
         lib.bflbm_density_psi.argtypes = [i, p, p, p, i, i, i, i, f, p]
         lib.bflbm_density_psi.restype = i
+    if hasattr(lib, "bflbm_laplacian_psi"):
+        lib.bflbm_laplacian_psi.argtypes = [i, p, p, i, i, i, p, f, f, p]
+        lib.bflbm_laplacian_psi.restype = i
 
 
 def load(name: str, device) -> ctypes.CDLL:

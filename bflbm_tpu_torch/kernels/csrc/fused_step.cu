@@ -2,12 +2,19 @@
 // Hopper (sm_90a), one thread per cell.
 //
 // Replaces the TPU kernel bflbm_tpu/kernels/fused_step.py:_step_kernel /
-// _k_compute (the pl.pallas_call at fused_step.py:1956) at block 1 in its
-// modes without alpha1, one step per launch, each a template flag:
+// _k_compute (the pl.pallas_call at fused_step.py:1956) at block 1, one
+// step per launch, in its modes, each a template flag:
 //   - FORCE: K1b, the Shan-Chen force of alpha0 != 0 (fused_step.py:
 //     748-808, 922-934, 982-988, 1009-1050), with psi of the streamed
 //     densities read from a (2, X, Y, Z) array that csrc/density_psi.cu
 //     writes just before, on the same stream; without it K1a;
+//   - A1: K1c, the alpha1 square-gradient force (fused_step.py:810-832,
+//     927-934), with the laplacian of psi read from a (2, X, Y, Z) array
+//     that csrc/laplacian_psi.cu writes between the density pre-pass and
+//     this kernel: its 18-neighbour gradient, taken with the weights and
+//     loop of the psi gradient, gives a_f -= cs^2 alpha1 grad lap psi(phi)
+//     and a_g -= cs^2 alpha1 grad lap psi(rho), not divided by the
+//     density; with alpha0 = 0 the Shan-Chen term is skipped;
 //   - GENERAL: K1d, general relaxation (fused_step.py:843-851, 1051-1064):
 //     all 19 moments of the streamed populations, rows k < 10 relaxed
 //     towards m_eq at 1 / (tau + 1/2), ghost rows towards 0, the Guo rows
@@ -19,23 +26,25 @@
 //   - NOISE and DIST: the coordinate-keyed hash noise with u8, clt4, clt2
 //     (_clt2_pair :633) or Box-Muller (_bm_normals :668 over hash_uniforms
 //     :535) deviates, or noise off.
-// GENERAL and FORCE are chosen per library: the source is compiled four
-// times, with BFLBM_GENERAL_RELAX and BFLBM_FORCE each 0 and 1, so that the
-// builds run in parallel and each holds the 9 instantiations of its pair
-// (noise off, or one of four generators with or without REF).
+// GENERAL, FORCE and A1 are chosen per library: the source is compiled six
+// times, with BFLBM_GENERAL_RELAX and BFLBM_FORCE each 0 and 1 and, in the
+// two FORCE builds' copies, BFLBM_A1 = 1, so that the builds run in
+// parallel and each holds the 9 instantiations of its modes (noise off, or
+// one of four generators with or without REF).
 //
 // What bounds it: device memory by its bytes, instructions in practice.  A
 // cell update reads the 19 float32 populations of each of two species and
 // writes as many back, 2 * 19 * 4 * 2 = 304 bytes (312 coupled, with psi;
-// 8 more with the ref operand), against roughly 1,500-3,000 operations
-// (the two 18x19 back transforms, the hash words; GENERAL adds two 15x19
-// forward transforms).  The design keeps ONE pass over memory per step:
-// each thread pulls its 38 inputs straight from device memory (the
-// neighbours' overlapping reads, of populations and of psi, are served by
-// L1/L2), keeps every intermediate in registers, and writes its 38 outputs
-// once.  Threads run along z, so a warp's loads and stores touch
-// contiguous addresses.  A pull cannot run in place, so the output is a
-// separate buffer (the caller ping-pongs two pairs).
+// 320 under A1, with the laplacian; 8 more with the ref operand), against
+// roughly 1,500-3,000 operations (the two 18x19 back transforms, the hash
+// words; GENERAL adds two 15x19 forward transforms).  The design keeps ONE
+// pass over memory per step: each thread pulls its 38 inputs straight from
+// device memory (the neighbours' overlapping reads, of populations, of psi
+// and of its laplacian, are served by L1/L2), keeps every intermediate in
+// registers, and writes its 38 outputs once.  Threads run along z, so a
+// warp's loads and stores touch contiguous addresses.  A pull cannot run in
+// place, so the output is a separate buffer (the caller ping-pongs two
+// pairs).
 //
 // Per cell: pull stream with periodic wrap; the four conserved moments of
 // each species (the densities summed in the order i = 0..18, as the
@@ -70,6 +79,9 @@
 #endif
 #ifndef BFLBM_FORCE
 #define BFLBM_FORCE 0
+#endif
+#ifndef BFLBM_A1
+#define BFLBM_A1 0
 #endif
 
 #include "common.cuh"
@@ -110,6 +122,7 @@ struct Relax {
 
 struct Force {          // coupled mode only
   float k;              // -cs^2 alpha0
+  float a1;             // cs^2 alpha1 (A1 only)
   float s_f;            // Guo prefactor 1 / (1 + 1 / (2 tau_f))
   float s_g;
 };
@@ -118,6 +131,7 @@ struct Args {
   const float* fin;
   const float* gin;
   const float* psi;     // (2, X, Y, Z) or null (uncoupled)
+  const float* lap;     // (2, X, Y, Z) laplacian of psi, or null (not A1)
   const float* ref;     // (2, X, Y, Z) or null (live amplitudes)
   float* fout;
   float* gout;
@@ -325,7 +339,32 @@ __device__ __forceinline__ void store_pops(const float (&m)[Q],
   out[idx] = m[0] - s;
 }
 
-template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF>
+// The 19-point isotropic gradient sum_i (w_i / cs^2) c_i v(x + c_i) of
+// both species of a (2, X, Y, Z) field v, at cell (x, y, z).
+__device__ __forceinline__ void gradient2(const float* __restrict__ v,
+                                          size_t plane, int x, int y, int z,
+                                          int X, int Y, int Z,
+                                          float (&g0)[3], float (&g1)[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) g0[d] = g1[d] = 0.0f;
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
+    const size_t nb = cell_offset(wrap(x + cx, X), wrap(y + cy, Y),
+                                  wrap(z + cz, Z), Y, Z);
+    const float v0 = __ldg(v + nb);
+    const float v1 = __ldg(v + plane + nb);
+    const float w = c_GW[i];
+    g0[0] += (w * static_cast<float>(cx)) * v0;
+    g0[1] += (w * static_cast<float>(cy)) * v0;
+    g0[2] += (w * static_cast<float>(cz)) * v0;
+    g1[0] += (w * static_cast<float>(cx)) * v1;
+    g1[1] += (w * static_cast<float>(cy)) * v1;
+    g1[2] += (w * static_cast<float>(cz)) * v1;
+  }
+}
+
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1>
 __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   const int z = blockIdx.x * BLOCK + threadIdx.x;
   const int X = p.X, Y = p.Y, Z = p.Z;
@@ -379,33 +418,28 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   const float wf = phi * inv_rhot;
   const float wg = rho * inv_rhot;
 
-  // Shan-Chen accelerations from psi of the streamed densities.
+  // Shan-Chen accelerations from psi of the streamed densities (skipped
+  // under A1 with alpha0 = 0, as in the JAX kernel), then the alpha1
+  // square-gradient force from the laplacian of psi.
   float af[3] = {0.0f, 0.0f, 0.0f}, ag[3] = {0.0f, 0.0f, 0.0f};
-  if (FORCE) {
-    const float* psi = p.psi;
-    float grad_rho[3] = {0.0f, 0.0f, 0.0f};
-    float grad_phi[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int i = 1; i < Q; ++i) {
-      const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
-      const size_t nb = cell_offset(wrap(x + cx, X), wrap(y + cy, Y),
-                                    wrap(z + cz, Z), Y, Z);
-      const float pr = __ldg(psi + nb);
-      const float pp = __ldg(psi + plane + nb);
-      const float w = c_GW[i];
-      grad_rho[0] += (w * static_cast<float>(cx)) * pr;
-      grad_rho[1] += (w * static_cast<float>(cy)) * pr;
-      grad_rho[2] += (w * static_cast<float>(cz)) * pr;
-      grad_phi[0] += (w * static_cast<float>(cx)) * pp;
-      grad_phi[1] += (w * static_cast<float>(cy)) * pp;
-      grad_phi[2] += (w * static_cast<float>(cz)) * pp;
-    }
-    const float psi_rho = __ldg(psi + idx);
-    const float psi_phi = __ldg(psi + plane + idx);
+  if (FORCE && (!A1 || p.fc.k != 0.0f)) {
+    float grad_rho[3], grad_phi[3];
+    gradient2(p.psi, plane, x, y, z, X, Y, Z, grad_rho, grad_phi);
+    const float psi_rho = __ldg(p.psi + idx);
+    const float psi_phi = __ldg(p.psi + plane + idx);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       af[d] = p.fc.k * psi_rho * grad_phi[d] * inv_rho;
       ag[d] = p.fc.k * psi_phi * grad_rho[d] * inv_phi;
+    }
+  }
+  if (A1) {
+    float gl_rho[3], gl_phi[3];
+    gradient2(p.lap, plane, x, y, z, X, Y, Z, gl_rho, gl_phi);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      af[d] = af[d] - p.fc.a1 * gl_phi[d];
+      ag[d] = ag[d] - p.fc.a1 * gl_rho[d];
     }
   }
 
@@ -479,29 +513,34 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   store_pops<NROWS>(mg, p.gout, plane, idx);
 }
 
-template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF>
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1>
 int launch(dim3 grid, cudaStream_t s, const Args& a) {
-  k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF><<<grid, BLOCK, 0, s>>>(a);
+  k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF, A1>
+      <<<grid, BLOCK, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DIST, bool FORCE, bool GENERAL>
+template <int DIST, bool FORCE, bool GENERAL, bool A1>
 int launch_noise(dim3 grid, cudaStream_t s, const Args& a) {
   if (a.ref != nullptr)
-    return launch<true, DIST, FORCE, GENERAL, true>(grid, s, a);
-  return launch<true, DIST, FORCE, GENERAL, false>(grid, s, a);
+    return launch<true, DIST, FORCE, GENERAL, true, A1>(grid, s, a);
+  return launch<true, DIST, FORCE, GENERAL, false, A1>(grid, s, a);
 }
 
-template <bool FORCE, bool GENERAL>
+template <bool FORCE, bool GENERAL, bool A1>
 int launch_mode(int noise_on, int dist, dim3 grid, cudaStream_t s,
                 const Args& a) {
   if (!noise_on)
-    return launch<false, DIST_U8, FORCE, GENERAL, false>(grid, s, a);
+    return launch<false, DIST_U8, FORCE, GENERAL, false, A1>(grid, s, a);
   switch (dist) {
-    case DIST_U8: return launch_noise<DIST_U8, FORCE, GENERAL>(grid, s, a);
-    case DIST_CLT4: return launch_noise<DIST_CLT4, FORCE, GENERAL>(grid, s, a);
-    case DIST_CLT2: return launch_noise<DIST_CLT2, FORCE, GENERAL>(grid, s, a);
-    case DIST_BM: return launch_noise<DIST_BM, FORCE, GENERAL>(grid, s, a);
+    case DIST_U8:
+      return launch_noise<DIST_U8, FORCE, GENERAL, A1>(grid, s, a);
+    case DIST_CLT4:
+      return launch_noise<DIST_CLT4, FORCE, GENERAL, A1>(grid, s, a);
+    case DIST_CLT2:
+      return launch_noise<DIST_CLT2, FORCE, GENERAL, A1>(grid, s, a);
+    case DIST_BM:
+      return launch_noise<DIST_BM, FORCE, GENERAL, A1>(grid, s, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -522,27 +561,32 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float* m,
 
 // One K step on device pointers (19, X, Y, Z) float32, z contiguous.
 // psi: the (2, X, Y, Z) psi densities of the streamed input for the coupled
-// mode (the BFLBM_FORCE=1 builds), or null for the uncoupled one; the other
-// gives cudaErrorInvalidValue.  ref: the (2, X, Y, Z) COM-rolled
+// mode (the BFLBM_FORCE=1 builds), or null for the uncoupled one; lap: their
+// (2, X, Y, Z) laplacian for the alpha1 mode (the BFLBM_A1=1 builds), or
+// null; a pointer the library's mode does not take, or one it lacks, gives
+// cudaErrorInvalidValue.  ref: the (2, X, Y, Z) COM-rolled
 // (rho_eq, phi_eq) of USE_REF_STATE, or null (read only with noise on).
 // dist: 0 u8, 1 clt4, 2 clt2, 3 Box-Muller.  coef: host array [pref_mom,
 // cf[15], cg[15], scale, off].  lam_f, lam_g: 1 / (tau + 1/2), read by the
-// general-relaxation build.  force_k = -cs^2 alpha0; s_f, s_g the Guo
-// prefactors.  Returns cudaGetLastError() after the launch.
+// general-relaxation build.  force_k = -cs^2 alpha0; a1 = cs^2 alpha1;
+// s_f, s_g the Guo prefactors.  Returns cudaGetLastError() after the launch.
 extern "C" int bflbm_fused_step(int device, const float* fin,
                                 const float* gin, const float* psi,
-                                const float* ref, float* fout, float* gout,
+                                const float* lap, const float* ref,
+                                float* fout, float* gout,
                                 int X, int Y, int Z, int word, int step,
                                 float eps, float half_lam_f, float half_lam_g,
                                 float lam_f, float lam_g, int noise_on,
                                 int dist, const float* coef, float force_k,
-                                float s_f, float s_g, void* stream) {
+                                float a1, float s_f, float s_g,
+                                void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   Args a;
   a.fin = fin;
   a.gin = gin;
   a.psi = psi;
+  a.lap = lap;
   a.ref = ref;
   a.fout = fout;
   a.gout = gout;
@@ -552,7 +596,7 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   a.word = static_cast<uint32_t>(word);
   a.step = static_cast<uint32_t>(step);
   a.rx = Relax{eps, half_lam_f, half_lam_g, lam_f, lam_g};
-  a.fc = Force{force_k, s_f, s_g};
+  a.fc = Force{force_k, a1, s_f, s_g};
   a.nc.pref_mom = coef[0];
   for (int k = 0; k < NGHOST; ++k) {
     a.nc.cf[k] = coef[1 + k];
@@ -564,9 +608,11 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr bool kGeneral = BFLBM_GENERAL_RELAX != 0;
   constexpr bool kForce = BFLBM_FORCE != 0;
-  if ((psi != nullptr) != kForce)   // the other library's mode
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_mode<kForce, kGeneral>(noise_on, dist, grid, s, a);
+  constexpr bool kA1 = BFLBM_A1 != 0;
+  static_assert(kForce || !kA1, "BFLBM_A1 needs BFLBM_FORCE");
+  if ((psi != nullptr) != kForce || (lap != nullptr) != kA1)
+    return static_cast<int>(cudaErrorInvalidValue);   // another library's
+  return launch_mode<kForce, kGeneral, kA1>(noise_on, dist, grid, s, a);
 }
 
 extern "C" const char* bflbm_error_string(int code) {

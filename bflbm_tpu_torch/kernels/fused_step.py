@@ -7,17 +7,23 @@ keyed by (word_k, k)) advances it to label k + 1.
 
 :func:`fused_stream_collide` launches the hand-written CUDA kernels on
 CUDA tensors and runs their plain PyTorch versions on CPU tensors.  The
-kernels cover alpha1 = 0 with exact (tau_f = tau_g = 1/2) or general
-relaxation, kBT = 0 or the hash stream with u8, clt4, clt2 or Box-Muller
-deviates, and noise amplitudes from the live densities or from a stored
-reference state (USE_REF_STATE, the ``ref`` operand):
+kernels cover every configuration the JAX kernel takes at block 1:
+exact (tau_f = tau_g = 1/2) or general relaxation, kBT = 0 or the hash
+stream with u8, clt4, clt2 or Box-Muller deviates, noise amplitudes from
+the live densities or from a stored reference state (USE_REF_STATE, the
+``ref`` operand), and the forces of alpha0 and alpha1:
 
-- uncoupled (alpha0 = 0): one launch of ``csrc/fused_step.cu``
+- uncoupled (alpha0 = alpha1 = 0): one launch of ``csrc/fused_step.cu``
   (:func:`launch_k`, plain version :func:`k_step_reference`);
 - coupled (alpha0 != 0): the density pre-pass ``csrc/density_psi.cu``
   (:func:`density_psi`, plain version :func:`density_psi_reference`)
   writes psi of the streamed densities, then the K kernel reads its
-  neighbours' psi for the Shan-Chen force.
+  neighbours' psi for the Shan-Chen force;
+- alpha1 != 0 (K1c, stencil depth 3): the density pre-pass, then the
+  laplacian pre-pass ``csrc/laplacian_psi.cu`` (:func:`laplacian_psi`,
+  plain version :func:`laplacian_psi_reference`) writes the laplacian of
+  psi, then the K kernel takes its neighbours' gradient for the
+  square-gradient force.
 
 The noise bits are those of the JAX package's coordinate-keyed hash
 stream (``bflbm_tpu/kernels/fused_step.py:hash_words``): two rounds of
@@ -42,7 +48,7 @@ import numpy as np
 import torch
 
 from ..config import LBMParams
-from ..lattice import B, CS2, Q
+from ..lattice import B, CS2, Q, W
 from ..ops import collide as collide_ops
 from ..ops import hydro as hydro_ops
 from ..ops import noise as noise_ops
@@ -171,7 +177,8 @@ def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K = collide∘stream of a post-collide state:
     stream -> hydrovars_bar -> hash noise (word, step) -> hydrovars (with
-    the Shan-Chen force when alpha0 != 0) -> collide (exact or general
+    the Shan-Chen force when alpha0 != 0 and the square-gradient force
+    when alpha1 != 0) -> collide (exact or general
     relaxation, :func:`general_relax`).  ref: optional (2, X, Y, Z)
     COM-rolled (rho_eq, phi_eq) — the USE_REF_STATE noise amplitudes."""
     check_noise_dist(noise_dist)
@@ -197,31 +204,39 @@ def density_psi_reference(f: torch.Tensor, g: torch.Tensor,
         for n in (rho, phi)])
 
 
+def laplacian_psi_reference(psi: torch.Tensor) -> torch.Tensor:
+    """Plain laplacian pre-pass: the 19-point laplacian of each of the
+    (2, X, Y, Z) psi fields (psi is already transformed)."""
+    return torch.stack([stencil_ops.laplacian(p) for p in psi])
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-# Launches of the K kernel (launch_k) and of the density pre-pass
-# (density_psi), on CUDA tensors only; mode_launches counts the K
-# launches by mode: "general" (K1d), "ref" (K1e) and, for launches with
-# noise, the generator's name.
+# Launches of the K kernel (launch_k), the density pre-pass (density_psi)
+# and the laplacian pre-pass (laplacian_psi), on CUDA tensors only;
+# mode_launches counts the K launches by mode: "general" (K1d), "ref"
+# (K1e), "alpha1" (K1c) and, for launches with noise, the generator's
+# name.
 launches = 0
 density_launches = 0
+laplacian_launches = 0
 mode_launches: Dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
-    global launches, density_launches
+    global launches, density_launches, laplacian_launches
     launches = 0
     density_launches = 0
+    laplacian_launches = 0
     mode_launches.clear()
 
 
 def unsupported_reason(params: LBMParams) -> Optional[str]:
-    """Why the CUDA kernels cannot run this configuration, or None."""
-    if params.alpha1 != 0.0:
-        return ("alpha1 != 0 needs the square-gradient kernel "
-                "(ROADMAP Queue 1 item 9, K1c)")
+    """Why the CUDA kernels cannot run this configuration, or None.  They
+    run every configuration the JAX kernel takes, so this is always
+    None."""
     return None
 
 
@@ -234,8 +249,15 @@ def general_relax(params: LBMParams) -> bool:
 
 
 def is_coupled(params: LBMParams) -> bool:
-    """The Shan-Chen force is on: K needs the density pre-pass."""
-    return params.alpha0 != 0.0
+    """A force is on (alpha0 or alpha1, the JAX kernel's ``has_force``):
+    K needs the density pre-pass."""
+    return params.alpha0 != 0.0 or params.alpha1 != 0.0
+
+
+def has_alpha1(params: LBMParams) -> bool:
+    """The square-gradient force is on: K needs the laplacian pre-pass
+    too."""
+    return params.alpha1 != 0.0
 
 
 @functools.lru_cache(maxsize=16)
@@ -327,24 +349,65 @@ def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
     return out
 
 
+# Lattice weights of the laplacian kernel: w_i, their sum over i >= 1 and
+# 2 / cs^2, as the JAX kernel's lap_ext1 rounds them to float32.
+_LAP_W = [float(np.float32(w)) for w in W]
+_LAP_WSUM = float(np.float32(sum(float(w) for w in W[1:])))
+_LAP_TWO_CS2 = float(np.float32(2.0 / CS2))
+
+
+def laplacian_psi(psi: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The 19-point laplacian of both (2, X, Y, Z) psi fields of the
+    density pre-pass, a (2, X, Y, Z) tensor (written into `out` when
+    given; it must not alias psi).
+
+    CPU tensors run :func:`laplacian_psi_reference`.  CUDA tensors launch
+    ``csrc/laplacian_psi.cu`` or raise."""
+    global laplacian_launches
+    if psi.device.type == "cpu":
+        ref = laplacian_psi_reference(psi)
+        if out is None:
+            return ref
+        return out.copy_(ref)
+    if psi.device.type != "cuda":
+        raise ValueError(f"no laplacian pre-pass for device {psi.device}")
+    _check_field("psi", psi, psi, 2)
+    if out is None:
+        out = torch.empty_like(psi)
+    _check_field("lap", out, psi, 2)
+    _check_no_alias("lap", out, (psi,))
+    X, Y, Z = _grid_dims(psi)
+    from . import _build
+
+    lib = _build.load("laplacian_psi", psi.device)
+    w = (ctypes.c_float * Q)(*_LAP_W)
+    rc = lib.bflbm_laplacian_psi(
+        psi.device.index, psi.data_ptr(), out.data_ptr(), X, Y, Z, w,
+        _LAP_WSUM, _LAP_TWO_CS2,
+        torch.cuda.current_stream(psi.device).cuda_stream)
+    _raise_on(rc, lib, "laplacian_psi")
+    laplacian_launches += 1
+    return out
+
+
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
 def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
              params: LBMParams, out: Pair, psi: Optional[torch.Tensor],
              noise_dist: str = "clt4",
-             ref: Optional[torch.Tensor] = None) -> Pair:
+             ref: Optional[torch.Tensor] = None, *,
+             lap: Optional[torch.Tensor] = None) -> Pair:
     """Launch the K kernel on CUDA tensors: f, g -> out.  psi: the
     pre-pass output of (f, g) for a coupled configuration, None for an
-    uncoupled one.  ref: the (2, X, Y, Z) USE_REF_STATE amplitude fields
-    or None (ignored when kBT = 0, as in the JAX kernel).  The library
-    is the build of ``fused_step.cu`` for the relaxation
-    (:func:`general_relax`) and the force.  Raises for what the kernel
-    does not take."""
+    uncoupled one.  lap: the laplacian pre-pass output of psi when
+    alpha1 != 0, else None.  ref: the (2, X, Y, Z) USE_REF_STATE amplitude
+    fields or None (ignored when kBT = 0, as in the JAX kernel).  The
+    library is the build of ``fused_step.cu`` for the relaxation
+    (:func:`general_relax`), the force and alpha1.  Raises for what the
+    kernel does not take."""
     global launches
-    reason = unsupported_reason(params)
-    if reason is not None:
-        raise NotImplementedError(reason)
     check_noise_dist(noise_dist)
     if f.device.type != "cuda":
         raise ValueError(f"the K kernel runs on CUDA tensors, not {f.device}")
@@ -354,10 +417,14 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
         _check_field(name, t, f, Q)
         _check_no_alias(name, t, (f, g))
     if is_coupled(params) != (psi is not None):
-        raise ValueError("psi must be given exactly when alpha0 != 0")
-    if psi is not None:
-        _check_field("psi", psi, f, 2)
-        _check_no_alias("psi", psi, (f, g) + tuple(out))
+        raise ValueError("psi must be given exactly when alpha0 or alpha1 "
+                         "!= 0")
+    if has_alpha1(params) != (lap is not None):
+        raise ValueError("lap must be given exactly when alpha1 != 0")
+    for name, t in (("psi", psi), ("lap", lap)):
+        if t is not None:
+            _check_field(name, t, f, 2)
+            _check_no_alias(name, t, (f, g) + tuple(out))
     if ref is not None:
         _check_field("ref", ref, f, 2)
         _check_no_alias("ref", ref, tuple(out))
@@ -368,24 +435,27 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
 
     lib = _build.load("fused_step" + ("_general" if general_relax(params)
                                       else "")
-                      + ("_force" if psi is not None else ""), f.device)
+                      + ("_force" if psi is not None else "")
+                      + ("_a1" if lap is not None else ""), f.device)
     coef = (ctypes.c_float * 33)(*_noise_coef(
         float(params.kBT), params.lam_f, params.lam_g, noise_dist))
     rc = lib.bflbm_fused_step(
         f.device.index, f.data_ptr(), g.data_ptr(),
         None if psi is None else psi.data_ptr(),
+        None if lap is None else lap.data_ptr(),
         None if ref is None else ref.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
         _as_i32(word), _as_i32(step), params.div_eps,
         0.5 * params.lam_f, 0.5 * params.lam_g, params.lam_f, params.lam_g,
         int(params.noise_on), NOISE_DISTS[noise_dist][0], coef,
-        -CS2 * params.alpha0,
+        -CS2 * params.alpha0, CS2 * params.alpha1,
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_f)),
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_g)),
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "fused_step")
     launches += 1
     tags = ((["general"] if general_relax(params) else [])
+            + (["alpha1"] if lap is not None else [])
             + (["ref"] if ref is not None else [])
             + ([noise_dist] if params.noise_on else []))
     for tag in tags:
@@ -398,19 +468,21 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
                          out: Optional[Pair] = None, *,
                          noise_dist: str = "clt4",
                          psi: Optional[torch.Tensor] = None,
-                         ref: Optional[torch.Tensor] = None) -> Pair:
+                         ref: Optional[torch.Tensor] = None,
+                         lap: Optional[torch.Tensor] = None) -> Pair:
     """One K step of the post-collide pair (f, g) with noise word `word`
     at step label `step`; returns the new pair (written into `out` when
     given — it must not alias f or g: the pull reads neighbours).
-    noise_dist: "clt4", "u8", "clt2" or "bm".  psi: a (2, X, Y, Z)
+    noise_dist: "clt4", "u8", "clt2" or "bm".  psi, lap: (2, X, Y, Z)
     float32 scratch for the density pre-pass of a coupled configuration
-    (allocated when not given).  ref: the (2, X, Y, Z) COM-rolled
-    (rho_eq, phi_eq) of USE_REF_STATE, or None.
+    and for the laplacian pre-pass when alpha1 != 0 (allocated when not
+    given).  ref: the (2, X, Y, Z) COM-rolled (rho_eq, phi_eq) of
+    USE_REF_STATE, or None.
 
     CPU tensors run :func:`k_step_reference`.  CUDA tensors launch the
-    CUDA kernels (the pre-pass, then K, on the current stream), or
-    raise: NotImplementedError for a configuration the kernels do not
-    cover, RuntimeError for a failed build or launch.
+    CUDA kernels on the current stream (the pre-passes A and, with
+    alpha1, L, then K), or raise: ValueError or TypeError for tensors the
+    kernels do not take, RuntimeError for a failed build or launch.
     """
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
@@ -423,17 +495,13 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
         return out
     if f.device.type != "cuda":
         raise ValueError(f"no K-step path for device {f.device}")
-    reason = unsupported_reason(params)
-    if reason is not None:
-        raise NotImplementedError(reason)
     check_noise_dist(noise_dist)
     if out is None:
         out = (torch.empty_like(f), torch.empty_like(g))
-    if is_coupled(params):
-        psi = density_psi(f, g, params, out=psi)
-    else:
-        psi = None
-    return launch_k(f, g, word, step, params, out, psi, noise_dist, ref)
+    psi = density_psi(f, g, params, out=psi) if is_coupled(params) else None
+    lap = laplacian_psi(psi, out=lap) if has_alpha1(params) else None
+    return launch_k(f, g, word, step, params, out, psi, noise_dist, ref,
+                    lap=lap)
 
 
 # ---------------------------------------------------------------------------
@@ -466,8 +534,9 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
                 noise_dist: str = "clt4"):
     """fn(s, words=None, ref=None) -> s: n K steps of a post-collide
     SimState, one K launch per step (block 1; a coupled configuration
-    adds one pre-pass launch), ping-ponging two buffer pairs and, when
-    coupled, reusing one psi scratch for the chunk.
+    adds the density pre-pass, alpha1 the laplacian pre-pass too),
+    ping-ponging two buffer pairs and reusing one psi (and lap) scratch
+    for the chunk.
 
     The input's buffers are reused as the second pair, so `s` is
     consumed.  words: the n per-step noise words (default: drawn from
@@ -484,16 +553,18 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
             raise ValueError(f"need {n} words, got {len(words)}")
         cur = s
         spare = None
-        psi = None
+        psi = lap = None
         if is_coupled(params) and s.f.device.type == "cuda" and n:
             psi = torch.empty((2,) + tuple(s.f.shape[1:]), dtype=s.f.dtype,
                               device=s.f.device)
+            if has_alpha1(params):
+                lap = torch.empty_like(psi)
         for w in words:
             if spare is None:
                 spare = (torch.empty_like(cur.f), torch.empty_like(cur.g))
             fo, go = fused_stream_collide(cur.f, cur.g, w, cur.step, params,
                                           out=spare, noise_dist=noise_dist,
-                                          psi=psi, ref=ref)
+                                          psi=psi, ref=ref, lap=lap)
             spare = (cur.f, cur.g)
             nxt = cur.replace(f=fo, g=go, step=cur.step + 1)
             cur = _maybe_restore(cur.step, nxt, mass_restore)

@@ -48,7 +48,10 @@ from . import fused_step
 
 
 class FusedSession:
-    """Single-device session over the fused K-step kernels.
+    """Single-device session over the fused K-step kernels: per K step the
+    density pre-pass when a force is on, the laplacian pre-pass when
+    alpha1 != 0, and K, with the pre-passes' psi and lap scratch held for
+    each advance (:func:`fused_step.make_ksteps`).
 
     noise_dist: the hash-stream generator, "clt4" (default, as in the
     JAX package), "u8", "clt2" or "bm" (both the entry prelude and the
@@ -217,13 +220,9 @@ def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
                  mass_restore_int: int = 1000,
                  ref_fields=None) -> FusedSession:
     """The single-device session for this configuration (the counterpart
-    of ``bflbm_tpu.kernels.session.make_session`` without a mesh).
-    Raises NotImplementedError, naming the ROADMAP item, for what the
-    kernels cannot run (alpha1, K1c); there is no plain-torch engine to
-    fall back to."""
-    reason = fused_step.unsupported_reason(params)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    of ``bflbm_tpu.kernels.session.make_session`` without a mesh): the
+    kernels run every configuration, alpha1 included.  Raises ValueError
+    for an unknown generator name."""
     return FusedSession(params, shape, noise_dist=noise_dist,
                         mass_restore_int=mass_restore_int,
                         ref_fields=ref_fields)

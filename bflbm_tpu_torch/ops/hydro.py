@@ -9,7 +9,7 @@ the cross-species friction and the noise corrections:
          + xi_f / (2 rho)
 
 with lam = 1/(tau + 1/2) and a_f = -cs^2 alpha0 psi(rho) grad(psi(phi))
-/ rho, and the symmetric formulas for g.
+/ rho - cs^2 alpha1 grad lap psi(phi), and the symmetric formulas for g.
 """
 
 from __future__ import annotations
@@ -88,10 +88,12 @@ def hydrovars_bar(f: torch.Tensor, g: torch.Tensor,
 def accelerations(rho: torch.Tensor, phi: torch.Tensor,
                   params: LBMParams) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shan-Chen cross-species accelerations (LBM_binary.H:232-257),
-    evaluated (like the JAX package) even when alpha0 = 0."""
-    if params.alpha1 != 0.0:
-        raise NotImplementedError(
-            "alpha1 != 0 is not ported yet (ROADMAP Queue 1 item 9, K1c)")
+    evaluated (like the JAX package) even when alpha0 = 0, and the alpha1
+    square-gradient term, evaluated only when alpha1 != 0:
+
+        a_f -= cs^2 alpha1 grad lap psi(phi)   (a_g likewise with rho),
+
+    not divided by the density."""
     use_sc, n0 = params.use_sc_pseudo, params.sc_ref_density
     eps = params.div_eps
     grad_phi = stencil.gradient(phi, use_sc, n0)
@@ -102,6 +104,9 @@ def accelerations(rho: torch.Tensor, phi: torch.Tensor,
                                           rho[None], eps)
     ag = -CS2 * params.alpha0 * _safe_div(psi_phi[None] * grad_rho,
                                           phi[None], eps)
+    if params.alpha1 != 0.0:
+        af = af - CS2 * params.alpha1 * stencil.grad_laplacian(phi, use_sc, n0)
+        ag = ag - CS2 * params.alpha1 * stencil.grad_laplacian(rho, use_sc, n0)
     return af, ag
 
 

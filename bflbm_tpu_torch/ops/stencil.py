@@ -1,5 +1,6 @@
-"""Isotropic 19-point lattice gradient (``LBM_binary.H:134-150``) as
-compositions of periodic ``torch.roll`` shifts."""
+"""Isotropic 19-point lattice stencils — gradient, laplacian and
+grad-laplacian (``LBM_binary.H:134-194``) — as compositions of periodic
+``torch.roll`` shifts (``bflbm_tpu/ops/stencil.py``)."""
 
 from __future__ import annotations
 
@@ -49,3 +50,30 @@ def gradient(field: torch.Tensor, use_sc: bool = False,
             if C[i, d] != 0:
                 out[d] = out[d] + (coeff * float(C[i, d])) * diff
     return torch.stack(out)
+
+
+def laplacian(field: torch.Tensor, use_sc: bool = False,
+              ref_density: float = 1.0, dims=(-3, -2, -1)) -> torch.Tensor:
+    """19-point lattice laplacian (LBM_binary.H:152-168):
+    lap psi(x) = (2/cs^2) sum_i w_i (psi(x + c_i) - psi(x)), as 9
+    symmetric pair sums."""
+    psi = pseudopotential(field, use_sc, ref_density)
+    acc = torch.zeros_like(field)
+    wsum = 0.0
+    for i, j in _PAIRS:
+        acc = acc + float(W[i]) * (shift(psi, C[i], dims)
+                                   + shift(psi, C[j], dims))
+        wsum += float(2.0 * W[i])
+    return (2.0 / CS2) * (acc - wsum * psi)
+
+
+def grad_laplacian(field: torch.Tensor, use_sc: bool = False,
+                   ref_density: float = 1.0,
+                   dims=(-3, -2, -1)) -> torch.Tensor:
+    """Gradient of the laplacian (``grad_laplacian_2nd``,
+    LBM_binary.H:170-194) as gradient(laplacian(psi)); the pseudopotential
+    applies to the innermost field only, as in the reference.  Returns
+    (3, *field.shape)."""
+    psi = pseudopotential(field, use_sc, ref_density)
+    return gradient(laplacian(psi, False, ref_density, dims), False,
+                    ref_density, dims)

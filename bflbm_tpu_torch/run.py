@@ -96,6 +96,18 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
     state = model.make_initial_state(cfg, device=device)
     os.makedirs(cfg.out_dir, exist_ok=True)
     metrics = MetricsWriter(os.path.join(cfg.out_dir, "metrics.jsonl"))
+
+    # async frame writer: large frames go to background writer threads
+    # (reference analog: AMReX async plotfile I/O)
+    frame_writer = None
+    if cfg.plot_int > 0 and cfg.plot_save and cfg.plot_fmt in ("auto",
+                                                               "native"):
+        nbytes = 22 * int(np.prod(cfg.shape)) * np.dtype(np.float32).itemsize
+        if nbytes >= fields_io._AUTO_NATIVE_BYTES:
+            from .io import native as native_io
+
+            if native_io.available():
+                frame_writer = native_io.AsyncFieldWriter()
     try:
 
         # USE_REF_STATE noise path: amplitudes from the stored equilibrium
@@ -210,7 +222,8 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
                 t0 = time.perf_counter()
                 if cfg.plot_save:
                     path = fields_io.write_frame(cfg.out_dir, step_i, packed,
-                                                 fmt=cfg.plot_fmt)
+                                                 fmt=cfg.plot_fmt,
+                                                 writer=frame_writer)
                 if on_frame:
                     on_frame(step_i, packed)
                 if not p.noise_on and cfg.t_window > 0 and step_i >= eq_start:
@@ -259,8 +272,11 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
                 "to a one-step sub-chunk and handled at step granularity",
                 stacklevel=2)
 
-        # end-of-run artifacts
+        # end-of-run artifacts; the frames submitted to the async writer
+        # are on disk first (the convergence report reads them back)
         t0 = time.perf_counter()
+        if frame_writer is not None:
+            frame_writer.close()
         ckpt.save_state(
             os.path.join(cfg.out_dir, f"checkpoint{last:07d}"), state,
             extra={"config": _cfg_json(cfg)})
@@ -281,8 +297,7 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
             if eq_paths:
                 dev = np.zeros_like(mean[0])
                 for path in eq_paths:
-                    with np.load(path) as frame:   # rho only, not 22 fields
-                        dev += np.abs(frame["rho"] - mean[0])
+                    dev += np.abs(fields_io.read_frame(path)["rho"] - mean[0])
                 dev /= len(eq_paths)
                 conv.update({"rho_dev_l1": float(dev.mean()),
                              "rho_dev_linf": float(dev.max()),
@@ -292,6 +307,10 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
                 json.dump(conv, fh)
             metrics.log(last, **conv)
     finally:
+        # drain pending async frame writes on any exit: an exception mid-run
+        # must not drop submitted frames
+        if frame_writer is not None:
+            frame_writer.close()
         metrics.close()
     tm["io"] += time.perf_counter() - t0
     tm["total"] = time.perf_counter() - t_start
@@ -344,7 +363,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--plot-int", type=int, default=None)
     ap.add_argument("--print-int", type=int, default=None)
-    ap.add_argument("--plot-fmt", default=None, choices=["auto", "npz"])
+    ap.add_argument("--plot-fmt", default=None,
+                    choices=["auto", "npz", "native", "h5", "amrex"])
     ap.add_argument("--sf-window", type=int, default=None)
     ap.add_argument("--sf-every", type=int, default=None)
     ap.add_argument("--out-noise-int", type=int, default=None)

@@ -51,7 +51,22 @@ Phases (each raises on failure; the script then exits non-zero):
    MLUPS and its time split); (3) short continuations through ``main``
    with ``--tau-f/--tau-g --noise-dist clt2`` and with ``--noise-dist
    bm``; (4) S(k) through the driver on a 64^3 mixture (the density
-   structure factor over kBT / cs^2 within 5% of 1).
+   structure factor over kBT / cs^2 within 5% of 1).  The 256^3 frames
+   are ``.bflbm`` files written by the native async writer;
+8. the alpha1 path (K1c: alpha0 = 1.2, alpha1 = 0.5, kappa = 0.1, rho_lo
+   = 0.1, rho_hi = 3, the JAX package's alpha1 session configuration):
+   (a) the laplacian pre-pass L and the K step B-A1 against their plain
+   versions, max |delta| <= 2e-5, on 32^3 droplets (no noise, u8, clt4;
+   alpha0 0 and 1.2; exact and general tau; with and without the ref
+   operand; the pseudopotential) and on the 256^3 droplet, where A, L,
+   B-A1, the triple, their plain versions and a circular ``Conv3d`` with
+   the 19 laplacian taps are timed; (b) the 256^3 alpha1 droplet session
+   with kBT = 1e-5 and clt4, 1 + 1100 steps with the restore at step 1000
+   (launches of A, L and K, finiteness, masses, the droplet's centre of
+   mass, MLUPS); (c) ``run(cfg)`` at 256^3 for 300 steps with frames at
+   0 and 300 (``fmt="auto"``: a ``.bflbm`` written through the
+   ``AsyncFieldWriter``), read back and held against the plain hydro of
+   the final state, with the loop's wall split.
 
 Each phase prints its wall time.  Phase 0 prints the card's name and
 power limit on a line of its own, as ``nvidia-smi`` gives them; the line
@@ -103,6 +118,12 @@ KERNELS = {
     "k1e": dict(bytes=2 * 19 * 4 * 2 + 2 * 4 + 2 * 4, ops=2810),
     "clt2": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=2550),
     "bm": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=4500),
+    # laplacian pre-pass L: reads psi, writes lap (8 B each); 18 FMAs and
+    # the centre term per species
+    "l": dict(bytes=2 * 4 + 2 * 4, ops=80),
+    # B-A1 (alpha0 != 0, clt4): B + 8 B/cell for lap, + the second pair
+    # of 18-neighbour gradients (216) and the square-gradient terms
+    "b_a1": dict(bytes=2 * 19 * 4 * 2 + 2 * 4 + 2 * 4, ops=3030),
 }
 SRC = "bflbm_tpu_torch/kernels/csrc/"
 TPU_KERNEL = "bflbm_tpu/kernels/fused_step.py:1956"
@@ -489,7 +510,7 @@ def _driver_eq(tmp, cells):
     _check(counts == (399, 399), f"launches {counts} != (399, 399)")
     need = ["checkpoint0000400.npz", "checkpoint0000400.json",
             "equilibrium.npz", "convergence.json", "metrics.jsonl"] + [
-        f"plt{s:07d}.npz" for s in (0, 200, 400)]
+        f"plt{s:07d}.bflbm" for s in (0, 200, 400)]
     missing = [n for n in need if not os.path.exists(os.path.join(eq, n))]
     _check(not missing, f"equilibration did not write {missing}")
     with open(os.path.join(eq, "convergence.json")) as fh:
@@ -502,7 +523,7 @@ def _driver_eq(tmp, cells):
     _check(conv["window_frames"] == 2 and len(drops) == 4,
            "equilibrium window or droplet records wrong")
     for s in (0, 200, 400):   # 1.47 GB each: free the disk for the rest
-        os.remove(os.path.join(eq, f"plt{s:07d}.npz"))
+        os.remove(os.path.join(eq, f"plt{s:07d}.bflbm"))
     return eq, os.path.join(eq, "checkpoint0000400")
 
 
@@ -642,6 +663,260 @@ def _driver_structfact(tmp):
           f"(tol 0.05)", flush=True)
     _check(abs(ratio - 1.0) <= 0.05, f"S(k) ratio {ratio}")
     return ratio
+
+
+# -- phase 8: the alpha1 path -------------------------------------------------
+
+ALPHA1 = dict(alpha0=1.2, alpha1=0.5, kappa=0.1, rho_lo=0.1, rho_hi=3.0)
+
+
+def _alpha1_vs_plain(f, g, params, dist, ref, tag, errs):
+    """A, L and B-A1 through fused_stream_collide against the plain
+    pre-passes and K in the same mode; appends to errs["l"], errs["b_a1"]
+    and returns (psi, lap, outputs)."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+
+    before = (fused_step.density_launches, fused_step.laplacian_launches,
+              fused_step.launches, fused_step.mode_launches.get("alpha1", 0))
+    psi = torch.empty((2,) + tuple(f.shape[1:]), device=f.device)
+    lap = torch.empty_like(psi)
+    fo, go = fused_step.fused_stream_collide(f, g, 86420, 753, params,
+                                             noise_dist=dist, psi=psi,
+                                             ref=ref, lap=lap)
+    torch.cuda.synchronize()
+    after = (fused_step.density_launches, fused_step.laplacian_launches,
+             fused_step.launches, fused_step.mode_launches.get("alpha1", 0))
+    _check(after == tuple(b + 1 for b in before),
+           f"{tag}: launches {before} -> {after}, expected one each")
+    _check_finite(lap, fo, go)
+    err_l = _maxdiff(lap, fused_step.laplacian_psi_reference(psi))
+    fr, gr = fused_step.k_step_reference(f, g, 86420, 753, params, dist, ref)
+    err_b = max(_maxdiff(fo, fr), _maxdiff(go, gr))
+    del fr, gr
+    print(f"[phase 8] {tag}: max|L - plain| = {err_l:.3e}, max|B-A1 - "
+          f"plain| = {err_b:.3e} (tol {TOL})", flush=True)
+    _check(err_l <= TOL and err_b <= TOL,
+           f"{tag}: alpha1 kernels disagree with plain: {err_l}, {err_b}")
+    errs["l"].append(err_l)
+    errs["b_a1"].append(err_b)
+    return psi, lap, (fo, go)
+
+
+def _alpha1_small(dev, errs):
+    """L and B-A1 against plain on perturbed 32^3 droplets in every mode
+    B-A1 has."""
+    from bflbm_tpu_torch.config import LBMParams
+
+    general = dict(tau_f=0.7, tau_g=0.6)
+    for tag, kw, dist, with_ref in (
+            ("no noise", dict(), "u8", False),
+            ("no noise, alpha0 = 0", dict(alpha0=0.0), "u8", False),
+            ("u8", dict(kBT=KBT), "u8", False),
+            ("clt4", dict(kBT=KBT), "clt4", False),
+            ("clt4, alpha0 = 0", dict(kBT=KBT, alpha0=0.0), "clt4", False),
+            ("clt4, pseudopotential", dict(kBT=KBT, use_sc_pseudo=True),
+             "clt4", False),
+            ("general tau, no noise, alpha0 = 0",
+             dict(general, alpha0=0.0), "u8", False),
+            ("general tau, clt4", dict(general, kBT=KBT), "clt4", False),
+            ("clt4, ref", dict(kBT=KBT), "clt4", True),
+            ("general tau, u8, ref, alpha0 = 0",
+             dict(general, kBT=KBT, alpha0=0.0), "u8", True)):
+        p = LBMParams(**dict(ALPHA1, **kw))
+        f, g = _perturbed_droplet(SMALL, p, 41, dev, radius=0.3)
+        ref = _ref_operand(f, g, (2, 3, -1)) if with_ref else None
+        _alpha1_vs_plain(f, g, p, dist, ref, f"32^3 droplet, {tag}", errs)
+
+
+def _library_laplacian(psi):
+    """Kernel L's function as one library call: a circular 3x3x3
+    convolution of each psi field with the 19 laplacian taps (its time is
+    a yardstick; the port never calls it).  Returns the module."""
+    import torch
+
+    from bflbm_tpu_torch.lattice import C, CS2, Q, W
+
+    conv = torch.nn.Conv3d(2, 2, 3, padding=1, padding_mode="circular",
+                           groups=2, bias=False, device=psi.device)
+    w = torch.zeros_like(conv.weight)
+    for i in range(1, Q):
+        cx, cy, cz = (int(v) for v in C[i])
+        w[:, 0, 1 + cx, 1 + cy, 1 + cz] = float(2.0 / CS2 * W[i])
+    w[:, 0, 1, 1, 1] = -float(2.0 / CS2 * W[1:].sum())
+    with torch.no_grad():
+        conv.weight.copy_(w)
+    return conv
+
+
+def _alpha1_256(dev, cells, errs):
+    """L and B-A1 against plain on the 256^3 alpha1 droplet one step in;
+    A, L, B-A1, the triple, the plain versions and the Conv3d timed.
+    Returns the times."""
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+
+    acfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+        kBT=KBT, **ALPHA1)
+    ap = acfg.params
+    pc = FusedSession(ap, SHAPE).enter(
+        model.make_initial_state(acfg, device=dev))
+    f, g = pc.f, pc.g
+    del pc
+    psi, lap, (fo, go) = _alpha1_vs_plain(f, g, ap, "clt4", None,
+                                          "256^3 droplet (clt4)", errs)
+    t = {}
+    t["a"] = _time_ms(lambda: [fused_step.density_psi(f, g, ap, out=psi)
+                               for _ in range(NREP)], cells, NREP)
+    t["l"] = _time_ms(lambda: [fused_step.laplacian_psi(psi, out=lap)
+                               for _ in range(NREP)], cells, NREP)
+    t["b_a1"] = _time_ms(
+        lambda: [fused_step.launch_k(f, g, 1, i, ap, (fo, go), psi, "clt4",
+                                     lap=lap) for i in range(NREP)],
+        cells, NREP)
+    t["b"] = _time_ms(
+        lambda: [fused_step.launch_k(f, g, 1, i, dataclasses.replace(
+            ap, alpha1=0.0), (fo, go), psi, "clt4") for i in range(NREP)],
+        cells, NREP)
+    bufs = [(f, g), (fo, go)]
+
+    def triple_run():
+        for i in range(NREP):
+            fused_step.fused_stream_collide(*bufs[i % 2], 1, i, ap,
+                                            out=bufs[(i + 1) % 2],
+                                            noise_dist="clt4", psi=psi,
+                                            lap=lap)
+
+    t["triple"] = _time_ms(triple_run, cells, NREP)
+    t["a_plain"] = _time_ms(
+        lambda: fused_step.density_psi_reference(f, g, ap), cells, 1)
+    t["l_plain"] = _time_ms(
+        lambda: fused_step.laplacian_psi_reference(psi), cells, 1)
+    t["b_a1_plain"] = _time_ms(
+        lambda: fused_step.k_step_reference(f, g, 1, 0, ap, "clt4"),
+        cells, 1)
+    conv = _library_laplacian(psi)
+    with torch.no_grad():
+        lib_err = _maxdiff(conv(psi[None])[0],
+                           fused_step.laplacian_psi(psi, out=lap))
+        t["l_lib"] = _time_ms(lambda: conv(psi[None]), cells, 1)
+    print(f"[phase 8] 256^3 alpha1 droplet: A {t['a']:.4f} ms, L "
+          f"{t['l']:.4f} ms, B-A1 {t['b_a1']:.4f} ms (B without alpha1 on "
+          f"the same input {t['b']:.4f} ms), triple {t['triple']:.4f} ms "
+          f"({cells / t['triple'] / 1e3:.1f} MLUPS); plain A "
+          f"{t['a_plain']:.2f} ms, plain L {t['l_plain']:.2f} ms, plain K "
+          f"{t['b_a1_plain']:.2f} ms; library Conv3d laplacian "
+          f"{t['l_lib']:.3f} ms (max|conv - L| {lib_err:.3e})", flush=True)
+    return t
+
+
+def _alpha1_session(dev, cells):
+    """The 256^3 alpha1 droplet session: 1 + 1100 steps, clt4, restore at
+    step 1000; returns (K launches, L launches, MLUPS)."""
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import make_session
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.observables import stats
+
+    acfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+        kBT=KBT, **ALPHA1)
+    state = model.make_initial_state(acfg, device=dev)
+    com0 = stats.center_of_mass(state.f.sum(0))
+    sess = make_session(acfg.params, SHAPE, noise_dist="clt4")
+    view, counts, t_adv, t_enter = _run_session(sess, state, "phase 8")
+    del state
+    n_k = CHUNK * NCHUNKS
+    lap_launches = fused_step.laplacian_launches
+    modes = dict(fused_step.mode_launches)
+    _check(counts == (n_k, n_k) and lap_launches == n_k
+           and modes.get("alpha1") == n_k,
+           f"launches K, A {counts}, L {lap_launches}, modes {modes}")
+    rho = view.f.sum(0)
+    drift = float((stats.center_of_mass(rho) - com0).norm())
+    mlups = cells * n_k / t_adv / 1e6
+    print(f"[phase 8] alpha1 session: launches A {counts[1]}, L "
+          f"{lap_launches}, K {counts[0]} (by mode {modes}); droplet COM "
+          f"drift {drift:.4e} cells (tol {COM_TOL}); rho min "
+          f"{float(rho.min()):.4e} max {float(rho.max()):.4f}; enter "
+          f"{t_enter * 1e3:.1f} ms; {n_k} steps in {t_adv:.3f} s = "
+          f"{mlups:.1f} MLUPS", flush=True)
+    _check(drift <= COM_TOL, f"droplet drifted {drift} cells")
+    del view, rho, sess
+    torch.cuda.empty_cache()
+    return counts[0], lap_launches, mlups
+
+
+def _alpha1_driver(tmp):
+    """run(cfg) with alpha1 at 256^3: 300 steps, frames at 0 and 300
+    (fmt="auto": .bflbm, the second through the AsyncFieldWriter), read
+    back and held against the plain hydro of the final state."""
+    import os
+
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.io import fields as fields_io
+    from bflbm_tpu_torch.io import native
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.ops import hydro as hydro_ops
+    from bflbm_tpu_torch.state import peek_words
+
+    submitted = []
+
+    class Writer(native.AsyncFieldWriter):
+        def submit(self, path, names, arrays):
+            submitted.append(path)
+            super().submit(path, names, arrays)
+
+    cfg = config.preset("droplet-eq").replace(
+        shape=SHAPE, nsteps=300, plot_int=300, print_int=100,
+        droplet_int=0, plot_fmt="auto",
+        out_dir=os.path.join(tmp, "alpha1")).with_params(kBT=KBT, **ALPHA1)
+    real = native.AsyncFieldWriter
+    native.AsyncFieldWriter = Writer
+    try:
+        fused_step.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = run_mod.run(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        native.AsyncFieldWriter = real
+    modes = dict(fused_step.mode_launches)
+    frame = os.path.join(cfg.out_dir, "plt0000300.bflbm")
+    print(f"[phase 8] run(cfg) alpha1, 300 steps, in {wall:.2f} s: step "
+          f"{state.step}; launches A {fused_step.density_launches}, L "
+          f"{fused_step.laplacian_launches}, K {fused_step.launches}, by "
+          f"mode {modes}; async submits {submitted}", flush=True)
+    _print_split("phase 8", run_mod.last_run_stats)
+    _check(state.step == 300, f"final step {state.step} != 300")
+    _check(modes.get("alpha1") == fused_step.launches == 299,
+           f"alpha1 launches {modes}, K {fused_step.launches} != 299")
+    _check(submitted == [frame], f"async writer took {submitted}")
+    _check(os.path.exists(os.path.join(cfg.out_dir, "plt0000000.bflbm")),
+           "frame 0 is not a .bflbm")
+    _check_finite(state.f, state.g)
+    got = fields_io.read_frame(frame)
+    (word,) = peek_words(state.gen, 1)
+    want = hydro_ops.pack(model.prelude(state, cfg.params, word)[0]).cpu()
+    err = max(float(abs(got[n] - want[i].numpy()).max())
+              for i, n in enumerate(hydro_ops.HYDRO_NAMES))
+    print(f"[phase 8] frame {os.path.basename(frame)} read back: step "
+          f"{int(got['step'])}, max|frame - plain hydro of the final state| "
+          f"= {err:.3e} (tol {TOL})", flush=True)
+    _check(int(got["step"]) == 300 and err <= TOL,
+           f"frame disagrees with the final state: {err}")
+    return fused_step.launches
 
 
 def main() -> int:
@@ -908,6 +1183,21 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done(7)
 
+    # -- phase 8: the alpha1 path ---------------------------------------------
+    a1_errs = {"l": [], "b_a1": []}
+    _alpha1_small(dev, a1_errs)
+    torch.cuda.empty_cache()
+    a1_ms = _alpha1_256(dev, cells, a1_errs)
+    torch.cuda.empty_cache()
+    a1_k_launches, a1_l_launches, a1_mlups = _alpha1_session(dev, cells)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        _alpha1_driver(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_done(8)
+
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
             ("k1a", "k_step_kernel (uncoupled, u8)", "fused_step.cu",
@@ -934,7 +1224,14 @@ def main() -> int:
              max(new_errs["clt2"]), "K3: _clt2_pair :633"),
             ("bm", "k_step_kernel (coupled, Box-Muller)", "fused_step.cu",
              *mode_ms["bm"], None, flag_launches["bm"], max(new_errs["bm"]),
-             "K3: _bm_normals :668 over hash_uniforms :535")):
+             "K3: _bm_normals :668 over hash_uniforms :535"),
+            ("l", "laplacian_psi_kernel", "laplacian_psi.cu", a1_ms["l"],
+             a1_ms["l_plain"], a1_ms["l_lib"], a1_l_launches,
+             max(a1_errs["l"]), "K1c lap_ext1 (:810-826)"),
+            ("b_a1", "k_step_kernel (coupled, alpha1, clt4)",
+             "fused_step.cu", a1_ms["b_a1"], a1_ms["b_a1_plain"], None,
+             a1_k_launches, max(a1_errs["b_a1"]),
+             "K1c: alpha1 square-gradient force (:827-832, :927-934)")):
         bound, by = _bound_ms(key, cells)
         record.append({
             "name": name, "route": "cuda", "source": SRC + src,

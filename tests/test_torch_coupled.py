@@ -202,12 +202,10 @@ def test_coupled_session_chunk_split_invariance():
 
 
 @pytest.mark.parametrize("kw,dist,exc,item", [
-    (dict(alpha1=0.3), "u8", NotImplementedError, "K1c"),
-    (dict(alpha1=0.3, tau_f=0.8), "clt2", NotImplementedError, "K1c"),
     (dict(), "normal", ValueError, "unknown noise_dist"),
 ])
 def test_make_session_refuses(kw, dist, exc, item):
-    """Only alpha1 (K1c) is refused, and an unknown generator name."""
+    """Only an unknown generator name is refused."""
     with pytest.raises(exc, match=item):
         make_session(TParams(**_kw(0.1, 1e-5, **kw)), (4, 4, 4),
                      noise_dist=dist)
@@ -217,9 +215,12 @@ def test_make_session_refuses(kw, dist, exc, item):
     (dict(tau_f=0.8), "u8"),
     (dict(), "clt2"),
     (dict(), "bm"),
+    (dict(alpha1=0.3), "u8"),
+    (dict(alpha1=0.3, tau_f=0.8), "clt2"),
 ])
 def test_make_session_accepts_the_ported_modes(kw, dist):
-    """General tau (K1d) and the clt2 / Box-Muller generators (K3)."""
+    """General tau (K1d), the clt2 / Box-Muller generators (K3) and
+    alpha1 (K1c)."""
     s = make_session(TParams(**_kw(0.1, 1e-5, **kw)), (4, 4, 4),
                      noise_dist=dist)
     assert isinstance(s, FusedSession) and s.noise_dist == dist

@@ -17,6 +17,8 @@ import torch
 
 from bflbm_tpu_torch import run as run_mod
 from bflbm_tpu_torch.config import LBMParams, preset
+from bflbm_tpu_torch.io import fields as fields_io
+from bflbm_tpu_torch.io import native
 from bflbm_tpu_torch.kernels import fused_step
 from bflbm_tpu_torch.kernels.session import FusedSession
 from bflbm_tpu_torch.models import binary_fluid as model
@@ -86,13 +88,19 @@ def test_session_matches_plain_chain(cuda):
 
 @pytest.mark.gpu
 def test_kernel_refuses_unsupported(cuda):
-    """Only alpha1 (K1c) is refused; general tau (K1d) and clt2 run."""
+    """Every mode runs — alpha1 (K1c), general tau (K1d), clt2 — and
+    what the kernels do not take is refused: aliased outputs, float64,
+    an unknown generator, a misshapen operand."""
     f, g = model.perturbed_populations((4, 4, 32), 4, device=cuda)
     for params in (LBMParams(alpha0=1.0, alpha1=0.2),
-                   LBMParams(alpha1=0.2, tau_f=0.8)):
-        with pytest.raises(NotImplementedError, match="K1c"):
-            fused_step.fused_stream_collide(f, g, 1, 1, params)
-    fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(tau_f=0.8))
+                   LBMParams(alpha1=0.2, tau_f=0.8), LBMParams(tau_f=0.8)):
+        fused_step.fused_stream_collide(f, g, 1, 1, params)
+    psi = torch.empty((2, 4, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="lap must be given"):
+        fused_step.launch_k(f, g, 1, 1, LBMParams(alpha1=0.2),
+                            (torch.empty_like(f), torch.empty_like(g)), psi)
+    with pytest.raises(ValueError, match="alias"):
+        fused_step.laplacian_psi(psi, out=psi)
     with pytest.raises(ValueError, match="alias"):
         fused_step.fused_stream_collide(f, g, 1, 1, LBMParams(),
                                         out=(f, torch.empty_like(g)))
@@ -312,3 +320,98 @@ def test_run_on_the_card_matches_cpu(cuda, tmp_path):
     assert max(_maxdiff(gpu.f.cpu(), cpu.f), _maxdiff(gpu.g.cpu(), cpu.g)) \
         <= ATOL
     assert (tmp_path / "gpu" / "equilibrium.npz").exists()
+
+
+def _alpha1_droplet(shape, device, seed, alpha0=1.2, **kw):
+    """Perturbed droplet populations of the alpha1 configuration on the
+    card (radius 0.3 of X)."""
+    params = LBMParams(alpha0=alpha0, alpha1=0.5, kappa=0.1, rho_lo=0.1,
+                       rho_hi=3.0, **kw)
+    base = model.init_droplet(shape, params, radius=0.3, device="cpu")
+    f, g = model.perturbed_populations(shape, seed, base=base, device=device)
+    return params, f, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sc", [False, True])
+def test_laplacian_psi_matches_plain(cuda, sc):
+    """Kernel L on the density pre-pass's output."""
+    params, f, g = _alpha1_droplet((32, 32, 32), cuda, 13,
+                                   use_sc_pseudo=sc)
+    psi = fused_step.density_psi(f, g, params)
+    before = fused_step.laplacian_launches
+    got = fused_step.laplacian_psi(psi)
+    torch.cuda.synchronize()
+    assert fused_step.laplacian_launches == before + 1
+    assert _maxdiff(got, fused_step.laplacian_psi_reference(psi)) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha0,kw,dist", [
+    (1.2, dict(), "u8"),
+    (0.0, dict(), "u8"),
+    (1.2, dict(kBT=1e-5), "clt4"),
+    (0.0, dict(kBT=1e-5), "clt4"),
+    (1.2, dict(kBT=1e-5, tau_f=0.7, tau_g=0.6), "clt4"),
+])
+def test_alpha1_kernel_matches_plain(cuda, alpha0, kw, dist):
+    """Kernel B-A1 (through A, L and K) against the plain K with the
+    square-gradient force; one launch of each of A, L and K, all in the
+    "alpha1" mode."""
+    params, f, g = _alpha1_droplet((32, 32, 32), cuda, 14, alpha0, **kw)
+    fused_step.reset_launch_counts()
+    fo, go = fused_step.fused_stream_collide(f, g, 2468, 97, params,
+                                             noise_dist=dist)
+    torch.cuda.synchronize()
+    assert (fused_step.density_launches, fused_step.laplacian_launches,
+            fused_step.launches, fused_step.mode_launches["alpha1"]) \
+        == (1, 1, 1, 1)
+    fr, gr = fused_step.k_step_reference(f, g, 2468, 97, params, dist)
+    assert max(_maxdiff(fo, fr), _maxdiff(go, gr)) <= ATOL
+    # the square-gradient force is far above the tolerance
+    free = fused_step.k_step_reference(
+        f, g, 2468, 97, dataclasses.replace(params, alpha1=0.0), dist)
+    assert _maxdiff(free[0], fo) > 50 * ATOL
+
+
+@pytest.mark.gpu
+def test_alpha1_session_matches_cpu(cuda):
+    """The alpha1 session (clt4, 1 + 4 + 5 steps) on the card against the
+    same session on the CPU (plain K)."""
+    shape = (16, 16, 32)
+    params, f, g = _alpha1_droplet(shape, "cpu", 15, kBT=1e-5)
+    words = [7 * k - 20 for k in range(10)]
+
+    def go(dev):
+        sess = FusedSession(params, shape, noise_dist="clt4",
+                            mass_restore_int=0)
+        pc = sess.enter(init_state(f.to(dev), g.to(dev), 0), words[0])
+        pc = sess.advance(pc, 4, words[1:5])
+        pc = sess.advance(pc, 5, words[5:])
+        return sess.exit(pc)
+
+    fused_step.reset_launch_counts()
+    got = go(cuda)
+    assert (fused_step.launches, fused_step.laplacian_launches) == (9, 9)
+    ref = go("cpu")
+    assert max(_maxdiff(got.f.cpu(), ref.f), _maxdiff(got.g.cpu(), ref.g)) \
+        <= ATOL
+
+
+@pytest.mark.gpu
+def test_native_frames_of_card_tensors(cuda, tmp_path):
+    """write_frame(fmt="native") and the async writer take the card's
+    tensors; both files read back bitwise."""
+    packed = torch.randn((22, 8, 8, 16), device=cuda)
+    want = packed.cpu().numpy()
+    path = fields_io.write_frame(str(tmp_path / "a"), 3, packed,
+                                 fmt="native")
+    with native.AsyncFieldWriter() as writer:
+        apath = fields_io.write_frame(str(tmp_path / "b"), 3, packed,
+                                      fmt="native", writer=writer)
+    for p in (path, apath):
+        assert p.endswith("plt0000003.bflbm")
+        got = fields_io.read_frame(p)
+        assert int(got["step"]) == 3
+        for i, name in enumerate(fields_io.HYDRO_NAMES):
+            assert (got[name] == want[i]).all()

@@ -99,24 +99,23 @@ def test_wrapper_refuses_other_devices():
                                  TParams())
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(), None),
-    (dict(kBT=1e-5), None),
-    (dict(alpha0=1.1), None),
-    (dict(alpha1=0.3), "K1c"),
-    (dict(tau_f=0.8), None),
-    (dict(tau_g=0.7), None),
-    (dict(use_sc_pseudo=True), None),
-    (dict(alpha0=1.5, alpha1=0.3), "K1c"),
-    (dict(alpha0=1.5, use_sc_pseudo=True, tau_g=0.7), None),
-    (dict(alpha1=0.3, tau_g=0.7), "K1c"),
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(kBT=1e-5),
+    dict(alpha0=1.1),
+    dict(alpha1=0.3),
+    dict(tau_f=0.8),
+    dict(tau_g=0.7),
+    dict(use_sc_pseudo=True),
+    dict(alpha0=1.5, alpha1=0.3),
+    dict(alpha0=1.5, use_sc_pseudo=True, tau_g=0.7),
+    dict(alpha1=0.3, tau_g=0.7),
+    dict(alpha1=0.3, kBT=1e-5, use_sc_pseudo=True),
 ])
-def test_unsupported_reason(kw, item):
-    reason = tfs.unsupported_reason(TParams(**kw))
-    if item is None:
-        assert reason is None
-    else:
-        assert item in reason
+def test_unsupported_reason(kw):
+    """The kernels take every configuration the JAX kernel takes: alpha0,
+    alpha1, general tau, the pseudopotential, noise."""
+    assert tfs.unsupported_reason(TParams(**kw)) is None
 
 
 @pytest.mark.parametrize("dist", ["normal", "clt8"])
@@ -190,16 +189,22 @@ def test_maybe_restore_cadence(prev, new, applied):
 def test_build_is_keyed_by_sources():
     assert _build.SOURCES == ("fused_step", "fused_step_force",
                               "fused_step_general",
-                              "fused_step_general_force", "density_psi")
+                              "fused_step_general_force",
+                              "fused_step_force_a1",
+                              "fused_step_general_force_a1", "density_psi",
+                              "laplacian_psi")
     for name in _build.SOURCES:
         so = _build.library_path(name)
         assert so.parent == _build.build_dir()
         assert so.parent.parts[-2:] == ("build", "bflbm_tpu_torch")
         assert so.name.startswith(f"lib{name}.")
         assert _build.source_hash(name) in so.name
-    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 5
+    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 8
     assert _build.LIBRARIES["fused_step_general_force"] == (
         "fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1"))
+    assert _build.LIBRARIES["fused_step_general_force_a1"] == (
+        "fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1",
+                          "-DBFLBM_A1=1"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 

@@ -92,9 +92,16 @@ def test_hydrovars(alpha0):
 
 
 def test_accelerations_alpha1_not_ported():
-    rho = to_torch(perturbed_pops(SHAPE, 7)[0].sum(0))
-    with pytest.raises(NotImplementedError, match="K1c"):
-        thydro.accelerations(rho, rho, TParams(alpha1=0.5))
+    """alpha1 alone (alpha0 = 0): the square-gradient force against the
+    JAX package's, and far from the alpha1 = 0 force."""
+    f, g = perturbed_pops(SHAPE, 7)
+    rho, phi = f.sum(0), g.sum(0)
+    jp, tp = _params(alpha1=0.5)
+    got = thydro.accelerations(to_torch(rho), to_torch(phi), tp)
+    want = jhydro.accelerations(jnp.asarray(rho), jnp.asarray(phi), jp)
+    for a, b in zip(got, want):
+        _close(a, b)
+    assert float(got[0].abs().max()) > 100 * ATOL
 
 
 def test_equilibrium_and_force_moments():

@@ -225,6 +225,8 @@ _ARGVS = [
      "--rho-hi", "2.5", "--kappa", "0.2", "--tau-f", "0.7", "--tau-g",
      "0.6", "--ref-state", "eq.npz", "--checkpoint", "ck", "--noise-dist",
      "clt2", "--mass-restore-int", "50"],
+    ["--preset", "droplet-eq", "--plot-fmt", "native"],
+    ["--preset", "interface-eq", "--plot-fmt", "amrex"],
 ]
 
 
@@ -298,5 +300,9 @@ def test_frame_formats(tmp_path):
     assert int(d["step"]) == 5
     np.testing.assert_array_equal(d["ufx"], arr[2])
     for fmt in ("native", "h5", "amrex"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfields.write_frame(str(tmp_path), 5, arr, fmt=fmt)
+        back = tfields.read_frame(tfields.write_frame(str(tmp_path), 5, arr,
+                                                      fmt=fmt))
+        assert int(back["step"]) == 5
+        np.testing.assert_array_equal(back["ufx"], arr[2])
+    with pytest.raises(ValueError, match="unknown frame format"):
+        tfields.write_frame(str(tmp_path), 5, arr, fmt="vtk")

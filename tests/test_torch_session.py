@@ -144,9 +144,11 @@ def test_session_checks_shape():
 
 
 def test_port_imports_no_jax():
-    """Every module of bflbm_tpu_torch — the run driver, io and
-    observables among them — imports without JAX or the JAX package
-    (checked in a fresh interpreter)."""
+    """Every module of bflbm_tpu_torch — the run driver, io (the native,
+    HDF5 and AMReX frame formats too), observables and the kernel
+    wrappers among them — imports without JAX or the JAX package, and
+    without h5py, which io.hdf5 imports lazily (checked in a fresh
+    interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import bflbm_tpu_torch\n"
@@ -157,12 +159,16 @@ def test_port_imports_no_jax():
         "        'bflbm_tpu_torch.io.fields', 'bflbm_tpu_torch.io.metrics',\n"
         "        'bflbm_tpu_torch.observables.structfact',\n"
         "        'bflbm_tpu_torch.observables.droplet',\n"
-        "        'bflbm_tpu_torch.utils.debug'}\n"
+        "        'bflbm_tpu_torch.utils.debug',\n"
+        "        'bflbm_tpu_torch.io.native', 'bflbm_tpu_torch.io.amrex',\n"
+        "        'bflbm_tpu_torch.io.hdf5',\n"
+        "        'bflbm_tpu_torch.kernels.fused_step'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'bflbm_tpu' or k.startswith('bflbm_tpu.'))\n"
         "assert not bad, bad\n"
+        "assert 'h5py' not in sys.modules\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,
