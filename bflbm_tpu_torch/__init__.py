@@ -7,5 +7,6 @@ numpy only, never JAX.  Its hand-written CUDA kernels, the fused
 collide-stream step and the density pre-pass of its coupled mode, are
 driven from :mod:`bflbm_tpu_torch.kernels.fused_step`; a run starts from
 ``models.binary_fluid.make_initial_state(config.preset(...))`` and
-``kernels.session.make_session``.
+``kernels.session.make_session``, or on a decomposed domain from
+``make_session(..., mesh=parallel.mesh.make_mesh(shape))``.
 """

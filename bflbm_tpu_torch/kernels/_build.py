@@ -156,7 +156,7 @@ def _build_unlocked() -> Dict[str, Path]:
 def ptxas_summary() -> List[str]:
     """One line per kernel instantiation of the current builds: its
     template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF,
-    A1>) with the ``-Xptxas -v`` registers and spills."""
+    A1, EXT>) with the ``-Xptxas -v`` registers and spills."""
     out = []
     for name in SOURCES:
         log = library_path(name).with_suffix(".log")
@@ -189,15 +189,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bflbm_error_string.argtypes = [i]
     lib.bflbm_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "bflbm_fused_step"):
-        lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, p, p, i, i, i,
-                                         i, i, f, f, f, f, f, i, i, p, f,
-                                         f, f, f, p]
+        lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
+                                         f, f, f, f, f, i, i, p, f, f, f,
+                                         f, p]
         lib.bflbm_fused_step.restype = i
     if hasattr(lib, "bflbm_density_psi"):
-        lib.bflbm_density_psi.argtypes = [i, p, p, p, i, i, i, i, f, p]
+        lib.bflbm_density_psi.argtypes = [i, p, p, p, p, i, f, p]
         lib.bflbm_density_psi.restype = i
     if hasattr(lib, "bflbm_laplacian_psi"):
-        lib.bflbm_laplacian_psi.argtypes = [i, p, p, i, i, i, p, f, f, p]
+        lib.bflbm_laplacian_psi.argtypes = [i, p, p, p, p, f, f, p]
         lib.bflbm_laplacian_psi.restype = i
 
 

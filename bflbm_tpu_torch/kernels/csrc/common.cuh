@@ -1,7 +1,7 @@
 // Pieces shared by the port's CUDA kernels: the lattice size, the
-// periodic wrap of a pull stream, the launch shape and a device guard for
-// the C entry points.  Each kernel source is its own shared library, so
-// everything here has internal linkage.
+// periodic wrap of a pull stream, the geometry of a launch, the launch
+// shape and a device guard for the C entry points.  Each kernel source is
+// its own shared library, so everything here has internal linkage.
 
 #pragma once
 
@@ -26,9 +26,56 @@ __device__ __forceinline__ size_t cell_offset(int x, int y, int z, int Y,
   return (static_cast<size_t>(x) * Y + y) * Z + z;
 }
 
-// One thread per cell: z along threadIdx.x, y and x along the grid.
-inline dim3 cell_grid(int X, int Y, int Z) {
-  return dim3((Z + BLOCK - 1) / BLOCK, Y, X);
+// Where a launch's threads sit in the arrays it reads and writes.  Every
+// array of one launch has the extents (X, Y, Z): the whole periodic
+// domain, or one block of a decomposed domain extended by pads on its
+// sharded axes (the K7 ext mode, bflbm_tpu/kernels/fused_step.py:
+// 1155-1160).  The threads cover the region (nx, ny, nz) whose first cell
+// is (x0, y0, z0) in the arrays.  A neighbour on an axis without pads
+// wraps periodically; on a padded axis it lies inside the pads (the
+// region keeps one cell from the edge per cell of reach), where the same
+// wrap leaves it alone.  Kernels take the region as their last argument,
+// after the arguments of the whole-domain kernel, whose layout stays.
+struct Region {
+  int x0, y0, z0;   // the region's first cell
+  int nx, ny, nz;   // region extents
+};
+
+// The region of a host geometry array {X, Y, Z, x0, y0, z0, nx, ny, nz,
+// ...}.
+inline Region region_of(const int* geom) {
+  return Region{geom[3], geom[4], geom[5], geom[6], geom[7], geom[8]};
+}
+
+// The region is not the whole array: the launch takes the kernels' EXT
+// instantiation.  The whole-domain one keeps the single-device
+// addressing, which the region offsets would slow by 1-2% (registers).
+inline bool is_ext(int X, int Y, int Z, const Region& r) {
+  return r.x0 != 0 || r.y0 != 0 || r.z0 != 0 || r.nx != X || r.ny != Y ||
+         r.nz != Z;
+}
+
+// One thread per cell of the region: z along threadIdx.x, y and x along
+// the grid.
+inline dim3 cell_grid(const Region& r) {
+  return dim3((r.nz + BLOCK - 1) / BLOCK, r.ny, r.nx);
+}
+
+// The calling thread's cell in arrays of z extent Z, or false past the
+// region's z end; without EXT the region is the whole array.
+template <bool EXT>
+__device__ __forceinline__ bool region_cell(int Z, const Region& r, int& x,
+                                            int& y, int& z) {
+  z = blockIdx.x * BLOCK + threadIdx.x;
+  if (z >= (EXT ? r.nz : Z)) return false;
+  y = blockIdx.y;
+  x = blockIdx.z;
+  if (EXT) {
+    x += r.x0;
+    y += r.y0;
+    z += r.z0;
+  }
+  return true;
 }
 
 // Makes `device` current for its lifetime and restores the caller's

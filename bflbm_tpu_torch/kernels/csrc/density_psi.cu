@@ -14,6 +14,14 @@
 // n0 (1 - exp(-n / n0)) under the Shan-Chen pseudopotential.  Output: a
 // (2, X, Y, Z) float32 array, psi(rho_s) then psi(phi_s).
 //
+// On a block of a decomposed domain (the K7 ext mode, fused_step.py:
+// 1155-1160) the arrays carry pads of depth p on the sharded axes, filled
+// by the halo exchange, and the pass writes psi over the block and p - 1
+// cells beyond it on each padded side: the ring the K kernel's gradient
+// (p >= 2) and the laplacian pre-pass (p >= 3) read.  The launch geometry
+// (common.cuh Region) says which region that is; such a launch runs the
+// EXT instantiation.
+//
 // What bounds it: device memory.  It reads 2 * 19 * 4 = 152 bytes and
 // writes 8 bytes per cell against ~40 flops, so the design is one pass,
 // coalesced along z, with the neighbours' overlapping reads served by
@@ -30,15 +38,13 @@ __device__ __forceinline__ float psi_of(float n, float n0) {
   return SC ? n0 * (1.0f - expf(-n / n0)) : n;
 }
 
-template <bool SC>
+template <bool SC, bool EXT>
 __global__ void __launch_bounds__(BLOCK)
 density_psi_kernel(const float* __restrict__ fin,
                    const float* __restrict__ gin, float* __restrict__ psi,
-                   int X, int Y, int Z, float n0) {
-  const int z = blockIdx.x * BLOCK + threadIdx.x;
-  if (z >= Z) return;
-  const int y = blockIdx.y;
-  const int x = blockIdx.z;
+                   int X, int Y, int Z, float n0, const Region r) {
+  int x, y, z;
+  if (!region_cell<EXT>(Z, r, x, y, z)) return;
   const size_t plane = static_cast<size_t>(X) * Y * Z;
   float rho = 0.0f, phi = 0.0f;
 #pragma unroll
@@ -66,22 +72,33 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float*,
   return static_cast<int>(e);
 }
 
-// psi (2, X, Y, Z) of the streamed densities of (19, X, Y, Z) float32 f, g.
-// use_sc: the pseudopotential with reference density n0.  Returns
-// cudaGetLastError() after the launch.
+// psi (2, X, Y, Z) of the streamed densities of (19, X, Y, Z) float32 f, g,
+// over the region of geom: host array {X, Y, Z, x0, y0, z0, nx, ny, nz}
+// (common.cuh Region).  use_sc: the pseudopotential with reference density
+// n0.  Returns cudaGetLastError() after the launch.
 extern "C" int bflbm_density_psi(int device, const float* fin,
-                                 const float* gin, float* psi, int X, int Y,
-                                 int Z, int use_sc, float n0, void* stream) {
+                                 const float* gin, float* psi,
+                                 const int* geom, int use_sc, float n0,
+                                 void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
-  const dim3 grid = cell_grid(X, Y, Z);
+  const int X = geom[0], Y = geom[1], Z = geom[2];
+  const Region r = region_of(geom);
+  const dim3 grid = cell_grid(r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_sc)
-    density_psi_kernel<true><<<grid, BLOCK, 0, s>>>(fin, gin, psi, X, Y, Z,
-                                                    n0);
+  const bool ext = is_ext(X, Y, Z, r);
+  if (use_sc && ext)
+    density_psi_kernel<true, true><<<grid, BLOCK, 0, s>>>(fin, gin, psi, X, Y,
+                                                          Z, n0, r);
+  else if (use_sc)
+    density_psi_kernel<true, false><<<grid, BLOCK, 0, s>>>(fin, gin, psi, X,
+                                                           Y, Z, n0, r);
+  else if (ext)
+    density_psi_kernel<false, true><<<grid, BLOCK, 0, s>>>(fin, gin, psi, X,
+                                                           Y, Z, n0, r);
   else
-    density_psi_kernel<false><<<grid, BLOCK, 0, s>>>(fin, gin, psi, X, Y, Z,
-                                                     n0);
+    density_psi_kernel<false, false><<<grid, BLOCK, 0, s>>>(fin, gin, psi, X,
+                                                            Y, Z, n0, r);
   return static_cast<int>(cudaGetLastError());
 }
 

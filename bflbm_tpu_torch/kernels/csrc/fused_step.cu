@@ -26,11 +26,23 @@
 //   - NOISE and DIST: the coordinate-keyed hash noise with u8, clt4, clt2
 //     (_clt2_pair :633) or Box-Muller (_bm_normals :668 over hash_uniforms
 //     :535) deviates, or noise off.
+//   - EXT: K7's ext mode (fused_step.py:1155-1160, 1290, 1348, 1878-1880):
+//     the arrays are one block of a decomposed domain, extended by pads of
+//     depth sd (fused_step.sd_depth) on its sharded axes, which the halo
+//     exchange fills before the launch; the kernel writes the block's
+//     interior into the same padded layout (JAX's owin), reads neighbours
+//     inside the pads on the sharded axes and wraps the others in place,
+//     and keys the noise by global coordinates (the block's origin and the
+//     global (Y, Z) ride in the launch geometry).  Chosen at launch from
+//     the geometry (common.cuh is_ext): the whole-domain instantiations
+//     keep the single-device addressing, and both compile the same
+//     arithmetic, so a block's cells come out as the whole domain's.
 // GENERAL, FORCE and A1 are chosen per library: the source is compiled six
 // times, with BFLBM_GENERAL_RELAX and BFLBM_FORCE each 0 and 1 and, in the
 // two FORCE builds' copies, BFLBM_A1 = 1, so that the builds run in
-// parallel and each holds the 9 instantiations of its modes (noise off, or
-// one of four generators with or without REF).
+// parallel and each holds the 18 instantiations of its modes (noise off,
+// or one of four generators with or without REF; each with and without
+// EXT).
 //
 // What bounds it: device memory by its bytes, instructions in practice.  A
 // cell update reads the 19 float32 populations of each of two species and
@@ -46,18 +58,20 @@
 // place, so the output is a separate buffer (the caller ping-pongs two
 // pairs).
 //
-// Per cell: pull stream with periodic wrap; the four conserved moments of
-// each species (the densities summed in the order i = 0..18, as the
-// density pre-pass sums them), and under GENERAL the 15 other rows through
-// M; coupled: the 19-point isotropic gradient grad psi = sum_i (w_i /
-// cs^2) c_i psi(x + c_i) and the accelerations a_f = -cs^2 alpha0 psi(rho)
-// grad psi(phi) / rho, a_g likewise; real velocities with the friction,
-// force and 0.5 xi / rho noise terms; barycentric equilibrium; post-collide
-// moments; back transform of rows 1..18 with M_INV and the rest population
-// by telescoping, f_0 = m_0 - sum_{i>=1} f_i.
+// Per cell: pull stream (periodic wrap, or from the pads); the four
+// conserved moments of each species (the densities summed in the order
+// i = 0..18, as the density pre-pass sums them), and under GENERAL the 15
+// other rows through M; coupled: the 19-point isotropic gradient grad psi
+// = sum_i (w_i / cs^2) c_i psi(x + c_i) and the accelerations a_f = -cs^2
+// alpha0 psi(rho) grad psi(phi) / rho, a_g likewise; real velocities with
+// the friction, force and 0.5 xi / rho noise terms; barycentric
+// equilibrium; post-collide moments; back transform of rows 1..18 with
+// M_INV and the rest population by telescoping, f_0 = m_0 - sum_{i>=1}
+// f_i.
 //
 // Noise bits are those of the JAX package's hash stream: h1 = mix32(cell ^
-// word) with cell = (x*Y + y)*Z + z in uint32, and hash word k =
+// word) with cell = (gx*GY + gy)*GZ + gz in uint32, (gx, gy, gz) the global
+// coordinates of the cell and (GY, GZ) the global extents, and hash word k =
 // mix32(h1 + (step*64 + k) * 0x9E3779B9).  Channel a of the 33 draws is
 // byte a % 4 of word a / 4 under u8 (9 words a cell), the byte sum of word
 // a under clt4 (33 words), half a % 2 of word a / 2 under clt2 (17 words),
@@ -140,6 +154,10 @@ struct Args {
   Relax rx;
   NoiseCoef nc;
   Force fc;
+  // EXT only, after the whole-domain kernel's fields (whose layout stays)
+  Region r;             // the region written
+  int ox, oy, oz;       // global coordinates of array cell (0, 0, 0)
+  uint32_t GY, GZ;      // global extents the hash cell index runs over
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -364,13 +382,12 @@ __device__ __forceinline__ void gradient2(const float* __restrict__ v,
   }
 }
 
-template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1>
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1,
+          bool EXT>
 __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
-  const int z = blockIdx.x * BLOCK + threadIdx.x;
   const int X = p.X, Y = p.Y, Z = p.Z;
-  if (z >= Z) return;
-  const int y = blockIdx.y;
-  const int x = blockIdx.z;
+  int x, y, z;
+  if (!region_cell<EXT>(Z, p.r, x, y, z)) return;
   const size_t plane = static_cast<size_t>(X) * Y * Z;
   const size_t idx = cell_offset(x, y, z, Y, Z);
   const Relax& rx = p.rx;
@@ -449,9 +466,12 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   if (NOISE) {
     const NoiseCoef& nc = p.nc;
     const uint32_t cell =
-        (static_cast<uint32_t>(x) * static_cast<uint32_t>(Y) +
-         static_cast<uint32_t>(y)) * static_cast<uint32_t>(Z) +
-        static_cast<uint32_t>(z);
+        EXT ? (static_cast<uint32_t>(x + p.ox) * p.GY +
+               static_cast<uint32_t>(y + p.oy)) * p.GZ +
+                  static_cast<uint32_t>(z + p.oz)
+            : (static_cast<uint32_t>(x) * static_cast<uint32_t>(Y) +
+               static_cast<uint32_t>(y)) * static_cast<uint32_t>(Z) +
+                  static_cast<uint32_t>(z);
     const Draws<DIST> draw(mix32(cell ^ p.word), p.step * DRAW_STRIDE);
     float a_rho = rho, a_phi = phi, a_inv = inv_rhot;
     if (REF) {
@@ -513,34 +533,36 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   store_pops<NROWS>(mg, p.gout, plane, idx);
 }
 
-template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1>
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1,
+          bool EXT>
 int launch(dim3 grid, cudaStream_t s, const Args& a) {
-  k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF, A1>
+  k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF, A1, EXT>
       <<<grid, BLOCK, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DIST, bool FORCE, bool GENERAL, bool A1>
+template <int DIST, bool FORCE, bool GENERAL, bool A1, bool EXT>
 int launch_noise(dim3 grid, cudaStream_t s, const Args& a) {
   if (a.ref != nullptr)
-    return launch<true, DIST, FORCE, GENERAL, true, A1>(grid, s, a);
-  return launch<true, DIST, FORCE, GENERAL, false, A1>(grid, s, a);
+    return launch<true, DIST, FORCE, GENERAL, true, A1, EXT>(grid, s, a);
+  return launch<true, DIST, FORCE, GENERAL, false, A1, EXT>(grid, s, a);
 }
 
-template <bool FORCE, bool GENERAL, bool A1>
+template <bool FORCE, bool GENERAL, bool A1, bool EXT>
 int launch_mode(int noise_on, int dist, dim3 grid, cudaStream_t s,
                 const Args& a) {
   if (!noise_on)
-    return launch<false, DIST_U8, FORCE, GENERAL, false, A1>(grid, s, a);
+    return launch<false, DIST_U8, FORCE, GENERAL, false, A1, EXT>(grid, s,
+                                                                  a);
   switch (dist) {
     case DIST_U8:
-      return launch_noise<DIST_U8, FORCE, GENERAL, A1>(grid, s, a);
+      return launch_noise<DIST_U8, FORCE, GENERAL, A1, EXT>(grid, s, a);
     case DIST_CLT4:
-      return launch_noise<DIST_CLT4, FORCE, GENERAL, A1>(grid, s, a);
+      return launch_noise<DIST_CLT4, FORCE, GENERAL, A1, EXT>(grid, s, a);
     case DIST_CLT2:
-      return launch_noise<DIST_CLT2, FORCE, GENERAL, A1>(grid, s, a);
+      return launch_noise<DIST_CLT2, FORCE, GENERAL, A1, EXT>(grid, s, a);
     case DIST_BM:
-      return launch_noise<DIST_BM, FORCE, GENERAL, A1>(grid, s, a);
+      return launch_noise<DIST_BM, FORCE, GENERAL, A1, EXT>(grid, s, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -559,7 +581,11 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float* m,
   return static_cast<int>(e);
 }
 
-// One K step on device pointers (19, X, Y, Z) float32, z contiguous.
+// One K step on device pointers (19, X, Y, Z) float32, z contiguous, over
+// the region of geom: host array {X, Y, Z, x0, y0, z0, nx, ny, nz, ox, oy,
+// oz, GY, GZ} (the extents, common.cuh Region, then the global coordinates
+// of array cell (0, 0, 0) and the global y and z extents of the hash cell
+// index).
 // psi: the (2, X, Y, Z) psi densities of the streamed input for the coupled
 // mode (the BFLBM_FORCE=1 builds), or null for the uncoupled one; lap: their
 // (2, X, Y, Z) laplacian for the alpha1 mode (the BFLBM_A1=1 builds), or
@@ -574,7 +600,7 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
                                 const float* gin, const float* psi,
                                 const float* lap, const float* ref,
                                 float* fout, float* gout,
-                                int X, int Y, int Z, int word, int step,
+                                const int* geom, int word, int step,
                                 float eps, float half_lam_f, float half_lam_g,
                                 float lam_f, float lam_g, int noise_on,
                                 int dist, const float* coef, float force_k,
@@ -590,9 +616,15 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   a.ref = ref;
   a.fout = fout;
   a.gout = gout;
-  a.X = X;
-  a.Y = Y;
-  a.Z = Z;
+  a.X = geom[0];
+  a.Y = geom[1];
+  a.Z = geom[2];
+  a.r = region_of(geom);
+  a.ox = geom[9];
+  a.oy = geom[10];
+  a.oz = geom[11];
+  a.GY = static_cast<uint32_t>(geom[12]);
+  a.GZ = static_cast<uint32_t>(geom[13]);
   a.word = static_cast<uint32_t>(word);
   a.step = static_cast<uint32_t>(step);
   a.rx = Relax{eps, half_lam_f, half_lam_g, lam_f, lam_g};
@@ -604,7 +636,7 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   }
   a.nc.scale = coef[1 + 2 * NGHOST];
   a.nc.off = coef[2 + 2 * NGHOST];
-  const dim3 grid = cell_grid(X, Y, Z);
+  const dim3 grid = cell_grid(a.r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr bool kGeneral = BFLBM_GENERAL_RELAX != 0;
   constexpr bool kForce = BFLBM_FORCE != 0;
@@ -612,7 +644,15 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   static_assert(kForce || !kA1, "BFLBM_A1 needs BFLBM_FORCE");
   if ((psi != nullptr) != kForce || (lap != nullptr) != kA1)
     return static_cast<int>(cudaErrorInvalidValue);   // another library's
-  return launch_mode<kForce, kGeneral, kA1>(noise_on, dist, grid, s, a);
+  // the hash keys of a whole-domain launch are the array's own
+  const bool ext = is_ext(a.X, a.Y, a.Z, a.r) || a.ox != 0 || a.oy != 0 ||
+                   a.oz != 0 || a.GY != static_cast<uint32_t>(a.Y) ||
+                   a.GZ != static_cast<uint32_t>(a.Z);
+  if (ext)
+    return launch_mode<kForce, kGeneral, kA1, true>(noise_on, dist, grid, s,
+                                                    a);
+  return launch_mode<kForce, kGeneral, kA1, false>(noise_on, dist, grid, s,
+                                                   a);
 }
 
 extern "C" const char* bflbm_error_string(int code) {

@@ -16,6 +16,13 @@
 // i = 1..18 of lap_ext1.  Input and output: (2, X, Y, Z) float32, psi(rho)
 // then psi(phi).
 //
+// On a block of a decomposed domain (the K7 ext mode) the arrays carry
+// pads of depth p on the sharded axes, psi is valid p - 1 cells beyond the
+// block (csrc/density_psi.cu), and this pass writes the laplacian p - 2
+// cells beyond it: the ring the K kernel's gradient reads (p >= 3).  The
+// launch geometry (common.cuh Region) says which region that is; such a
+// launch runs the EXT instantiation.
+//
 // What bounds it: device memory.  It reads 8 bytes and writes 8 bytes per
 // cell against ~80 flops; the neighbours' overlapping reads are served by
 // L1/L2, so the design is one pass, coalesced along z.
@@ -32,13 +39,13 @@ struct LapWeights {
   float two_cs2;   // 2 / cs^2
 };
 
+template <bool EXT>
 __global__ void __launch_bounds__(BLOCK)
 laplacian_psi_kernel(const float* __restrict__ psi, float* __restrict__ lap,
-                     int X, int Y, int Z, const LapWeights lw) {
-  const int z = blockIdx.x * BLOCK + threadIdx.x;
-  if (z >= Z) return;
-  const int y = blockIdx.y;
-  const int x = blockIdx.z;
+                     int X, int Y, int Z, const LapWeights lw,
+                     const Region r) {
+  int x, y, z;
+  if (!region_cell<EXT>(Z, r, x, y, z)) return;
   const size_t plane = static_cast<size_t>(X) * Y * Z;
   const size_t idx = cell_offset(x, y, z, Y, Z);
   float acc[2] = {0.0f, 0.0f};
@@ -68,21 +75,28 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float*,
   return static_cast<int>(e);
 }
 
-// lap (2, X, Y, Z) of psi (2, X, Y, Z) float32, z contiguous.  w: host
-// array of the 19 lattice weights; wsum = sum_{i>=1} w_i; two_cs2 = 2 /
-// cs^2.  Returns cudaGetLastError() after the launch.
+// lap (2, X, Y, Z) of psi (2, X, Y, Z) float32, z contiguous, over the
+// region of geom: host array {X, Y, Z, x0, y0, z0, nx, ny, nz} (common.cuh
+// Region).  w: host array of the 19 lattice weights; wsum = sum_{i>=1} w_i;
+// two_cs2 = 2 / cs^2.  Returns cudaGetLastError() after the launch.
 extern "C" int bflbm_laplacian_psi(int device, const float* psi, float* lap,
-                                   int X, int Y, int Z, const float* w,
+                                   const int* geom, const float* w,
                                    float wsum, float two_cs2, void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
+  const int X = geom[0], Y = geom[1], Z = geom[2];
+  const Region r = region_of(geom);
   LapWeights lw;
   for (int i = 0; i < Q; ++i) lw.w[i] = w[i];
   lw.wsum = wsum;
   lw.two_cs2 = two_cs2;
-  laplacian_psi_kernel<<<cell_grid(X, Y, Z), BLOCK, 0,
-                         static_cast<cudaStream_t>(stream)>>>(psi, lap, X, Y,
-                                                              Z, lw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_ext(X, Y, Z, r))
+    laplacian_psi_kernel<true><<<cell_grid(r), BLOCK, 0, s>>>(psi, lap, X, Y,
+                                                              Z, lw, r);
+  else
+    laplacian_psi_kernel<false><<<cell_grid(r), BLOCK, 0, s>>>(psi, lap, X,
+                                                               Y, Z, lw, r);
   return static_cast<int>(cudaGetLastError());
 }
 

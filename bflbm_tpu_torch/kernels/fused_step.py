@@ -25,6 +25,16 @@ the live densities or from a stored reference state (USE_REF_STATE, the
   psi, then the K kernel takes its neighbours' gradient for the
   square-gradient force.
 
+Each of them also takes ``ext=``, an :class:`~bflbm_tpu_torch.ops.blocked.
+Ext` (K7's ext mode): the arrays are then one block of a decomposed
+domain, extended by pads of depth p on its sharded axes that the halo
+exchange has filled (:mod:`bflbm_tpu_torch.parallel.halo`).  A writes psi
+on the interior and p - 1 cells beyond it, L the laplacian p - 2 cells
+beyond, and K the interior, into arrays of the same padded layout; the
+plain versions run :mod:`bflbm_tpu_torch.ops.blocked`.  Every launch
+passes its geometry (extents and ``csrc/common.cuh`` Region); one whose
+region is not the whole domain runs the kernels' EXT instantiation.
+
 The noise bits are those of the JAX package's coordinate-keyed hash
 stream (``bflbm_tpu/kernels/fused_step.py:hash_words``): two rounds of
 the lowbias32 mixer keyed as
@@ -32,10 +42,12 @@ the lowbias32 mixer keyed as
     h1 = mix(cell ^ word)                      (once per cell)
     h2 = mix(h1 + (step*64 + draw) * GOLDEN)   (per draw)
 
-with cell = (x*Y + y)*Z + z, all in uint32 arithmetic.  CPU torch has no
-uint32 shifts, so the plain version emulates it in int64, masking to 32
-bits after every operation and splitting each 32x32 product into 16-bit
-halves so that no intermediate leaves the int64 range.
+with cell = (gx*GY + gy)*GZ + gz over the global coordinates and extents
+(a block's cells are keyed where they lie in the whole domain), all in
+uint32 arithmetic.  CPU torch has no uint32 shifts, so the plain version
+emulates it in int64, masking to 32 bits after every operation and
+splitting each 32x32 product into 16-bit halves so that no intermediate
+leaves the int64 range.
 """
 
 from __future__ import annotations
@@ -49,11 +61,14 @@ import torch
 
 from ..config import LBMParams
 from ..lattice import B, CS2, Q, W
+from ..ops import blocked
 from ..ops import collide as collide_ops
 from ..ops import hydro as hydro_ops
+from ..ops import moments as moments_ops
 from ..ops import noise as noise_ops
 from ..ops import stencil as stencil_ops
 from ..ops import stream as stream_ops
+from ..ops.blocked import Ext, sd_depth
 from ..state import SimState, draw_words
 
 # ---------------------------------------------------------------------------
@@ -110,14 +125,19 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def hash_words(word: int, step: int, shape, ndraws: int,
-               device=None) -> List[torch.Tensor]:
-    """ndraws uint32 hash words on the (X, Y, Z) domain, as int64 tensors
-    in [0, 2^32).  word: int32 per-step word (negative allowed); step:
-    the step label."""
-    X, Y, Z = (int(s) for s in shape)
-    cell = torch.arange(X * Y * Z, dtype=torch.int64,
-                        device=device).reshape(X, Y, Z) & _MASK
+def hash_words(word: int, step: int, shape, ndraws: int, device=None,
+               origin=(0, 0, 0), domain=None) -> List[torch.Tensor]:
+    """ndraws uint32 hash words on the (X, Y, Z) region at global `origin`
+    of the global `domain` (default: the region is the domain), keyed by
+    global coordinates wrapped into the domain, as JAX's
+    ``hash_words(word, step, origin, region, domain, ndraws)``; int64
+    tensors in [0, 2^32).  word: int32 per-step word (negative allowed);
+    step: the step label."""
+    domain = tuple(int(s) for s in (shape if domain is None else domain))
+    g = [(torch.arange(int(n), dtype=torch.int64, device=device) + int(o))
+         % d for n, o, d in zip(shape, origin, domain)]
+    cell = ((g[0][:, None, None] * domain[1] + g[1][None, :, None])
+            * domain[2] + g[2][None, None, :]) & _MASK
     h1 = _mix32(cell ^ (int(word) & _MASK))
     sbase = int(step) * _DRAW_STRIDE
     return [_mix32((h1 + (((sbase + a) * _GOLDEN) & _MASK)) & _MASK)
@@ -173,15 +193,21 @@ def check_noise_dist(noise_dist: str) -> None:
 
 def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
                      params: LBMParams, noise_dist: str = "clt4",
-                     ref: Optional[torch.Tensor] = None
+                     ref: Optional[torch.Tensor] = None,
+                     ext: Optional[Ext] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K = collide∘stream of a post-collide state:
     stream -> hydrovars_bar -> hash noise (word, step) -> hydrovars (with
     the Shan-Chen force when alpha0 != 0 and the square-gradient force
     when alpha1 != 0) -> collide (exact or general
     relaxation, :func:`general_relax`).  ref: optional (2, X, Y, Z)
-    COM-rolled (rho_eq, phi_eq) — the USE_REF_STATE noise amplitudes."""
+    COM-rolled (rho_eq, phi_eq) — the USE_REF_STATE noise amplitudes.
+    ext: f, g (and ref) are a halo-extended block
+    (:func:`blocked.step_on_block`); the result is its interior."""
     check_noise_dist(noise_dist)
+    if ext is not None:
+        return blocked.step_on_block(f, g, word, step, params, ext,
+                                     noise_dist, ref)
     fs = stream_ops.stream(f)
     gs = stream_ops.stream(g)
     hbar = hydro_ops.hydrovars_bar(fs, gs, params)
@@ -193,20 +219,29 @@ def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
 
 
 def density_psi_reference(f: torch.Tensor, g: torch.Tensor,
-                          params: LBMParams) -> torch.Tensor:
+                          params: LBMParams, ext: Optional[Ext] = None
+                          ) -> torch.Tensor:
     """Plain density pre-pass: (psi(rho_s), psi(phi_s)) of the streamed
-    state, a (2, X, Y, Z) tensor."""
-    rho = stream_ops.stream(f).sum(dim=0)
-    phi = stream_ops.stream(g).sum(dim=0)
+    state, a (2, X, Y, Z) tensor; with ext, on the block's interior and
+    p - 1 cells beyond it (:func:`blocked.density_psi_block`)."""
+    if ext is not None:
+        return blocked.density_psi_block(f, g, params, ext)
+    rho = moments_ops.density(stream_ops.stream(f))
+    phi = moments_ops.density(stream_ops.stream(g))
     return torch.stack([
         stencil_ops.pseudopotential(n, params.use_sc_pseudo,
                                     params.sc_ref_density)
         for n in (rho, phi)])
 
 
-def laplacian_psi_reference(psi: torch.Tensor) -> torch.Tensor:
+def laplacian_psi_reference(psi: torch.Tensor,
+                            ext: Optional[Ext] = None) -> torch.Tensor:
     """Plain laplacian pre-pass: the 19-point laplacian of each of the
-    (2, X, Y, Z) psi fields (psi is already transformed)."""
+    (2, X, Y, Z) psi fields (psi is already transformed); with ext, on the
+    block's interior and p - 2 cells beyond it from a psi valid p - 1
+    cells beyond (:func:`blocked.laplacian_psi_block`)."""
+    if ext is not None:
+        return blocked.laplacian_psi_block(psi, ext)
     return torch.stack([stencil_ops.laplacian(p) for p in psi])
 
 
@@ -215,9 +250,10 @@ def laplacian_psi_reference(psi: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # Launches of the K kernel (launch_k), the density pre-pass (density_psi)
-# and the laplacian pre-pass (laplacian_psi), on CUDA tensors only;
-# mode_launches counts the K launches by mode: "general" (K1d), "ref"
-# (K1e), "alpha1" (K1c) and, for launches with noise, the generator's
+# and the laplacian pre-pass (laplacian_psi), on CUDA tensors only, one per
+# block of a decomposed domain; mode_launches counts the K launches by
+# mode: "general" (K1d), "ref" (K1e), "alpha1" (K1c), "ext" (K7, on a
+# halo-extended block) and, for launches with noise, the generator's
 # name.
 launches = 0
 density_launches = 0
@@ -297,12 +333,30 @@ def _check_no_alias(name: str, t: torch.Tensor, inputs) -> None:
                          "cannot run in place")
 
 
-def _grid_dims(f: torch.Tensor) -> Tuple[int, int, int]:
-    X, Y, Z = (int(s) for s in f.shape[1:])
-    if X > 65535 or Y > 65535:
-        raise ValueError(f"X and Y must be <= 65535 (grid limits), got "
-                         f"{(X, Y)}")
-    return X, Y, Z
+def _geom(t: torch.Tensor, ext: Optional[Ext], cut: Optional[int],
+          need: int = 1):
+    """The launch geometry (extents, ``csrc/common.cuh`` Region, hash keys)
+    of arrays shaped like t: {X, Y, Z, x0, y0, z0, nx, ny, nz, ox, oy, oz,
+    GY, GZ}.  The region starts `cut` cells inside the pads (None: the
+    interior); (ox, oy, oz) are the global coordinates of array cell
+    (0, 0, 0).  Raises when the pads are shallower than `need`, the
+    cells the launch reaches."""
+    shape = tuple(int(s) for s in t.shape[1:])
+    if ext is None:
+        ext = Ext((0, 0, 0), (0, 0, 0), shape)
+    ext.interior(shape)
+    if any(0 < p < need for p in ext.pad):
+        raise ValueError(f"the launch reaches {need} cells; the pads "
+                         f"{ext.pad} are shallower")
+    start = [p if cut is None else min(p, cut) for p in ext.pad]
+    region = [n - 2 * k for n, k in zip(shape, start)]
+    if region[0] > 65535 or region[1] > 65535:
+        raise ValueError(f"the region's X and Y must be <= 65535 (grid "
+                         f"limits), got {tuple(region[:2])}")
+    origin = [o - p for o, p in zip(ext.origin, ext.pad)]
+    geom = shape + tuple(start) + tuple(region) + tuple(origin) \
+        + tuple(int(d) for d in ext.domain[1:])
+    return (ctypes.c_int * 14)(*geom)
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -311,11 +365,26 @@ def _raise_on(rc: int, lib, what: str) -> None:
                            + lib.bflbm_error_string(rc).decode())
 
 
+def _write_region(out: Optional[torch.Tensor], value: torch.Tensor,
+                  like: torch.Tensor, lead: int, ext: Ext,
+                  cut: Optional[int]) -> torch.Tensor:
+    """A plain ext result written into its region of `out` (allocated
+    like the kernels' arrays, zeroed, when None)."""
+    if out is None:
+        out = torch.zeros((lead,) + tuple(like.shape[1:]), dtype=like.dtype,
+                          device=like.device)
+    ext.region(out, cut).copy_(value)
+    return out
+
+
 def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                ext: Optional[Ext] = None) -> torch.Tensor:
     """psi of the streamed densities of the post-collide pair (f, g), a
     (2, X, Y, Z) tensor (written into `out` when given; it must not
-    alias f or g).
+    alias f or g).  ext: f, g are a halo-extended block; psi is written
+    on its interior and p - 1 cells beyond it, the rest of `out` is left
+    as it was.
 
     CPU tensors run :func:`density_psi_reference`.  CUDA tensors launch
     ``csrc/density_psi.cu`` or raise."""
@@ -323,7 +392,9 @@ def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
     if f.device.type == "cpu":
-        ref = density_psi_reference(f, g, params)
+        ref = density_psi_reference(f, g, params, ext)
+        if ext is not None:
+            return _write_region(out, ref, f, 2, ext, 1)
         if out is None:
             return ref
         return out.copy_(ref)
@@ -336,12 +407,12 @@ def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
                           device=f.device)
     _check_field("psi", out, f, 2)
     _check_no_alias("psi", out, (f, g))
-    X, Y, Z = _grid_dims(f)
+    geom = _geom(f, ext, 1)
     from . import _build
 
     lib = _build.load("density_psi", f.device)
     rc = lib.bflbm_density_psi(
-        f.device.index, f.data_ptr(), g.data_ptr(), out.data_ptr(), X, Y, Z,
+        f.device.index, f.data_ptr(), g.data_ptr(), out.data_ptr(), geom,
         int(params.use_sc_pseudo), float(params.sc_ref_density),
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "density_psi")
@@ -357,16 +428,21 @@ _LAP_TWO_CS2 = float(np.float32(2.0 / CS2))
 
 
 def laplacian_psi(psi: torch.Tensor,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out: Optional[torch.Tensor] = None,
+                  ext: Optional[Ext] = None) -> torch.Tensor:
     """The 19-point laplacian of both (2, X, Y, Z) psi fields of the
     density pre-pass, a (2, X, Y, Z) tensor (written into `out` when
-    given; it must not alias psi).
+    given; it must not alias psi).  ext: psi is a halo-extended block's,
+    valid p - 1 cells beyond its interior; the laplacian is written p - 2
+    cells beyond it, the rest of `out` is left as it was.
 
     CPU tensors run :func:`laplacian_psi_reference`.  CUDA tensors launch
     ``csrc/laplacian_psi.cu`` or raise."""
     global laplacian_launches
     if psi.device.type == "cpu":
-        ref = laplacian_psi_reference(psi)
+        ref = laplacian_psi_reference(psi, ext)
+        if ext is not None:
+            return _write_region(out, ref, psi, 2, ext, 2)
         if out is None:
             return ref
         return out.copy_(ref)
@@ -377,13 +453,13 @@ def laplacian_psi(psi: torch.Tensor,
         out = torch.empty_like(psi)
     _check_field("lap", out, psi, 2)
     _check_no_alias("lap", out, (psi,))
-    X, Y, Z = _grid_dims(psi)
+    geom = _geom(psi, ext, 2, need=2)
     from . import _build
 
     lib = _build.load("laplacian_psi", psi.device)
     w = (ctypes.c_float * Q)(*_LAP_W)
     rc = lib.bflbm_laplacian_psi(
-        psi.device.index, psi.data_ptr(), out.data_ptr(), X, Y, Z, w,
+        psi.device.index, psi.data_ptr(), out.data_ptr(), geom, w,
         _LAP_WSUM, _LAP_TWO_CS2,
         torch.cuda.current_stream(psi.device).cuda_stream)
     _raise_on(rc, lib, "laplacian_psi")
@@ -398,12 +474,15 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
              params: LBMParams, out: Pair, psi: Optional[torch.Tensor],
              noise_dist: str = "clt4",
              ref: Optional[torch.Tensor] = None, *,
-             lap: Optional[torch.Tensor] = None) -> Pair:
+             lap: Optional[torch.Tensor] = None,
+             ext: Optional[Ext] = None) -> Pair:
     """Launch the K kernel on CUDA tensors: f, g -> out.  psi: the
     pre-pass output of (f, g) for a coupled configuration, None for an
     uncoupled one.  lap: the laplacian pre-pass output of psi when
     alpha1 != 0, else None.  ref: the (2, X, Y, Z) USE_REF_STATE amplitude
-    fields or None (ignored when kBT = 0, as in the JAX kernel).  The
+    fields or None (ignored when kBT = 0, as in the JAX kernel).  ext: the
+    arrays are a halo-extended block with pads at least sd_depth deep;
+    the interior of out is written, its pads are left as they were.  The
     library is the build of ``fused_step.cu`` for the relaxation
     (:func:`general_relax`), the force and alpha1.  Raises for what the
     kernel does not take."""
@@ -430,7 +509,7 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
         _check_no_alias("ref", ref, tuple(out))
         if not params.noise_on:
             ref = None
-    X, Y, Z = _grid_dims(f)
+    geom = _geom(f, ext, None, need=sd_depth(params))
     from . import _build
 
     lib = _build.load("fused_step" + ("_general" if general_relax(params)
@@ -444,7 +523,7 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
         None if psi is None else psi.data_ptr(),
         None if lap is None else lap.data_ptr(),
         None if ref is None else ref.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
+        out[0].data_ptr(), out[1].data_ptr(), geom,
         _as_i32(word), _as_i32(step), params.div_eps,
         0.5 * params.lam_f, 0.5 * params.lam_g, params.lam_f, params.lam_g,
         int(params.noise_on), NOISE_DISTS[noise_dist][0], coef,
@@ -457,6 +536,7 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
     tags = ((["general"] if general_relax(params) else [])
             + (["alpha1"] if lap is not None else [])
             + (["ref"] if ref is not None else [])
+            + (["ext"] if ext is not None else [])
             + ([noise_dist] if params.noise_on else []))
     for tag in tags:
         mode_launches[tag] = mode_launches.get(tag, 0) + 1
@@ -469,7 +549,8 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
                          noise_dist: str = "clt4",
                          psi: Optional[torch.Tensor] = None,
                          ref: Optional[torch.Tensor] = None,
-                         lap: Optional[torch.Tensor] = None) -> Pair:
+                         lap: Optional[torch.Tensor] = None,
+                         ext: Optional[Ext] = None) -> Pair:
     """One K step of the post-collide pair (f, g) with noise word `word`
     at step label `step`; returns the new pair (written into `out` when
     given — it must not alias f or g: the pull reads neighbours).
@@ -477,7 +558,11 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
     float32 scratch for the density pre-pass of a coupled configuration
     and for the laplacian pre-pass when alpha1 != 0 (allocated when not
     given).  ref: the (2, X, Y, Z) COM-rolled (rho_eq, phi_eq) of
-    USE_REF_STATE, or None.
+    USE_REF_STATE, or None.  ext: every array is a halo-extended block
+    in one padded layout (:class:`~bflbm_tpu_torch.ops.blocked.Ext`,
+    pads at least :func:`sd_depth` deep, filled); the step writes the
+    interior of `out` and leaves its pads as they were (unset in an `out`
+    allocated here).
 
     CPU tensors run :func:`k_step_reference`.  CUDA tensors launch the
     CUDA kernels on the current stream (the pre-passes A and, with
@@ -487,7 +572,13 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
     if f.device.type == "cpu":
-        fo, go = k_step_reference(f, g, word, step, params, noise_dist, ref)
+        fo, go = k_step_reference(f, g, word, step, params, noise_dist, ref,
+                                  ext)
+        if ext is not None:
+            return (_write_region(None if out is None else out[0], fo, f, Q,
+                                  ext, None),
+                    _write_region(None if out is None else out[1], go, g, Q,
+                                  ext, None))
         if out is None:
             return fo, go
         out[0].copy_(fo)
@@ -498,10 +589,11 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
     check_noise_dist(noise_dist)
     if out is None:
         out = (torch.empty_like(f), torch.empty_like(g))
-    psi = density_psi(f, g, params, out=psi) if is_coupled(params) else None
-    lap = laplacian_psi(psi, out=lap) if has_alpha1(params) else None
+    psi = (density_psi(f, g, params, out=psi, ext=ext) if is_coupled(params)
+           else None)
+    lap = laplacian_psi(psi, out=lap, ext=ext) if has_alpha1(params) else None
     return launch_k(f, g, word, step, params, out, psi, noise_dist, ref,
-                    lap=lap)
+                    lap=lap, ext=ext)
 
 
 # ---------------------------------------------------------------------------

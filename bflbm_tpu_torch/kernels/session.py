@@ -26,8 +26,14 @@ transactionally (:meth:`FusedSession._advance_ref`, as
 crossing lands on a sub-chunk boundary and the trajectory is the per-step
 one.
 
+:class:`ShardedSession` runs the same steps on a decomposed domain: one
+block per device of a mesh (:mod:`bflbm_tpu_torch.parallel`), each kept
+in the padded layout of the kernels' ext mode between advances, with one
+halo exchange a step.
+
 :func:`make_session` is the entry point for a configuration: it returns
-a :class:`FusedSession` or raises for what the kernels cannot run.
+a :class:`FusedSession`, or a :class:`ShardedSession` on a mesh of more
+than one block, or raises for what the kernels cannot run.
 """
 
 from __future__ import annotations
@@ -41,8 +47,11 @@ from ..config import LBMParams
 from ..models import binary_fluid as model
 from ..observables import stats
 from ..ops import collide as collide_ops
+from ..ops import moments as moments_ops
 from ..ops import noise as noise_ops
 from ..ops import stream as stream_ops
+from ..parallel import kernel as kernel_par
+from ..parallel import mesh as mesh_lib
 from ..state import SimState, draw_words
 from . import fused_step
 
@@ -141,6 +150,20 @@ class FusedSession:
         return self._advance_ref(pc, list(words))
 
     # -- USE_REF_STATE ---------------------------------------------------
+    # The resident state's pieces the transactional advance touches:
+    # its f on one device, a copy, and the devices to synchronize.
+    def _whole_f(self, pc) -> torch.Tensor:
+        return pc.f
+
+    def _copy(self, pc):
+        return pc.replace(f=pc.f.clone(), g=pc.g.clone())
+
+    def _devices(self, pc):
+        return {pc.f.device}
+
+    def _ref_operand(self, shift: Sequence[int]):
+        return self._rolled_ref(shift)
+
     def _ref_shift(self, f: torch.Tensor) -> List[int]:
         """Integer COM shift of the state that post-collide f streams to.
         The per-step path rolls from the post-stream density the prelude
@@ -148,7 +171,7 @@ class FusedSession:
         step stale: the mass field is streamed first (plain torch, not
         the pre-pass kernel, so that the kernels' launch counts stay
         those of the physical steps)."""
-        rho = stream_ops.stream(f).sum(dim=0)
+        rho = moments_ops.density(stream_ops.stream(f))
         com = stats.center_of_mass(rho)
         return torch.round(com - self._com_ref.to(com.device)).to(
             torch.int64).tolist()
@@ -172,22 +195,24 @@ class FusedSession:
         step's start, as in the reference.  A retried sub-chunk replays
         the same words: they are drawn once for the whole advance.  Cost:
         one device copy of the state and one host sync per sub-chunk."""
-        self._ref_on(pc.f)
+        f = self._whole_f(pc)
+        self._ref_on(f)
         done = 0
         cap = self._ref_cap
-        shift0 = self._ref_shift(pc.f)
+        shift0 = self._ref_shift(f)
         while done < len(words):
             n_i = min(len(words) - done, cap)
             backup = None
             if n_i > 1:
                 t0 = time.perf_counter()
-                backup = pc.replace(f=pc.f.clone(), g=pc.g.clone())
-                if pc.f.is_cuda:   # the shift's host read synced before
-                    torch.cuda.synchronize(pc.f.device)
+                backup = self._copy(pc)
+                for dev in self._devices(pc):   # the shift's read synced
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
                 self.ref_backup_s += time.perf_counter() - t0
             out = self._ksteps(n_i)(pc, words[done:done + n_i],
-                                    self._rolled_ref(shift0))
-            shift1 = self._ref_shift(out.f)
+                                    self._ref_operand(shift0))
+            shift1 = self._ref_shift(self._whole_f(out))
             if shift1 != shift0 and n_i > 1:
                 pc = backup
                 self.ref_retry_steps += n_i
@@ -216,13 +241,87 @@ class FusedSession:
     exit = exit_view
 
 
+class ShardedSession(FusedSession):
+    """Decomposed session (``bflbm_tpu/kernels/session.py:ShardedSession``
+    at block 1): each block of `mesh` on its device, resident in the
+    padded layout of the kernels' ext mode, with per step one halo
+    exchange and the kernels on every block
+    (:func:`bflbm_tpu_torch.parallel.kernel.make_kernel_ksteps`).
+
+    enter runs the plain prelude and collide on the whole state, on the
+    state's device, and shards the result; exit_view gathers the
+    interiors back onto that device, so views, frames and checkpoints are
+    those of the undecomposed run.  The mass restore sums every block's
+    interior in float64.  ref_fields: the COM and its shift are taken on
+    the gathered density, and each block gets its slice of the rolled
+    reference, in the transactional sub-chunks of :class:`FusedSession`.
+    The noise is keyed by global coordinates, so the trajectory is
+    FusedSession's for every mesh: bitwise before the first mass restore,
+    and within the float64 summation order's rounding after it."""
+
+    def __init__(self, mesh: mesh_lib.Mesh, params: LBMParams,
+                 shape: Tuple[int, int, int], *, noise_dist: str = "clt4",
+                 mass_restore_int: int = 1000, ref_fields=None):
+        super().__init__(params, shape, noise_dist=noise_dist,
+                         mass_restore_int=mass_restore_int,
+                         ref_fields=ref_fields)
+        if not kernel_par.supports(mesh, self.shape, params):
+            raise ValueError(
+                f"mesh {mesh.shape} cannot hold domain {self.shape}: every "
+                "axis must divide and each sharded block extent must be at "
+                f"least {fused_step.sd_depth(params)}")
+        self.mesh = mesh
+        self.pad = kernel_par.pads(mesh, params)
+        self._home = None
+
+    def enter(self, state: SimState,
+              word: Optional[int] = None) -> mesh_lib.ShardedState:
+        """Post-stream state (step t) on any device -> resident decomposed
+        post-collide state (step t+1); counts as one step."""
+        pc = super().enter(state, word)
+        self._home = state.f.device
+        return kernel_par.pad_state(pc, self.mesh, self.params)
+
+    def _ksteps(self, n: int):
+        return kernel_par.make_kernel_ksteps(
+            self.mesh, self.params, n, self._mass_restore_arg(),
+            noise_dist=self.noise_dist)
+
+    def _whole_f(self, pc: mesh_lib.ShardedState) -> torch.Tensor:
+        return mesh_lib.gather_field([b[0] for b in pc.blocks], self.mesh,
+                                     self.pad, self._home)
+
+    def _copy(self, pc: mesh_lib.ShardedState) -> mesh_lib.ShardedState:
+        return pc.replace(blocks=[b.clone() for b in pc.blocks])
+
+    def _devices(self, pc: mesh_lib.ShardedState):
+        return {b.device for b in pc.blocks}
+
+    def _ref_operand(self, shift: Sequence[int]) -> List[torch.Tensor]:
+        return mesh_lib.shard_field(self._rolled_ref(shift), self.mesh,
+                                    self.pad)
+
+    def exit_view(self, pc: mesh_lib.ShardedState) -> SimState:
+        """Post-stream view of the whole domain, on the device the state
+        entered from; pc is not consumed."""
+        return super().exit_view(mesh_lib.gather_state(pc, self._home))
+
+    exit = exit_view
+
+
 def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
-                 mass_restore_int: int = 1000,
-                 ref_fields=None) -> FusedSession:
-    """The single-device session for this configuration (the counterpart
-    of ``bflbm_tpu.kernels.session.make_session`` without a mesh): the
-    kernels run every configuration, alpha1 included.  Raises ValueError
-    for an unknown generator name."""
+                 mass_restore_int: int = 1000, ref_fields=None,
+                 mesh: Optional[mesh_lib.Mesh] = None) -> FusedSession:
+    """The session for this configuration (the counterpart of
+    ``bflbm_tpu.kernels.session.make_session``): a :class:`ShardedSession`
+    on a mesh of more than one block, else the single-device
+    :class:`FusedSession`.  The kernels run every configuration, alpha1
+    included.  Raises ValueError for an unknown generator name or a mesh
+    that cannot hold the domain."""
+    if mesh is not None and mesh.size > 1:
+        return ShardedSession(mesh, params, shape, noise_dist=noise_dist,
+                              mass_restore_int=mass_restore_int,
+                              ref_fields=ref_fields)
     return FusedSession(params, shape, noise_dist=noise_dist,
                         mass_restore_int=mass_restore_int,
                         ref_fields=ref_fields)

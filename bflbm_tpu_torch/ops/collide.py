@@ -18,7 +18,7 @@ import torch
 from ..config import LBMParams
 from ..lattice import Q
 from .hydro import Hydro
-from .moments import moments, populations
+from .moments import density, moments, populations
 
 # Test hook (tests/test_torch_general_tau.py): route tau = 1/2 through the
 # general relaxation update instead of the exact-relaxation branch, in the
@@ -97,6 +97,6 @@ def collide(f: torch.Tensor, g: torch.Tensor, h: Hydro,
     # Exact-mass restoration: the f32 round trip's rounding is coherent
     # across near-identical cells and would bias total mass by ~1e-8 per
     # step; absorb the per-cell defect into the rest population.
-    f1[0] += mf[0] - torch.sum(f1, dim=0)
-    g1[0] += mg[0] - torch.sum(g1, dim=0)
+    f1[0] += mf[0] - density(f1)
+    g1[0] += mg[0] - density(g1)
     return f1, g1

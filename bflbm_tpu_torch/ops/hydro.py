@@ -21,7 +21,7 @@ import torch
 from ..config import LBMParams
 from ..lattice import C, CS2
 from . import stencil
-from .moments import contract
+from .moments import contract, density
 
 # Output schema of the reference plotfiles (AMReX_FileIO.H:209-295 /
 # main_run_job.cpp:147): 22 components, in the order :func:`pack` stacks
@@ -78,35 +78,43 @@ def momentum(f: torch.Tensor) -> torch.Tensor:
 def hydrovars_bar(f: torch.Tensor, g: torch.Tensor,
                   params: LBMParams) -> HydroBar:
     """Densities + bare velocities from populations (LBM_binary.H:315-340)."""
-    rho = torch.sum(f, dim=0)
-    phi = torch.sum(g, dim=0)
+    rho = density(f)
+    phi = density(g)
     uf_bar = _safe_div(momentum(f), rho[None], params.div_eps)
     ug_bar = _safe_div(momentum(g), phi[None], params.div_eps)
     return HydroBar(rho, phi, uf_bar, ug_bar)
 
 
 def accelerations(rho: torch.Tensor, phi: torch.Tensor,
-                  params: LBMParams) -> Tuple[torch.Tensor, torch.Tensor]:
+                  params: LBMParams, at=None, centre=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shan-Chen cross-species accelerations (LBM_binary.H:232-257),
     evaluated (like the JAX package) even when alpha0 = 0, and the alpha1
     square-gradient term, evaluated only when alpha1 != 0:
 
         a_f -= cs^2 alpha1 grad lap psi(phi)   (a_g likewise with rho),
 
-    not divided by the density."""
+    not divided by the density.  at, centre: on a halo-extended block
+    (:mod:`bflbm_tpu_torch.ops.blocked`), where rho and phi reach beyond
+    the cells wanted, the stencils' neighbour function and the cut of a
+    field to the wanted cells; periodic and the identity by default."""
     use_sc, n0 = params.use_sc_pseudo, params.sc_ref_density
     eps = params.div_eps
-    grad_phi = stencil.gradient(phi, use_sc, n0)
-    grad_rho = stencil.gradient(rho, use_sc, n0)
-    psi_rho = stencil.pseudopotential(rho, use_sc, n0)
-    psi_phi = stencil.pseudopotential(phi, use_sc, n0)
+    centre = centre or (lambda t: t)
+    grad_phi = centre(stencil.gradient(phi, use_sc, n0, at=at))
+    grad_rho = centre(stencil.gradient(rho, use_sc, n0, at=at))
+    rho_c, phi_c = centre(rho), centre(phi)
+    psi_rho = stencil.pseudopotential(rho_c, use_sc, n0)
+    psi_phi = stencil.pseudopotential(phi_c, use_sc, n0)
     af = -CS2 * params.alpha0 * _safe_div(psi_rho[None] * grad_phi,
-                                          rho[None], eps)
+                                          rho_c[None], eps)
     ag = -CS2 * params.alpha0 * _safe_div(psi_phi[None] * grad_rho,
-                                          phi[None], eps)
+                                          phi_c[None], eps)
     if params.alpha1 != 0.0:
-        af = af - CS2 * params.alpha1 * stencil.grad_laplacian(phi, use_sc, n0)
-        ag = ag - CS2 * params.alpha1 * stencil.grad_laplacian(rho, use_sc, n0)
+        af = af - CS2 * params.alpha1 * centre(
+            stencil.grad_laplacian(phi, use_sc, n0, at=at))
+        ag = ag - CS2 * params.alpha1 * centre(
+            stencil.grad_laplacian(rho, use_sc, n0, at=at))
     return af, ag
 
 

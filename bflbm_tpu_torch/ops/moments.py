@@ -27,6 +27,18 @@ def contract(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:
     return torch.tensordot(m, x, dims=([1], [0]))
 
 
+def density(f: torch.Tensor) -> torch.Tensor:
+    """sum_i f_i over the leading population axis, added in the order
+    i = 0..18 as the kernels add them.  ``torch.sum`` adds in an order
+    that depends on the number of cells (its vectorized loop and its
+    tail differ), so a block of a decomposed domain would not sum its
+    cells as the whole domain does."""
+    acc = f[0]
+    for i in range(1, f.shape[0]):
+        acc = acc + f[i]
+    return acc
+
+
 def moments(f: torch.Tensor) -> torch.Tensor:
     """m_k = sum_i M[k,i] f_i over the leading population axis."""
     return contract(M, f)

@@ -90,9 +90,11 @@ def _amplitude_fields(rho, phi, ref_state):
 
 
 def hash_normal_stack(word: int, step: int, shape, dtype,
-                      dist: str = "clt4", device=None) -> torch.Tensor:
+                      dist: str = "clt4", device=None, origin=(0, 0, 0),
+                      domain=None) -> torch.Tensor:
     """(33, X, Y, Z) standard deviates of the coordinate-keyed hash
-    stream, in kernel channel order.
+    stream, in kernel channel order, on the (X, Y, Z) region at global
+    `origin` of the global `domain` (default: the region is the domain).
 
     Channel a is draw a of the kernel's ``normal(a)`` interleave (JAX
     ``n1[a//2]`` for even a, ``n2[a//2]`` for odd a): with dist="u8"
@@ -106,19 +108,17 @@ def hash_normal_stack(word: int, step: int, shape, dtype,
     from ..kernels import fused_step as fs
 
     fs.check_noise_dist(dist)
+    nwords = {"u8": (N_CHANNELS + 3) // 4, "clt4": N_CHANNELS,
+              "clt2": fs._NPAIR, "bm": 2 * fs._NPAIR}[dist]
+    ws = fs.hash_words(word, step, shape, nwords, device, origin, domain)
     if dist == "u8":
-        ws = fs.hash_words(word, step, shape, (N_CHANNELS + 3) // 4, device)
         draws = [d for w in ws for d in fs.u8_quad(w, dtype)]
     elif dist == "clt4":
-        ws = fs.hash_words(word, step, shape, N_CHANNELS, device)
         draws = [fs.clt4_normal(w, dtype) for w in ws]
     elif dist == "clt2":
-        ws = fs.hash_words(word, step, shape, fs._NPAIR, device)
         draws = [d for w in ws for d in fs.clt2_pair(w, dtype)]
     else:
-        us = [fs.hash_uniform(w, dtype)
-              for w in fs.hash_words(word, step, shape, 2 * fs._NPAIR,
-                                     device)]
+        us = [fs.hash_uniform(w, dtype) for w in ws]
         draws = [d for p in range(fs._NPAIR)
                  for d in fs.bm_pair(us[2 * p], us[2 * p + 1])]
     return torch.stack(draws[:N_CHANNELS])
@@ -126,17 +126,20 @@ def hash_normal_stack(word: int, step: int, shape, dtype,
 
 def thermal_noise_hash(word: int, step: int, rho: torch.Tensor,
                        phi: torch.Tensor, params: LBMParams,
-                       ref_state=None, dist: str = "clt4"
+                       ref_state=None, dist: str = "clt4",
+                       origin=(0, 0, 0), domain=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-mode noise moments (xi_f, xi_g), each (19, X, Y, Z), from the
     hash stream keyed by (word, step); zeros when kBT == 0.  ref_state:
     optional (rho_eq, phi_eq, com_shift) — the USE_REF_STATE amplitudes
-    (:func:`_amplitude_fields`)."""
+    (:func:`_amplitude_fields`).  origin, domain: where the (X, Y, Z)
+    cells lie in the global domain (:func:`hash_normal_stack`)."""
     shape = tuple(rho.shape)
     dtype = rho.dtype
     if not params.noise_on:
         z = torch.zeros((Q,) + shape, dtype=dtype, device=rho.device)
         return z, z
     rho, phi = _amplitude_fields(rho, phi, ref_state)
-    n = hash_normal_stack(word, step, shape, dtype, dist, rho.device)
+    n = hash_normal_stack(word, step, shape, dtype, dist, rho.device, origin,
+                          domain)
     return _apply_amplitudes(n, rho, phi, params, dtype)

@@ -16,6 +16,13 @@ Usage:
     python -m bflbm_tpu_torch.run --preset droplet-fluct \\
         --checkpoint out/eq/checkpoint0020000 \\
         --ref-state out/eq/equilibrium.npz --out out/fluct
+    python -m bflbm_tpu_torch.run --preset droplet-eq --mesh 2 1 1
+
+``--mesh X Y Z`` decomposes the domain over a mesh of blocks, one per
+card (:class:`~bflbm_tpu_torch.kernels.session.ShardedSession`); on a
+node with fewer cards the cards repeat.  Views, frames, observables and
+checkpoints are taken from the gathered state, so a run writes the same
+files with or without a mesh.
 
 Noise: every step draws one word from the state's generator and the
 coordinate-keyed hash stream (clt4 unless ``--noise-dist`` says
@@ -49,6 +56,7 @@ from .models import binary_fluid as model
 from .observables import stats
 from .observables import structfact as sf_lib
 from .ops import hydro as hydro_ops
+from .parallel import mesh as mesh_lib
 from .state import SimState, peek_words
 from .utils import debug
 
@@ -81,19 +89,26 @@ def _sync(device) -> None:
 
 
 def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
-        noise_dist: Optional[str] = None,
-        mass_restore_int: int = 1000) -> SimState:
+        noise_dist: Optional[str] = None, mass_restore_int: int = 1000,
+        mesh=None) -> SimState:
     """Execute a configured run on `device`; returns the final state.
 
     on_frame(step, packed_hydro) is called at plot_int cadence.
     noise_dist: the hash-stream generator (default cfg.noise_dist).
     mass_restore_int: the session's exact-mass restore cadence (0 = off).
+    mesh: a :class:`~bflbm_tpu_torch.parallel.mesh.Mesh` or a mesh shape
+    (X, Y, Z) to decompose the domain over (a shape takes the node's
+    cards, or `device` for a CPU run); the state, its views and
+    everything written stay on `device`.
     """
     t_start = time.perf_counter()
     tm = {"advance": 0.0, "views": 0.0, "host_obs": 0.0, "io": 0.0}
     p = cfg.params
     dist = noise_dist or cfg.noise_dist
     state = model.make_initial_state(cfg, device=device)
+    if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+        mesh = mesh_lib.make_mesh(
+            mesh, None if torch.device(device).type == "cuda" else device)
     os.makedirs(cfg.out_dir, exist_ok=True)
     metrics = MetricsWriter(os.path.join(cfg.out_dir, "metrics.jsonl"))
 
@@ -122,7 +137,7 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
             ref_state = (rho_eq, phi_eq, stats.center_of_mass(rho_eq))
         sess = make_session(p, cfg.shape, noise_dist=dist,
                             mass_restore_int=mass_restore_int,
-                            ref_fields=ref_state)
+                            ref_fields=ref_state, mesh=mesh)
 
         def prelude_peek(s: SimState):
             (word,) = peek_words(s.gen, 1)
@@ -349,8 +364,8 @@ def _cfg_json(cfg: RunConfig) -> dict:
 
 def main(argv=None):
     """The CLI, on the card.  It keeps the JAX CLI's flags that have a
-    meaning here; --mesh, --distributed, --engine, --block, --transform,
-    --f64, --profile-dir and --noise-source are not ported (ROADMAP)."""
+    meaning here; --distributed, --engine, --block, --transform, --f64,
+    --profile-dir and --noise-source are not ported (ROADMAP)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse
                                  .RawDescriptionHelpFormatter)
@@ -381,6 +396,8 @@ def main(argv=None):
     ap.add_argument("--ref-state", default=None,
                     help="equilibrium artifact enabling USE_REF_STATE noise")
     ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--mesh", type=int, nargs=3, default=None,
+                    help="device mesh shape (x y z)")
     ap.add_argument("--noise-dist", default=None,
                     choices=["clt4", "clt2", "u8", "bm"],
                     help="hash-stream normal generator (default clt4; "
@@ -429,10 +446,13 @@ def main(argv=None):
     if args.alpha0 is not None:
         cfg = cfg.with_params(alpha0=args.alpha0)
 
+    mesh = None
+    if args.mesh is not None:
+        mesh = mesh_lib.make_mesh(tuple(args.mesh))
     opts = {k: v for k, v in (("noise_dist", args.noise_dist),
                               ("mass_restore_int", args.mass_restore_int))
             if v is not None}
-    state = run(cfg, **opts)
+    state = run(cfg, mesh=mesh, **opts)
     print(json.dumps({"final_step": int(state.step),
                       "out_dir": cfg.out_dir}))
 

@@ -66,7 +66,22 @@ Phases (each raises on failure; the script then exits non-zero):
    mass, MLUPS); (c) ``run(cfg)`` at 256^3 for 300 steps with frames at
    0 and 300 (``fmt="auto"``: a ``.bflbm`` written through the
    ``AsyncFieldWriter``), read back and held against the plain hydro of
-   the final state, with the loop's wall split.
+   the final state, with the loop's wall split;
+9. the decomposed path (K7 ext mode), the blocks of every mesh on one
+   card: (a) ext A, L and K against their plain ext versions, max |delta|
+   <= 2e-5, on 32^3 droplets in five modes (u8 uncoupled, clt4 with
+   alpha0, alpha1, general tau, the ref operand) on meshes (2, 1, 1),
+   (1, 2, 2) and (2, 2, 1), with the blocks' hash words and K's interiors
+   against the whole domain's, bitwise; at 256^3 on mesh (2, 1, 1) the
+   same checks and the ext kernels, their plain versions and the
+   exchange timed per step beside the whole-domain kernels, and one 256^3
+   block (the domain with its own x wrap as pads); (b) the phase-5
+   droplet through ShardedSession on meshes (2, 1, 1) and (2, 2, 1), 1 +
+   1100 steps with the restore at step 1000, against phase 5's
+   FusedSession at steps 901 and 1101 (bitwise printed), with launches
+   per block, MLUPS and the exchange's time; (c) ``run(cfg, mesh=(2, 1,
+   1))`` with alpha1 at 256^3 for 100 steps, its final frame read back
+   against the frame of the same run without a mesh.
 
 Each phase prints its wall time.  Phase 0 prints the card's name and
 power limit on a line of its own, as ``nvidia-smi`` gives them; the line
@@ -125,6 +140,8 @@ KERNELS = {
     # of 18-neighbour gradients (216) and the square-gradient terms
     "b_a1": dict(bytes=2 * 19 * 4 * 2 + 2 * 4 + 2 * 4, ops=3030),
 }
+# the ext modes (K7) move the same bytes per cell of their region
+KERNELS.update(a_ext=KERNELS["a"], l_ext=KERNELS["l"], k_ext=KERNELS["b"])
 SRC = "bflbm_tpu_torch/kernels/csrc/"
 TPU_KERNEL = "bflbm_tpu/kernels/fused_step.py:1956"
 
@@ -136,6 +153,15 @@ def _maxdiff(a, b):
 def _check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def _work_cells(key, cells):
+    """Cells a kernel works on at the main path's shape: the ext pre-passes
+    of mesh (2, 1, 1) compute one ring beyond each block on x (A's 2-deep
+    pads less 1; L's 3-deep pads less 2)."""
+    if key in ("a_ext", "l_ext"):
+        return cells * (SHAPE[0] + 4) // SHAPE[0]
+    return cells
 
 
 def _bound_ms(key, cells):
@@ -207,11 +233,12 @@ def _session_vs_chain(params, f, g, noise_dist, tag):
     return err
 
 
-def _run_session(sess, state, tag):
+def _run_session(sess, state, tag, keep=None):
     """enter + NCHUNKS x advance(CHUNK) + exit_view with the launch
     counts set to 0 just before, checking the step, finiteness and the
     masses; returns (view, (K launches, pre-pass launches), advance
-    seconds, enter seconds)."""
+    seconds, enter seconds).  keep: a dict whose keys are steps at which
+    the exit view is stored into it (outside the timed advances)."""
     import torch
 
     from bflbm_tpu_torch.kernels import fused_step
@@ -238,6 +265,8 @@ def _run_session(sess, state, tag):
         t_adv += time.perf_counter() - t0
         if pc.step in (901, 1001):
             masses[pc.step] = rel_mass(pc)
+        if keep is not None and pc.step in keep:
+            keep[pc.step] = sess.exit_view(pc)
     view = sess.exit_view(pc)
     torch.cuda.synchronize()
     counts = (fused_step.launches, fused_step.density_launches)
@@ -919,6 +948,393 @@ def _alpha1_driver(tmp):
     return fused_step.launches
 
 
+# -- phase 9: the decomposed path (K7 ext mode) -------------------------------
+
+EXT_MESHES = ((2, 1, 1), (1, 2, 2), (2, 2, 1))
+_DROP = dict(kappa=0.1, rho_lo=0.1, rho_hi=3.0)
+EXT_MODES = (
+    ("u8 uncoupled", dict(kBT=KBT), "u8", False),
+    ("clt4 alpha0", dict(_DROP, alpha0=1.5, kBT=KBT), "clt4", False),
+    ("alpha1", dict(ALPHA1, kBT=KBT), "clt4", False),
+    ("general tau", dict(_DROP, alpha0=1.5, kBT=KBT, tau_f=0.7, tau_g=0.6),
+     "clt4", False),
+    ("ref", dict(_DROP, alpha0=1.5, kBT=KBT), "clt4", True),
+)
+EXT_WORD, EXT_STEP = 97531, 864
+
+
+def _padded_blocks(f, g, mesh, params):
+    """(f, g) decomposed over `mesh` in the padded layout of the
+    configuration's stencil depth, pads exchanged; returns (state, the
+    blocks' Ext)."""
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+    from bflbm_tpu_torch.state import init_state
+
+    pad = mesh.pads(fused_step.sd_depth(params))
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+    halo.exchange_halo(ss.blocks, mesh, pad)
+    return ss, halo.block_exts(mesh, tuple(f.shape[1:]), pad)
+
+
+def _cells(ext, shape):
+    """The global index of an Ext's interior."""
+    return tuple(slice(o, o + n)
+                 for o, n in zip(ext.origin, ext.interior(shape)))
+
+
+def _ext_vs_plain(f, g, params, dist, ref, mesh, tag, errs):
+    """A, L and K in ext mode on every block of (f, g) decomposed over
+    `mesh`, each launched once, against the plain ext versions (max
+    |delta| into errs["a_ext"], ["l_ext"], ["k_ext"]); K's interior
+    against the whole-domain kernel's cells and each block's hash words
+    against the whole domain's, bitwise.  Returns (K bitwise, words
+    bitwise)."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    whole = fused_step.fused_stream_collide(f, g, EXT_WORD, EXT_STEP, params,
+                                            noise_dist=dist, ref=ref)
+    words = fused_step.hash_words(EXT_WORD, EXT_STEP, f.shape[1:], 3,
+                                  f.device)
+    ss, exts = _padded_blocks(f, g, mesh, params)
+    refs = (mesh_lib.shard_field(ref, mesh, ss.pad) if ref is not None
+            else [None] * mesh.size)
+    coupled = fused_step.is_coupled(params)
+    alpha1 = fused_step.has_alpha1(params)
+    k_bits = w_bits = True
+    err = {"a_ext": 0.0, "l_ext": 0.0, "k_ext": 0.0}
+    for b, ext in enumerate(exts):
+        fb, gb = ss.blocks[b][0], ss.blocks[b][1]
+        psi = torch.zeros((2,) + tuple(fb.shape[1:]), device=f.device)
+        lap = torch.zeros_like(psi)
+        before = (fused_step.density_launches, fused_step.laplacian_launches,
+                  fused_step.launches, fused_step.mode_launches.get("ext", 0))
+        fo, go = fused_step.fused_stream_collide(
+            fb, gb, EXT_WORD, EXT_STEP, params, noise_dist=dist, psi=psi,
+            lap=lap, ref=refs[b], ext=ext)
+        torch.cuda.synchronize()
+        after = (fused_step.density_launches, fused_step.laplacian_launches,
+                 fused_step.launches, fused_step.mode_launches.get("ext", 0))
+        _check(after == (before[0] + coupled, before[1] + alpha1,
+                         before[2] + 1, before[3] + 1),
+               f"{tag}: launches {before} -> {after}")
+        _check_finite(ext.region(fo), ext.region(go))
+        fr, gr = fused_step.k_step_reference(fb, gb, EXT_WORD, EXT_STEP,
+                                             params, dist, refs[b], ext)
+        err["k_ext"] = max(err["k_ext"], _maxdiff(ext.region(fo), fr),
+                           _maxdiff(ext.region(go), gr))
+        del fr, gr
+        cells = _cells(ext, fb.shape)
+        k_bits &= (torch.equal(ext.region(fo), whole[0][(slice(None),)
+                                                        + cells])
+                   and torch.equal(ext.region(go),
+                                   whole[1][(slice(None),) + cells]))
+        bw = fused_step.hash_words(EXT_WORD, EXT_STEP, ext.interior(fb.shape),
+                                   3, f.device, ext.origin, ext.domain)
+        w_bits &= all(torch.equal(x, y[cells]) for x, y in zip(bw, words))
+        if coupled:
+            err["a_ext"] = max(err["a_ext"], _maxdiff(
+                ext.region(psi, 1),
+                fused_step.density_psi_reference(fb, gb, params, ext)))
+        if alpha1:
+            err["l_ext"] = max(err["l_ext"], _maxdiff(
+                ext.region(lap, 2),
+                fused_step.laplacian_psi_reference(psi, ext)))
+    print(f"[phase 9] {tag}: max|ext - plain ext| A {err['a_ext']:.3e}, L "
+          f"{err['l_ext']:.3e}, K {err['k_ext']:.3e} (tol {TOL}); K interior "
+          f"== whole-domain K bitwise: {k_bits}; hash words of the blocks == "
+          f"the domain's bitwise: {w_bits}", flush=True)
+    _check(max(err.values()) <= TOL, f"{tag}: ext kernels disagree: {err}")
+    _check(w_bits, f"{tag}: the blocks' hash words differ from the domain's")
+    for k, v in err.items():
+        errs[k].append(v)
+    return k_bits, w_bits
+
+
+def _ext_small(dev, errs):
+    """Phase 9a at 32^3: every mode of EXT_MODES on every mesh of
+    EXT_MESHES, the blocks on one card."""
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    k_bits = w_bits = True
+    for tag, kw, dist, with_ref in EXT_MODES:
+        p = LBMParams(**kw)
+        f, g = _perturbed_droplet(SMALL, p, 51, dev, radius=0.3)
+        ref = _ref_operand(f, g, (2, -3, 1)) if with_ref else None
+        for ms in EXT_MESHES:
+            kb, wb = _ext_vs_plain(f, g, p, dist, ref,
+                                   mesh_lib.make_mesh(ms, dev),
+                                   f"32^3 {tag}, mesh {ms}", errs)
+            k_bits &= kb
+            w_bits &= wb
+    return k_bits, w_bits
+
+
+def _ext_256(dcfg, dev, cells, errs):
+    """Phase 9a at the main path's shapes: the 256^3 droplet one step in
+    on mesh (2, 1, 1), blocks 128 x 256 x 256 on one card with 2-deep x
+    pads (3-deep with alpha1).  The ext kernels against the plain ext
+    versions and, K, against the whole-domain kernel bitwise; A, K, L
+    and B-A1 timed per step (both blocks) beside the plain versions and
+    the whole-domain kernels on the same input; the exchange timed.  Then
+    one 256^3 block: the whole droplet with its own periodic x wrap as
+    pads, through ext A and K, against the whole-domain kernels."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.ops.blocked import Ext
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    dparams = dcfg.params
+    pc = FusedSession(dparams, SHAPE).enter(
+        model.make_initial_state(dcfg, device=dev))
+    f, g = pc.f, pc.g
+    del pc
+    mesh = mesh_lib.make_mesh((2, 1, 1), dev)
+    t = {}
+    k_bits = True
+    a1p = dataclasses.replace(dparams, **ALPHA1)
+    for params, key in ((dparams, "k"), (a1p, "k_a1")):
+        whole = fused_step.fused_stream_collide(f, g, EXT_WORD, EXT_STEP,
+                                                params, noise_dist="clt4")
+        ss, exts = _padded_blocks(f, g, mesh, params)
+        fgs = [(b[0], b[1]) for b in ss.blocks]
+        outs = [(torch.empty_like(b[0]), torch.empty_like(b[1]))
+                for b in ss.blocks]
+        psis = [torch.zeros((2,) + tuple(b.shape[2:]), device=dev)
+                for b in ss.blocks]
+        laps = [torch.zeros_like(p) for p in psis]
+        lap_b = [lp if fused_step.has_alpha1(params) else None
+                 for lp in laps]
+        for b, ext in enumerate(exts):
+            fused_step.fused_stream_collide(
+                *fgs[b], EXT_WORD, EXT_STEP, params, out=outs[b],
+                noise_dist="clt4", psi=psis[b], lap=lap_b[b], ext=ext)
+            idx = (slice(None),) + _cells(ext, fgs[b][0].shape)
+            k_bits &= (torch.equal(ext.region(outs[b][0]), whole[0][idx])
+                       and torch.equal(ext.region(outs[b][1]), whole[1][idx]))
+        del whole
+        ext0 = exts[0]
+        fr, gr = fused_step.k_step_reference(*fgs[0], EXT_WORD, EXT_STEP,
+                                             params, "clt4", None, ext0)
+        err_k = max(_maxdiff(ext0.region(outs[0][0]), fr),
+                    _maxdiff(ext0.region(outs[0][1]), gr))
+        del fr, gr
+        err_a = _maxdiff(ext0.region(psis[0], 1),
+                         fused_step.density_psi_reference(*fgs[0], params,
+                                                          ext0))
+        errs["k_ext"].append(err_k)
+        errs["a_ext"].append(err_a)
+        t[key] = _time_ms(lambda: [
+            fused_step.launch_k(*fgs[b], 1, i, params, outs[b], psis[b],
+                                "clt4", lap=lap_b[b], ext=exts[b])
+            for i in range(NREP) for b in range(2)], cells, NREP)
+        t[key + "_plain"] = _time_ms(lambda: [
+            fused_step.k_step_reference(*fgs[b], 1, 0, params, "clt4", None,
+                                        exts[b]) for b in range(2)],
+            cells, 1)
+        msg = (f"[phase 9] 256^3 on mesh (2, 1, 1), {key}: max|ext - plain "
+               f"ext| K {err_k:.3e}, A {err_a:.3e}")
+        if key == "k":
+            t["a"] = _time_ms(lambda: [
+                fused_step.density_psi(*fgs[b], params, out=psis[b],
+                                       ext=exts[b])
+                for _ in range(NREP) for b in range(2)], cells, NREP)
+            t["a_plain"] = _time_ms(lambda: [
+                fused_step.density_psi_reference(*fgs[b], params, exts[b])
+                for b in range(2)], cells, 1)
+            plan = halo.halo_plan(ss.blocks, mesh, ss.pad)
+            t["exchange"] = _time_ms(lambda: [halo.run_plan(plan)
+                                              for _ in range(NREP)],
+                                     cells, NREP)
+        else:
+            err_l = _maxdiff(ext0.region(laps[0], 2),
+                             fused_step.laplacian_psi_reference(psis[0],
+                                                                ext0))
+            errs["l_ext"].append(err_l)
+            msg += f", L {err_l:.3e}"
+            t["l"] = _time_ms(lambda: [
+                fused_step.laplacian_psi(psis[b], out=laps[b], ext=exts[b])
+                for _ in range(NREP) for b in range(2)], cells, NREP)
+            t["l_plain"] = _time_ms(lambda: [
+                fused_step.laplacian_psi_reference(psis[b], exts[b])
+                for b in range(2)], cells, 1)
+        print(msg + f" (tol {TOL}); K interiors == whole-domain K bitwise: "
+              f"{k_bits}", flush=True)
+        _check(max(err_k, err_a) <= TOL and max(errs["l_ext"] or [0.0])
+               <= TOL, "256^3 ext kernels disagree with plain ext")
+        del ss, fgs, outs, psis, laps, lap_b
+        torch.cuda.empty_cache()
+    # the same input through the whole-domain kernels
+    psi = fused_step.density_psi(f, g, dparams)
+    fo, go = torch.empty_like(f), torch.empty_like(g)
+    t["a_whole"] = _time_ms(lambda: [fused_step.density_psi(
+        f, g, dparams, out=psi) for _ in range(NREP)], cells, NREP)
+    t["k_whole"] = _time_ms(lambda: [fused_step.launch_k(
+        f, g, 1, i, dparams, (fo, go), psi, "clt4")
+        for i in range(NREP)], cells, NREP)
+    # one 256^3 block: the domain with its own periodic x wrap as pads
+    whole = fused_step.fused_stream_collide(f, g, EXT_WORD, EXT_STEP,
+                                            dparams, noise_dist="clt4")
+    ext = Ext((2, 0, 0), (0, 0, 0), SHAPE)
+    fp = torch.cat([f[:, -2:], f, f[:, :2]], dim=1)
+    gp = torch.cat([g[:, -2:], g, g[:, :2]], dim=1)
+    del f, g, fo, go
+    bo = fused_step.fused_stream_collide(fp, gp, EXT_WORD, EXT_STEP, dparams,
+                                         noise_dist="clt4", ext=ext)
+    torch.cuda.synchronize()
+    block_bits = (torch.equal(ext.region(bo[0]), whole[0])
+                  and torch.equal(ext.region(bo[1]), whole[1]))
+    del whole
+    fr, gr = fused_step.k_step_reference(fp, gp, EXT_WORD, EXT_STEP, dparams,
+                                         "clt4", None, ext)
+    err = max(_maxdiff(ext.region(bo[0]), fr), _maxdiff(ext.region(bo[1]),
+                                                        gr))
+    del fr, gr, fp, gp, bo
+    errs["k_ext"].append(err)
+    print(f"[phase 9] one 256^3 block (x wrap as 2-deep pads): max|ext K - "
+          f"plain ext| {err:.3e} (tol {TOL}); == whole-domain K bitwise: "
+          f"{block_bits}", flush=True)
+    _check(err <= TOL, f"256^3 block: ext K disagrees: {err}")
+    print(f"[phase 9] 256^3 on mesh (2, 1, 1), per step (both blocks): ext A "
+          f"{t['a']:.4f} ms (whole-domain A {t['a_whole']:.4f}), ext K "
+          f"{t['k']:.4f} ms (whole-domain K {t['k_whole']:.4f}), ext L "
+          f"{t['l']:.4f} ms, ext B-A1 {t['k_a1']:.4f} ms, exchange "
+          f"{t['exchange']:.4f} ms; plain ext A {t['a_plain']:.2f} ms, K "
+          f"{t['k_plain']:.2f} ms, L {t['l_plain']:.2f} ms", flush=True)
+    return t, k_bits and block_bits
+
+
+def _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups):
+    """Phase 9b: the 256^3 droplet-fluct configuration of phase 5 through
+    ShardedSession (make_session with a mesh of cuda:0 repeated) on
+    meshes (2, 1, 1) and (2, 2, 1): 1 + 11 x 100 steps with the restore
+    at step 1000, held against phase 5's FusedSession (the same seed, so
+    the same words) at step 901 (the last chunk boundary before the
+    restore) and at 1101.  Returns {mesh: (K, A, ext launches, MLUPS,
+    exchange ms)}."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import ShardedSession, make_session
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    n_k = CHUNK * NCHUNKS
+    for ms in ((2, 1, 1), (2, 2, 1)):
+        mesh = mesh_lib.make_mesh(ms)
+        state = model.make_initial_state(dcfg, device=dev)
+        sess = make_session(dcfg.params, SHAPE, noise_dist="clt4", mesh=mesh)
+        _check(isinstance(sess, ShardedSession), f"{type(sess)}")
+        torch.cuda.synchronize()
+        fused_step.reset_launch_counts()
+        pc = sess.enter(state)
+        del state
+        cmp = {}
+        t_adv = 0.0
+        for _ in range(NCHUNKS):
+            t0 = time.perf_counter()
+            pc = sess.advance(pc, CHUNK)
+            torch.cuda.synchronize()
+            t_adv += time.perf_counter() - t0
+            if pc.step == 901:
+                v = sess.exit_view(pc)
+                w = phase5_views[901]
+                cmp[901] = (max(_maxdiff(v.f, w.f), _maxdiff(v.g, w.g)),
+                            torch.equal(v.f, w.f) and torch.equal(v.g, w.g))
+                del v
+        counts = (fused_step.launches, fused_step.density_launches,
+                  fused_step.mode_launches.get("ext", 0))
+        v = sess.exit_view(pc)
+        w = phase5_views[1101]
+        cmp[1101] = (max(_maxdiff(v.f, w.f), _maxdiff(v.g, w.g)),
+                     torch.equal(v.f, w.f) and torch.equal(v.g, w.g))
+        _check_finite(v.f, v.g)
+        _check(v.step == 1 + n_k, f"final step {v.step}")
+        del v
+        plan = halo.halo_plan(pc.blocks, mesh, pc.pad)
+        ex_ms = _time_ms(lambda: [halo.run_plan(plan) for _ in range(NREP)],
+                         cells, NREP)
+        mlups = cells * n_k / t_adv / 1e6
+        print(f"[phase 9] ShardedSession mesh {ms} ({mesh.size} blocks on "
+              f"{len(set(mesh.devices))} card): launches K {counts[0]}, A "
+              f"{counts[1]}, ext {counts[2]}; vs phase 5's FusedSession: step "
+              f"901 max|delta| {cmp[901][0]:.3e} (bitwise {cmp[901][1]}), "
+              f"step 1101 {cmp[1101][0]:.3e} (bitwise {cmp[1101][1]}) (tol "
+              f"{TOL}); {n_k} steps in {t_adv:.3f} s = {mlups:.1f} MLUPS "
+              f"(FusedSession, phase 5: {phase5_mlups:.1f}); exchange "
+              f"{ex_ms:.4f} ms a step", flush=True)
+        _check(counts == (mesh.size * n_k,) * 3, f"launches {counts}")
+        _check(max(cmp[901][0], cmp[1101][0]) <= TOL,
+               f"sharded session disagrees with FusedSession: {cmp}")
+        out[ms] = counts + (mlups, ex_ms)
+        del pc, sess, plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_driver(tmp):
+    """Phase 9c: run(cfg, mesh=(2, 1, 1)) with alpha1 at 256^3 for 100
+    steps, its final frame read back and held against the frame of the
+    same run without a mesh; returns the mesh run's (A, L, K) launches."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.io import fields as fields_io
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import hydro as hydro_ops
+
+    cfg = config.preset("droplet-eq").replace(
+        shape=SHAPE, nsteps=100, plot_int=100, print_int=100,
+        droplet_int=0, plot_fmt="auto").with_params(kBT=KBT, **ALPHA1)
+    frames = {}
+    for tag, mesh in (("mesh", (2, 1, 1)), ("single", None)):
+        out = os.path.join(tmp, tag)
+        fused_step.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = run_mod.run(cfg.replace(out_dir=out), mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (fused_step.density_launches, fused_step.laplacian_launches,
+                  fused_step.launches)
+        modes = dict(fused_step.mode_launches)
+        print(f"[phase 9] run(cfg) alpha1 {tag} (mesh {mesh}), 100 steps, in "
+              f"{wall:.2f} s: step {state.step}; launches A {counts[0]}, L "
+              f"{counts[1]}, K {counts[2]}, by mode {modes}", flush=True)
+        _check(state.step == 100, f"final step {state.step}")
+        if mesh is not None:
+            launches = counts
+            _check(counts == (198, 198, 198) and modes.get("ext") == 198,
+                   f"mesh run launches {counts}, {modes}")
+        del state
+        frames[tag] = fields_io.read_frame(os.path.join(out,
+                                                        "plt0000100.bflbm"))
+    err = max(float(np.abs(frames["mesh"][n] - frames["single"][n]).max())
+              for n in hydro_ops.HYDRO_NAMES)
+    same = all(np.array_equal(frames["mesh"][n], frames["single"][n])
+               for n in hydro_ops.HYDRO_NAMES)
+    print(f"[phase 9] frame plt0000100.bflbm with mesh (2, 1, 1) vs without: "
+          f"max|delta| over the 22 fields {err:.3e} (tol {TOL}), bitwise "
+          f"{same}", flush=True)
+    _check(int(frames["mesh"]["step"]) == 100 and err <= TOL,
+           f"mesh frame disagrees with the single-device frame: {err}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1131,7 +1547,9 @@ def main() -> int:
     state = model.make_initial_state(dcfg, device=dev)
     com0 = stats.center_of_mass(state.f.sum(0))
     sess = make_session(dparams, SHAPE, noise_dist="clt4")
-    view, counts, t_adv, t_enter = _run_session(sess, state, "phase 5")
+    phase5_views = {901: None}
+    view, counts, t_adv, t_enter = _run_session(sess, state, "phase 5",
+                                                phase5_views)
     del state
     _check(counts == (n_k, n_k), f"launches {counts} != ({n_k}, {n_k})")
     rho = view.f.sum(0)
@@ -1148,7 +1566,8 @@ def main() -> int:
     print(f"[phase 5] enter {t_enter * 1e3:.1f} ms; session: {n_k} coupled "
           f"steps at 256^3 in {t_adv:.3f} s = {phase5_mlups:.1f} MLUPS",
           flush=True)
-    del view, rho, sess
+    phase5_views[1101] = view
+    del rho, sess
     torch.cuda.empty_cache()
     phase_done(5)
 
@@ -1198,6 +1617,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(8)
 
+    # -- phase 9: the decomposed path (K7 ext mode) ---------------------------
+    ext_errs = {"a_ext": [], "l_ext": [], "k_ext": []}
+    k_bits, w_bits = _ext_small(dev, ext_errs)
+    torch.cuda.empty_cache()
+    ext_ms, big_bits = _ext_256(dcfg, dev, cells, ext_errs)
+    torch.cuda.empty_cache()
+    print(f"[phase 9] 9a: every ext K interior == the whole-domain K "
+          f"bitwise: {k_bits and big_bits}; every block's hash words == the "
+          f"domain's: {w_bits}", flush=True)
+    sharded = _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups)
+    del phase5_views
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        a1_ext_launches = _sharded_driver(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_done(9)
+
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
             ("k1a", "k_step_kernel (uncoupled, u8)", "fused_step.cu",
@@ -1231,8 +1670,24 @@ def main() -> int:
             ("b_a1", "k_step_kernel (coupled, alpha1, clt4)",
              "fused_step.cu", a1_ms["b_a1"], a1_ms["b_a1_plain"], None,
              a1_k_launches, max(a1_errs["b_a1"]),
-             "K1c: alpha1 square-gradient force (:827-832, :927-934)")):
-        bound, by = _bound_ms(key, cells)
+             "K1c: alpha1 square-gradient force (:827-832, :927-934)"),
+            ("a_ext", "density_psi_kernel (ext)", "density_psi.cu",
+             ext_ms["a"], ext_ms["a_plain"], None, sharded[(2, 1, 1)][1],
+             max(ext_errs["a_ext"]),
+             "K7 ext_mode (:1155-1160, 1290, 1348): psi on the block and "
+             "sd - 1 cells beyond; 256^3 on mesh (2,1,1), both blocks"),
+            ("l_ext", "laplacian_psi_kernel (ext)", "laplacian_psi.cu",
+             ext_ms["l"], ext_ms["l_plain"], None, a1_ext_launches[1],
+             max(ext_errs["l_ext"]),
+             "K7 ext_mode with K1c: the laplacian sd - 2 cells beyond the "
+             "block; 256^3 on mesh (2,1,1), both blocks"),
+            ("k_ext", "k_step_kernel (ext, coupled, clt4)", "fused_step.cu",
+             ext_ms["k"], ext_ms["k_plain"], None, sharded[(2, 1, 1)][0],
+             max(ext_errs["k_ext"]),
+             "K7 ext_mode + shard origin in the seed (:1878-1880): K on the "
+             "padded block, interior written at the pad offset; 256^3 on "
+             "mesh (2,1,1), both blocks")):
+        bound, by = _bound_ms(key, _work_cells(key, cells))
         record.append({
             "name": name, "route": "cuda", "source": SRC + src,
             "replaces": TPU_KERNEL, "mode": mode, "launches": launches,

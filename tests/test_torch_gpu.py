@@ -20,10 +20,12 @@ from bflbm_tpu_torch.config import LBMParams, preset
 from bflbm_tpu_torch.io import fields as fields_io
 from bflbm_tpu_torch.io import native
 from bflbm_tpu_torch.kernels import fused_step
-from bflbm_tpu_torch.kernels.session import FusedSession
+from bflbm_tpu_torch.kernels.session import FusedSession, ShardedSession
 from bflbm_tpu_torch.models import binary_fluid as model
 from bflbm_tpu_torch.observables import stats
 from bflbm_tpu_torch.ops import collide as collide_ops
+from bflbm_tpu_torch.parallel import halo
+from bflbm_tpu_torch.parallel import mesh as mesh_lib
 from bflbm_tpu_torch.state import init_state
 
 ATOL = 2e-5
@@ -415,3 +417,106 @@ def test_native_frames_of_card_tensors(cuda, tmp_path):
         assert int(got["step"]) == 3
         for i, name in enumerate(fields_io.HYDRO_NAMES):
             assert (got[name] == want[i]).all()
+
+
+# K7 ext mode: the modes of chip_smoke.py phase 9a, each (params, generator,
+# with a ref operand)
+_DROP = dict(kappa=0.1, rho_lo=0.1, rho_hi=3.0)
+_EXT_MODES = {
+    "u8 uncoupled": (dict(kBT=1e-5), "u8", False),
+    "clt4 alpha0": (dict(_DROP, alpha0=1.5, kBT=1e-5), "clt4", False),
+    "alpha1": (dict(_DROP, alpha0=1.2, alpha1=0.5, kBT=1e-5), "clt4", False),
+    "general tau": (dict(_DROP, alpha0=1.5, kBT=1e-5, tau_f=0.7, tau_g=0.6),
+                    "clt4", False),
+    "ref": (dict(_DROP, alpha0=1.5, kBT=1e-5), "clt4", True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (1, 2, 2), (2, 2, 1)])
+@pytest.mark.parametrize("mode", sorted(_EXT_MODES))
+def test_ext_kernels_match_plain(cuda, mesh_shape, mode):
+    """A, L and K in ext mode on every block of a 32^3 droplet decomposed
+    over the mesh (blocks on one card), against the plain ext versions;
+    K's interior also equals the whole-domain kernel's cells to the bit
+    (one instantiation, one arithmetic)."""
+    kw, dist, with_ref = _EXT_MODES[mode]
+    params = LBMParams(**kw)
+    shape = (32, 32, 32)
+    base = model.init_droplet(shape, params, radius=0.3, device="cpu")
+    f, g = model.perturbed_populations(shape, 21, base=base, device=cuda)
+    ref = (torch.stack([f.sum(0), g.sum(0)]).roll((2, -3, 1), (1, 2, 3))
+           .contiguous() if with_ref else None)
+    whole = fused_step.fused_stream_collide(f, g, 97531, 864, params,
+                                            noise_dist=dist, ref=ref)
+    mesh = mesh_lib.make_mesh(mesh_shape, cuda)
+    pad = mesh.pads(fused_step.sd_depth(params))
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+    halo.exchange_halo(ss.blocks, mesh, pad)
+    refs = (mesh_lib.shard_field(ref, mesh, pad) if with_ref
+            else [None] * mesh.size)
+    exts = halo.block_exts(mesh, shape, pad)
+    fused_step.reset_launch_counts()
+    for b, (blk, ext) in enumerate(zip(ss.blocks, exts)):
+        fb, gb = blk[0], blk[1]
+        psi = torch.zeros((2,) + tuple(fb.shape[1:]), device=cuda)
+        lap = torch.zeros_like(psi)
+        fo, go = fused_step.fused_stream_collide(
+            fb, gb, 97531, 864, params, noise_dist=dist, psi=psi, lap=lap,
+            ref=refs[b], ext=ext)
+        torch.cuda.synchronize()
+        fr, gr = fused_step.k_step_reference(fb, gb, 97531, 864, params,
+                                             dist, refs[b], ext)
+        assert max(_maxdiff(ext.region(fo), fr),
+                   _maxdiff(ext.region(go), gr)) <= ATOL
+        o, n = ext.origin, ext.interior(fb.shape)
+        cells = (slice(None),) + tuple(slice(a, a + k) for a, k in zip(o, n))
+        assert torch.equal(ext.region(fo), whole[0][cells])
+        assert torch.equal(ext.region(go), whole[1][cells])
+        if fused_step.is_coupled(params):
+            want = fused_step.density_psi_reference(fb, gb, params, ext)
+            assert _maxdiff(ext.region(psi, 1), want) <= ATOL
+        if fused_step.has_alpha1(params):
+            want = fused_step.laplacian_psi_reference(psi, ext)
+            assert _maxdiff(ext.region(lap, 2), want) <= ATOL
+    coupled = int(fused_step.is_coupled(params))
+    assert fused_step.launches == fused_step.mode_launches["ext"] \
+        == mesh.size
+    assert fused_step.density_launches == coupled * mesh.size
+    assert fused_step.laplacian_launches == \
+        int(fused_step.has_alpha1(params)) * mesh.size
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 1), (1, 2, 2)])
+def test_sharded_session_matches_cpu_and_fused(cuda, mesh_shape):
+    """The sharded session (clt4 droplet, 1 + 4 + 5 steps, restore every 4)
+    on the card against the same session on the CPU (plain ext K), and
+    against FusedSession on the card: bitwise up to the first restore."""
+    params = LBMParams(**_DROP, alpha0=1.5, kBT=1e-5)
+    shape = (16, 16, 32)
+    base = model.init_droplet(shape, params, radius=0.3, device="cpu")
+    f, g = model.perturbed_populations(shape, 22, base=base, device="cpu")
+    words = [13 * k - 40 for k in range(10)]
+
+    def go(dev, mesh, restore, n=(4, 5)):
+        sess = (ShardedSession(mesh, params, shape, mass_restore_int=restore)
+                if mesh else FusedSession(params, shape,
+                                          mass_restore_int=restore))
+        pc = sess.enter(init_state(f.to(dev), g.to(dev), 0), words[0])
+        used = 1
+        for k in n:
+            pc = sess.advance(pc, k, words[used:used + k])
+            used += k
+        return sess.exit(pc)
+
+    card = mesh_lib.make_mesh(mesh_shape, cuda)
+    fused_step.reset_launch_counts()
+    got = go(cuda, card, 4)
+    assert fused_step.launches == fused_step.mode_launches["ext"] == 9 * 4
+    cpu = go("cpu", mesh_lib.make_mesh(mesh_shape, "cpu"), 4)
+    assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
+        <= ATOL
+    early = go(cuda, card, 0, (2,))
+    fused = go(cuda, None, 0, (2,))
+    assert torch.equal(early.f, fused.f) and torch.equal(early.g, fused.g)

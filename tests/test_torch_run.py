@@ -33,6 +33,7 @@ from bflbm_tpu import config as jconfig
 from bflbm_tpu import run as jrun
 from bflbm_tpu.io import checkpoint as jckpt
 from bflbm_tpu.observables import structfact as jsf
+from bflbm_tpu.parallel import mesh as jmesh_lib
 from bflbm_tpu.state import init_state as jinit
 from bflbm_tpu_torch import config as tconfig
 from bflbm_tpu_torch import interop
@@ -40,6 +41,7 @@ from bflbm_tpu_torch import run as trun
 from bflbm_tpu_torch.io import checkpoint as tckpt
 from bflbm_tpu_torch.io import fields as tfields
 from bflbm_tpu_torch.observables import structfact as tsf
+from bflbm_tpu_torch.parallel import mesh as tmesh_lib
 from bflbm_tpu_torch.state import draw_words, init_state, make_generator
 
 ATOL = 2e-5
@@ -227,31 +229,38 @@ _ARGVS = [
      "clt2", "--mass-restore-int", "50"],
     ["--preset", "droplet-eq", "--plot-fmt", "native"],
     ["--preset", "interface-eq", "--plot-fmt", "amrex"],
+    ["--preset", "droplet-eq", "--mesh", "2", "1", "1"],
 ]
 
 
 @pytest.mark.parametrize("argv", _ARGVS)
 def test_cli_matches_jax(monkeypatch, capsys, argv):
+    """Both CLIs parse argv to the same RunConfig, options and mesh shape
+    (each package's make_mesh is replaced by one that records the shape:
+    JAX's wants that many devices, the port's a card)."""
     seen = {}
 
     def fake_jax(cfg, **kw):
-        seen["jax"] = (cfg, kw.get("kernel_opts") or {})
+        seen["jax"] = (cfg, kw.get("kernel_opts") or {}, kw.get("mesh"))
         return types.SimpleNamespace(step=np.int32(cfg.step_continue))
 
     def fake_port(cfg, **kw):
-        seen["port"] = (cfg, kw)
+        seen["port"] = (cfg, kw, kw.pop("mesh", None))
         return types.SimpleNamespace(step=cfg.step_continue)
 
     monkeypatch.setattr(jrun, "run", fake_jax)
     monkeypatch.setattr(trun, "run", fake_port)
+    monkeypatch.setattr(jmesh_lib, "make_mesh", lambda shape: tuple(shape))
+    monkeypatch.setattr(tmesh_lib, "make_mesh", lambda shape: tuple(shape))
     jrun.main(argv)
     jline = capsys.readouterr().out
     trun.main(argv)
     assert capsys.readouterr().out == jline
-    jcfg, jopts = seen["jax"]
-    tcfg, topts = seen["port"]
+    jcfg, jopts, jmesh = seen["jax"]
+    tcfg, topts, tmesh = seen["port"]
     assert tcfg == interop.run_config_from_dict(dataclasses.asdict(jcfg))
     assert topts == jopts
+    assert tmesh == jmesh
 
 
 def test_artifacts_cross_packages(tmp_path):

@@ -145,8 +145,9 @@ def test_session_checks_shape():
 
 def test_port_imports_no_jax():
     """Every module of bflbm_tpu_torch — the run driver, io (the native,
-    HDF5 and AMReX frame formats too), observables and the kernel
-    wrappers among them — imports without JAX or the JAX package, and
+    HDF5 and AMReX frame formats too), observables, the kernel wrappers
+    and the decomposed path (ops.blocked, parallel) among them — imports
+    without JAX or the JAX package, and
     without h5py, which io.hdf5 imports lazily (checked in a fresh
     interpreter)."""
     code = (
@@ -162,7 +163,11 @@ def test_port_imports_no_jax():
         "        'bflbm_tpu_torch.utils.debug',\n"
         "        'bflbm_tpu_torch.io.native', 'bflbm_tpu_torch.io.amrex',\n"
         "        'bflbm_tpu_torch.io.hdf5',\n"
-        "        'bflbm_tpu_torch.kernels.fused_step'}\n"
+        "        'bflbm_tpu_torch.kernels.fused_step',\n"
+        "        'bflbm_tpu_torch.ops.blocked',\n"
+        "        'bflbm_tpu_torch.parallel.mesh',\n"
+        "        'bflbm_tpu_torch.parallel.halo',\n"
+        "        'bflbm_tpu_torch.parallel.kernel'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith('jax.')\n"

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""The decomposed session across the node's cards: the 256^3 droplet-fluct
+configuration of ``chip_smoke.py`` phase 5 (``preset("droplet-eq")`` at
+256^3 with kBT = 1e-5, clt4, 1 + 11 x 100 steps, the mass restore at step
+1000) through ``FusedSession`` on cuda:0, then through ``ShardedSession``
+on meshes (2, 1, 1) and, with four cards or more, (2, 2, 1) whose blocks
+sit on distinct cards (peer copies in the halo exchange).  Each sharded
+run is held against the single-card one at steps 901 and 1101 (max
+|delta| <= 2e-5, bitwise printed) and its MLUPS are printed beside it.
+
+    python tools/sharded_cards.py      # needs two cards or more
+
+Prints every card's name and power limit first and one JSON line last.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+SHAPE = (256, 256, 256)
+CHUNK, NCHUNKS = 100, 11
+TOL = 2e-5
+
+
+def _run(sess, state, keep):
+    """enter + NCHUNKS x advance(CHUNK); exit views at the steps in `keep`
+    (outside the timed advances).  Returns (views, advance seconds)."""
+    import torch
+
+    pc = sess.enter(state)
+    t_adv = 0.0
+    views = {}
+    for _ in range(NCHUNKS):
+        t0 = time.perf_counter()
+        pc = sess.advance(pc, CHUNK)
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+        t_adv += time.perf_counter() - t0
+        if pc.step in keep:
+            views[pc.step] = sess.exit_view(pc)
+    return views, t_adv
+
+
+def main() -> int:
+    import torch
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        print("sharded_cards: needs two CUDA cards or more", file=sys.stderr)
+        return 1
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import ShardedSession, make_session
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+        kBT=1e-5)
+    cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
+    n_k = CHUNK * NCHUNKS
+    keep = (901, 1 + n_k)
+    want, t_one = _run(make_session(cfg.params, SHAPE, noise_dist="clt4"),
+                       model.make_initial_state(cfg, device=dev), keep)
+    out = {"cards": cards, "single_mlups": cells * n_k / t_one / 1e6}
+    print(f"FusedSession on cuda:0: {out['single_mlups']:.1f} MLUPS",
+          flush=True)
+    meshes = [(2, 1, 1)] + ([(2, 2, 1)] if cards >= 4 else [])
+    ok = True
+    for ms in meshes:
+        mesh = mesh_lib.make_mesh(ms)
+        sess = make_session(cfg.params, SHAPE, noise_dist="clt4", mesh=mesh)
+        assert isinstance(sess, ShardedSession)
+        fused_step.reset_launch_counts()
+        got, t_adv = _run(sess, model.make_initial_state(cfg, device=dev),
+                          keep)
+        cmp = {s: (max(float((got[s].f - want[s].f).abs().max()),
+                       float((got[s].g - want[s].g).abs().max())),
+                   bool(torch.equal(got[s].f, want[s].f)
+                        and torch.equal(got[s].g, want[s].g)))
+               for s in keep}
+        mlups = cells * n_k / t_adv / 1e6
+        launches = fused_step.mode_launches.get("ext", 0)
+        print(f"ShardedSession mesh {ms} on {[str(d) for d in mesh.devices]}:"
+              f" {mlups:.1f} MLUPS; launches ext {launches}; vs cuda:0 "
+              + ", ".join(f"step {s} max|delta| {e:.3e} (bitwise {b})"
+                          for s, (e, b) in cmp.items()), flush=True)
+        ok &= (max(e for e, _ in cmp.values()) <= TOL
+               and launches == mesh.size * n_k)
+        out[str(ms)] = {"mlups": mlups, "bitwise": {
+            str(s): b for s, (_, b) in cmp.items()}}
+        del got, sess
+        torch.cuda.empty_cache()
+    out["ok"] = bool(ok)
+    print(json.dumps(out), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
