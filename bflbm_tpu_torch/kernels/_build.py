@@ -191,10 +191,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "bflbm_fused_step"):
         lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                          f, f, f, f, f, i, i, p, f, f, f,
-                                         f, p]
+                                         f, p, p, i, p]
         lib.bflbm_fused_step.restype = i
     if hasattr(lib, "bflbm_density_psi"):
-        lib.bflbm_density_psi.argtypes = [i, p, p, p, p, i, f, p]
+        lib.bflbm_density_psi.argtypes = [i, p, p, p, p, i, f, p, i, p]
         lib.bflbm_density_psi.restype = i
     if hasattr(lib, "bflbm_laplacian_psi"):
         lib.bflbm_laplacian_psi.argtypes = [i, p, p, p, p, f, f, p]

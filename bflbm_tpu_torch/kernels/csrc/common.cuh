@@ -78,6 +78,63 @@ __device__ __forceinline__ bool region_cell(int Z, const Region& r, int& x,
   return true;
 }
 
+// The y halo of a launch on a block of a y-sharded mesh in the strips
+// exchange (K7's ystrips, bflbm_tpu/kernels/fused_step.py:1233-1245,
+// 1501-1530, 1913-1919).  The block's y pads are not read: the rows below
+// and above its interior come from received strips, which the exchange
+// ships whole between y neighbours, and K writes its first and last
+// `rows` interior rows a second time into strips of the same layout for
+// the next exchange.  A strip array is (2 sides, 2 species, Q, X, rows,
+// Z), z contiguous: side 0 holds the rows [y_lo - rows, y_lo) below the
+// interior (received) or its first rows (written), side 1 the rows
+// [y_hi, y_hi + rows) above it or its last rows.  With both pointers null
+// (every launch but the strips exchange's) the halo is the pads'.
+struct YStrips {
+  const float* in;   // received strips, or null
+  float* out;        // strips K writes, or null
+  int rows;          // strip depth: the y pads' depth
+  int y_lo, y_hi;    // the interior rows [y_lo, y_hi) of the arrays
+};
+
+inline YStrips ystrips_of(const float* in, float* out, int rows, int Y) {
+  return YStrips{in, out, rows, rows, Y - rows};
+}
+
+// Elements between two populations of a strip array, and between its two
+// species.
+__device__ __forceinline__ size_t strip_plane(const YStrips& st, int X,
+                                              int Z) {
+  return static_cast<size_t>(X) * st.rows * Z;
+}
+
+// Element offset of population q of species s at (x, strip row r, z) of
+// side `side`.
+__device__ __forceinline__ size_t strip_offset(const YStrips& st, int side,
+                                               int s, int q, int x, int r,
+                                               int z, int X, int Z) {
+  return ((static_cast<size_t>(side) * 2 + s) * Q + q) *
+             strip_plane(st, X, Z) +
+         (static_cast<size_t>(x) * st.rows + r) * Z + z;
+}
+
+// Row y of a read lies in the y halo and comes from the received strips:
+// which side, and which row r of it.
+__device__ __forceinline__ bool strip_row(const YStrips& st, int y,
+                                          int& side, int& r) {
+  if (st.in == nullptr) return false;
+  if (y < st.y_lo) {
+    side = 0;
+    r = y - (st.y_lo - st.rows);
+    return true;
+  }
+  if (y >= st.y_hi) {
+    side = 1;
+    r = y - st.y_hi;
+    return true;
+  }
+  return false;
+}
+
 // Makes `device` current for its lifetime and restores the caller's
 // current device afterwards, so a call on another card leaves the thread's
 // device (and so the caller's later allocations) where they were.

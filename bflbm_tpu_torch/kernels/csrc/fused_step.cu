@@ -37,6 +37,15 @@
 //     the geometry (common.cuh is_ext): the whole-domain instantiations
 //     keep the single-device addressing, and both compile the same
 //     arithmetic, so a block's cells come out as the whole domain's.
+//     Two run-time options of the EXT instantiations carry K7's other
+//     modes: the region may be any window of the interior (win / owin /
+//     out_alias, fused_step.py:1167-1187, 1215-1218, 1886-1910: the
+//     overlap split launches the interior's window and the seam bands
+//     separately, each writing its cells in place in the one padded
+//     output), and on a y-sharded block the y halo may come from
+//     received strips while K writes its first and last interior rows a
+//     second time into strips for the next exchange (ystrips, :1233-1245,
+//     1501-1530, 1913-1919; common.cuh YStrips).
 // GENERAL, FORCE and A1 are chosen per library: the source is compiled six
 // times, with BFLBM_GENERAL_RELAX and BFLBM_FORCE each 0 and 1 and, in the
 // two FORCE builds' copies, BFLBM_A1 = 1, so that the builds run in
@@ -158,6 +167,7 @@ struct Args {
   Region r;             // the region written
   int ox, oy, oz;       // global coordinates of array cell (0, 0, 0)
   uint32_t GY, GZ;      // global extents the hash cell index runs over
+  YStrips ys;           // the strips exchange's y halo, or null pointers
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -357,6 +367,54 @@ __device__ __forceinline__ void store_pops(const float (&m)[Q],
   out[idx] = m[0] - s;
 }
 
+// The strips exchange: a cell of the first or last `rows` interior rows
+// writes its outputs a second time into the strips K writes, read back
+// from the output this thread has just stored (a thread sees its own
+// stores), so that the main path carries no strip pointers.
+__device__ __forceinline__ void copy_to_strips(const YStrips& ys,
+                                               const float* fout,
+                                               const float* gout,
+                                               size_t plane, size_t idx,
+                                               int x, int y, int z, int X,
+                                               int Z) {
+  const size_t sp = strip_plane(ys, X, Z);
+  for (int side = 0; side < 2; ++side) {
+    const int r = side == 0 ? y - ys.y_lo : y - (ys.y_hi - ys.rows);
+    if (r < 0 || r >= ys.rows) continue;
+    float* dst = ys.out + strip_offset(ys, side, 0, 0, x, r, z, X, Z);
+#pragma unroll 1
+    for (int q = 0; q < Q; ++q) {
+      dst[q * sp] = fout[q * plane + idx];
+      dst[(Q + q) * sp] = gout[q * plane + idx];
+    }
+  }
+}
+
+// One pulled population pair (fi, gi) of direction i = (cx, cy, cz) into
+// the densities and momenta, and under GENERAL the other rows of M.
+template <bool GENERAL>
+__device__ __forceinline__ void pull_add(int i, int cx, int cy, int cz,
+                                         float fi, float gi, float& rho,
+                                         float& phi, float (&jf)[3],
+                                         float (&jg)[3], float (&mf)[Q],
+                                         float (&mg)[Q]) {
+  rho += fi;
+  phi += gi;
+  jf[0] += static_cast<float>(cx) * fi;
+  jf[1] += static_cast<float>(cy) * fi;
+  jf[2] += static_cast<float>(cz) * fi;
+  jg[0] += static_cast<float>(cx) * gi;
+  jg[1] += static_cast<float>(cy) * gi;
+  jg[2] += static_cast<float>(cz) * gi;
+  if (GENERAL) {
+#pragma unroll
+    for (int k = 4; k < Q; ++k) {
+      mf[k] = fmaf(c_M[k][i], fi, mf[k]);
+      mg[k] = fmaf(c_M[k][i], gi, mg[k]);
+    }
+  }
+}
+
 // The 19-point isotropic gradient sum_i (w_i / cs^2) c_i v(x + c_i) of
 // both species of a (2, X, Y, Z) field v, at cell (x, y, z).
 __device__ __forceinline__ void gradient2(const float* __restrict__ v,
@@ -404,28 +462,40 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
 #pragma unroll
     for (int k = 4; k < Q; ++k) mf[k] = mg[k] = 0.0f;
   }
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-    const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
-    const size_t src = i * plane + cell_offset(wrap(x - cx, X),
-                                               wrap(y - cy, Y),
-                                               wrap(z - cz, Z), Y, Z);
-    const float fi = __ldg(p.fin + src);
-    const float gi = __ldg(p.gin + src);
-    rho += fi;
-    phi += gi;
-    jf[0] += static_cast<float>(cx) * fi;
-    jf[1] += static_cast<float>(cy) * fi;
-    jf[2] += static_cast<float>(cz) * fi;
-    jg[0] += static_cast<float>(cx) * gi;
-    jg[1] += static_cast<float>(cy) * gi;
-    jg[2] += static_cast<float>(cz) * gi;
-    if (GENERAL) {
-#pragma unroll
-      for (int k = 4; k < Q; ++k) {
-        mf[k] = fmaf(c_M[k][i], fi, mf[k]);
-        mg[k] = fmaf(c_M[k][i], gi, mg[k]);
+  if (EXT && p.ys.in != nullptr &&
+      (y - 1 < p.ys.y_lo || y + 1 >= p.ys.y_hi)) {
+    // a row next to the y halo (the strips exchange): a pull across it
+    // reads the received strips; a loop of its own, so that the other
+    // rows keep the main loop's code
+#pragma unroll 1
+    for (int i = 0; i < Q; ++i) {
+      const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
+      float fi, gi;
+      int side, row;
+      if (strip_row(p.ys, y - cy, side, row)) {
+        const size_t o = strip_offset(p.ys, side, 0, i, wrap(x - cx, X),
+                                      row, wrap(z - cz, Z), X, Z);
+        fi = __ldg(p.ys.in + o);
+        gi = __ldg(p.ys.in + o + Q * strip_plane(p.ys, X, Z));
+      } else {
+        const size_t src = i * plane + cell_offset(wrap(x - cx, X),
+                                                   wrap(y - cy, Y),
+                                                   wrap(z - cz, Z), Y, Z);
+        fi = __ldg(p.fin + src);
+        gi = __ldg(p.gin + src);
       }
+      pull_add<GENERAL>(i, cx, cy, cz, fi, gi, rho, phi, jf, jg, mf, mg);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
+      const size_t src = i * plane + cell_offset(wrap(x - cx, X),
+                                                 wrap(y - cy, Y),
+                                                 wrap(z - cz, Z), Y, Z);
+      const float fi = __ldg(p.fin + src);
+      const float gi = __ldg(p.gin + src);
+      pull_add<GENERAL>(i, cx, cy, cz, fi, gi, rho, phi, jf, jg, mf, mg);
     }
   }
 
@@ -531,6 +601,9 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   post_collide<NOISE, FORCE, GENERAL>(phi, vb, ug, ag, p.fc.s_g, rx.lam_g,
                                       xg, mg);
   store_pops<NROWS>(mg, p.gout, plane, idx);
+  if (EXT && p.ys.out != nullptr &&
+      (y < p.ys.y_lo + p.ys.rows || y >= p.ys.y_hi - p.ys.rows))
+    copy_to_strips(p.ys, p.fout, p.gout, plane, idx, x, y, z, X, Z);
 }
 
 template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1,
@@ -595,7 +668,9 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float* m,
 // dist: 0 u8, 1 clt4, 2 clt2, 3 Box-Muller.  coef: host array [pref_mom,
 // cf[15], cg[15], scale, off].  lam_f, lam_g: 1 / (tau + 1/2), read by the
 // general-relaxation build.  force_k = -cs^2 alpha0; a1 = cs^2 alpha1;
-// s_f, s_g the Guo prefactors.  Returns cudaGetLastError() after the launch.
+// s_f, s_g the Guo prefactors.  strips_in, strips_out: the received y
+// strips and the strips K writes (common.cuh YStrips, depth strip_rows),
+// or null.  Returns cudaGetLastError() after the launch.
 extern "C" int bflbm_fused_step(int device, const float* fin,
                                 const float* gin, const float* psi,
                                 const float* lap, const float* ref,
@@ -605,7 +680,8 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
                                 float lam_f, float lam_g, int noise_on,
                                 int dist, const float* coef, float force_k,
                                 float a1, float s_f, float s_g,
-                                void* stream) {
+                                const float* strips_in, float* strips_out,
+                                int strip_rows, void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   Args a;
@@ -625,6 +701,7 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   a.oz = geom[11];
   a.GY = static_cast<uint32_t>(geom[12]);
   a.GZ = static_cast<uint32_t>(geom[13]);
+  a.ys = ystrips_of(strips_in, strips_out, strip_rows, a.Y);
   a.word = static_cast<uint32_t>(word);
   a.step = static_cast<uint32_t>(step);
   a.rx = Relax{eps, half_lam_f, half_lam_g, lam_f, lam_g};
@@ -647,7 +724,8 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   // the hash keys of a whole-domain launch are the array's own
   const bool ext = is_ext(a.X, a.Y, a.Z, a.r) || a.ox != 0 || a.oy != 0 ||
                    a.oz != 0 || a.GY != static_cast<uint32_t>(a.Y) ||
-                   a.GZ != static_cast<uint32_t>(a.Z);
+                   a.GZ != static_cast<uint32_t>(a.Z) ||
+                   strips_in != nullptr || strips_out != nullptr;
   if (ext)
     return launch_mode<kForce, kGeneral, kA1, true>(noise_on, dist, grid, s,
                                                     a);

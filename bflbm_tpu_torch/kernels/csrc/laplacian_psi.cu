@@ -20,8 +20,9 @@
 // pads of depth p on the sharded axes, psi is valid p - 1 cells beyond the
 // block (csrc/density_psi.cu), and this pass writes the laplacian p - 2
 // cells beyond it: the ring the K kernel's gradient reads (p >= 3).  The
-// launch geometry (common.cuh Region) says which region that is; such a
-// launch runs the EXT instantiation.
+// launch geometry (common.cuh Region) says which region that is, or a
+// window of it (K7's win / owin, the overlap split); such a launch runs
+// the EXT instantiation.
 //
 // What bounds it: device memory.  It reads 8 bytes and writes 8 bytes per
 // cell against ~80 flops; the neighbours' overlapping reads are served by

@@ -34,6 +34,19 @@ beyond, and K the interior, into arrays of the same padded layout; the
 plain versions run :mod:`bflbm_tpu_torch.ops.blocked`.  Every launch
 passes its geometry (extents and ``csrc/common.cuh`` Region); one whose
 region is not the whole domain runs the kernels' EXT instantiation.
+Two more of K7's modes ride on it:
+
+- ``window=`` (the JAX kernel's ``win`` / ``odomain`` / ``owin`` /
+  ``out_alias``): a box of the block inside the region a launch writes;
+  only its cells are written, in place in the one padded output, the
+  rest is left as it was.  The overlap split
+  (:mod:`bflbm_tpu_torch.parallel.kernel`) launches the interior's
+  window under the halo exchange and the seam bands after it;
+- ``strips=`` / ``strips_out=`` (``ystrips``): on a y-sharded block A
+  and K read the y halo from compact received strips instead of the y
+  pads, and K writes its first and last interior rows a second time
+  into the strips the exchange ships whole
+  (:func:`bflbm_tpu_torch.parallel.halo.strip_plan`).
 
 The noise bits are those of the JAX package's coordinate-keyed hash
 stream (``bflbm_tpu/kernels/fused_step.py:hash_words``): two rounds of
@@ -68,7 +81,7 @@ from ..ops import moments as moments_ops
 from ..ops import noise as noise_ops
 from ..ops import stencil as stencil_ops
 from ..ops import stream as stream_ops
-from ..ops.blocked import Ext, sd_depth
+from ..ops.blocked import Box, Ext, sd_depth
 from ..state import SimState, draw_words
 
 # ---------------------------------------------------------------------------
@@ -194,7 +207,8 @@ def check_noise_dist(noise_dist: str) -> None:
 def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
                      params: LBMParams, noise_dist: str = "clt4",
                      ref: Optional[torch.Tensor] = None,
-                     ext: Optional[Ext] = None
+                     ext: Optional[Ext] = None,
+                     strips: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K = collide∘stream of a post-collide state:
     stream -> hydrovars_bar -> hash noise (word, step) -> hydrovars (with
@@ -203,11 +217,12 @@ def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
     relaxation, :func:`general_relax`).  ref: optional (2, X, Y, Z)
     COM-rolled (rho_eq, phi_eq) — the USE_REF_STATE noise amplitudes.
     ext: f, g (and ref) are a halo-extended block
-    (:func:`blocked.step_on_block`); the result is its interior."""
+    (:func:`blocked.step_on_block`); the result is its interior.  strips:
+    the block's received y strips, read in place of its y pads."""
     check_noise_dist(noise_dist)
     if ext is not None:
-        return blocked.step_on_block(f, g, word, step, params, ext,
-                                     noise_dist, ref)
+        return blocked.step_on_block(*_mounted(f, g, strips), word, step,
+                                     params, ext, noise_dist, ref)
     fs = stream_ops.stream(f)
     gs = stream_ops.stream(g)
     hbar = hydro_ops.hydrovars_bar(fs, gs, params)
@@ -219,13 +234,16 @@ def k_step_reference(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
 
 
 def density_psi_reference(f: torch.Tensor, g: torch.Tensor,
-                          params: LBMParams, ext: Optional[Ext] = None
+                          params: LBMParams, ext: Optional[Ext] = None,
+                          strips: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Plain density pre-pass: (psi(rho_s), psi(phi_s)) of the streamed
     state, a (2, X, Y, Z) tensor; with ext, on the block's interior and
-    p - 1 cells beyond it (:func:`blocked.density_psi_block`)."""
+    p - 1 cells beyond it (:func:`blocked.density_psi_block`), the y halo
+    read from `strips` when given."""
     if ext is not None:
-        return blocked.density_psi_block(f, g, params, ext)
+        return blocked.density_psi_block(*_mounted(f, g, strips), params,
+                                         ext)
     rho = moments_ops.density(stream_ops.stream(f))
     phi = moments_ops.density(stream_ops.stream(g))
     return torch.stack([
@@ -251,10 +269,11 @@ def laplacian_psi_reference(psi: torch.Tensor,
 
 # Launches of the K kernel (launch_k), the density pre-pass (density_psi)
 # and the laplacian pre-pass (laplacian_psi), on CUDA tensors only, one per
-# block of a decomposed domain; mode_launches counts the K launches by
-# mode: "general" (K1d), "ref" (K1e), "alpha1" (K1c), "ext" (K7, on a
-# halo-extended block) and, for launches with noise, the generator's
-# name.
+# block (or window) of a decomposed domain; mode_launches counts the K
+# launches by mode: "general" (K1d), "ref" (K1e), "alpha1" (K1c), "ext"
+# (K7, on a halo-extended block), "window" (K7's win / owin: a box of the
+# block, the overlap split), "ystrips" (K7's ystrips: the y halo from the
+# received strips) and, for launches with noise, the generator's name.
 launches = 0
 density_launches = 0
 laplacian_launches = 0
@@ -334,13 +353,14 @@ def _check_no_alias(name: str, t: torch.Tensor, inputs) -> None:
 
 
 def _geom(t: torch.Tensor, ext: Optional[Ext], cut: Optional[int],
-          need: int = 1):
+          need: int = 1, window: Optional[Box] = None):
     """The launch geometry (extents, ``csrc/common.cuh`` Region, hash keys)
     of arrays shaped like t: {X, Y, Z, x0, y0, z0, nx, ny, nz, ox, oy, oz,
     GY, GZ}.  The region starts `cut` cells inside the pads (None: the
-    interior); (ox, oy, oz) are the global coordinates of array cell
-    (0, 0, 0).  Raises when the pads are shallower than `need`, the
-    cells the launch reaches."""
+    interior), or is `window`, which must lie inside that region;
+    (ox, oy, oz) are the global coordinates of array cell (0, 0, 0).
+    Raises when the pads are shallower than `need`, the cells the launch
+    reaches."""
     shape = tuple(int(s) for s in t.shape[1:])
     if ext is None:
         ext = Ext((0, 0, 0), (0, 0, 0), shape)
@@ -348,8 +368,15 @@ def _geom(t: torch.Tensor, ext: Optional[Ext], cut: Optional[int],
     if any(0 < p < need for p in ext.pad):
         raise ValueError(f"the launch reaches {need} cells; the pads "
                          f"{ext.pad} are shallower")
-    start = [p if cut is None else min(p, cut) for p in ext.pad]
-    region = [n - 2 * k for n, k in zip(shape, start)]
+    box = ext.bounds(shape, cut)
+    if window is not None:
+        window = tuple((int(a), int(b)) for a, b in window)
+        if not blocked.inside(window, box):
+            raise ValueError(f"window {window} is not a non-empty box "
+                             f"inside the launch's region {box}")
+        box = window
+    start = [a for a, _ in box]
+    region = [b - a for a, b in box]
     if region[0] > 65535 or region[1] > 65535:
         raise ValueError(f"the region's X and Y must be <= 65535 (grid "
                          f"limits), got {tuple(region[:2])}")
@@ -357,6 +384,40 @@ def _geom(t: torch.Tensor, ext: Optional[Ext], cut: Optional[int],
     geom = shape + tuple(start) + tuple(region) + tuple(origin) \
         + tuple(int(d) for d in ext.domain[1:])
     return (ctypes.c_int * 14)(*geom)
+
+
+def _check_box_args(f: torch.Tensor, ext: Optional[Ext],
+                    window: Optional[Box], strips=()) -> None:
+    """A window and y strips need a halo-extended block; strips need its
+    y pads, and lie on f's device as float32 contiguous (2 sides,
+    2 species, Q, X, rows, Z) arrays with rows the y pads' depth."""
+    given = [t for t in strips if t is not None]
+    if ext is None and (window is not None or given):
+        raise ValueError("a window or y strips need ext=, a halo-extended "
+                         "block")
+    if not given:
+        return
+    rows = int(ext.pad[1])
+    if not rows:
+        raise ValueError("y strips need a block with y pads")
+    want = (2, 2, Q, int(f.shape[1]), rows, int(f.shape[3]))
+    for t in given:
+        if t.device != f.device or t.dtype != f.dtype:
+            raise ValueError(f"strips on {t.device} as {t.dtype}, f on "
+                             f"{f.device} as {f.dtype}")
+        if tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"strips must be contiguous {want}, got "
+                             f"{tuple(t.shape)}")
+
+
+def _mounted(f: torch.Tensor, g: torch.Tensor,
+             strips: Optional[torch.Tensor]) -> Pair:
+    """The plain versions' view of a strip-fed block: copies of f, g whose
+    y pads hold the received strips."""
+    if strips is None:
+        return f, g
+    return (blocked.mount_strips(f, strips, 0),
+            blocked.mount_strips(g, strips, 1))
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -367,34 +428,66 @@ def _raise_on(rc: int, lib, what: str) -> None:
 
 def _write_region(out: Optional[torch.Tensor], value: torch.Tensor,
                   like: torch.Tensor, lead: int, ext: Ext,
-                  cut: Optional[int]) -> torch.Tensor:
-    """A plain ext result written into its region of `out` (allocated
-    like the kernels' arrays, zeroed, when None)."""
+                  cut: Optional[int],
+                  window: Optional[Box] = None) -> torch.Tensor:
+    """A plain ext result on its region written into `out` (allocated
+    like the kernels' arrays, zeroed, when None): the whole region, or
+    only the cells of `window`."""
     if out is None:
         out = torch.zeros((lead,) + tuple(like.shape[1:]), dtype=like.dtype,
                           device=like.device)
-    ext.region(out, cut).copy_(value)
+    if window is None:
+        ext.region(out, cut).copy_(value)
+        return out
+    region = ext.bounds(like.shape, cut)
+    if not blocked.inside(window, region):
+        raise ValueError(f"window {tuple(window)} is not a non-empty box "
+                         f"inside the launch's region {region}")
+    rel = tuple((a - s0, b - s0) for (a, b), (s0, _) in zip(window, region))
+    blocked.box_view(out, window).copy_(blocked.box_view(value, rel))
     return out
+
+
+def _write_strips(strips_out: torch.Tensor, fo: torch.Tensor,
+                  go: torch.Tensor, ext: Ext, shape) -> None:
+    """What K writes into its strips: the first and last `rows` interior
+    rows of the plain K's interior result (fo, go), on the interior x and
+    z cells of the strips."""
+    rows = int(strips_out.shape[-2])
+    ny = int(fo.shape[-2])
+    (x0, x1), _, (z0, z1) = ext.bounds(shape)
+    for s, o in enumerate((fo, go)):
+        for side, y0 in ((0, 0), (1, ny - rows)):
+            blocked.box_view(strips_out[side, s],
+                             ((x0, x1), (0, rows), (z0, z1))).copy_(
+                o[..., y0:y0 + rows, :])
 
 
 def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
                 out: Optional[torch.Tensor] = None,
-                ext: Optional[Ext] = None) -> torch.Tensor:
+                ext: Optional[Ext] = None, *,
+                window: Optional[Box] = None,
+                strips: Optional[torch.Tensor] = None) -> torch.Tensor:
     """psi of the streamed densities of the post-collide pair (f, g), a
     (2, X, Y, Z) tensor (written into `out` when given; it must not
     alias f or g).  ext: f, g are a halo-extended block; psi is written
     on its interior and p - 1 cells beyond it, the rest of `out` is left
-    as it was.
+    as it was.  window: a box of the block's arrays (``ops.blocked.Box``)
+    inside that region: only its cells are written (K7's ``win`` /
+    ``owin``).  strips: the block's received y strips (the strips
+    exchange, (2, 2, Q, X, rows, Z)): the y halo is read from them and
+    never from the y pads.
 
     CPU tensors run :func:`density_psi_reference`.  CUDA tensors launch
     ``csrc/density_psi.cu`` or raise."""
     global density_launches
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
+    _check_box_args(f, ext, window, (strips,))
     if f.device.type == "cpu":
-        ref = density_psi_reference(f, g, params, ext)
+        ref = density_psi_reference(f, g, params, ext, strips)
         if ext is not None:
-            return _write_region(out, ref, f, 2, ext, 1)
+            return _write_region(out, ref, f, 2, ext, 1, window)
         if out is None:
             return ref
         return out.copy_(ref)
@@ -407,13 +500,15 @@ def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
                           device=f.device)
     _check_field("psi", out, f, 2)
     _check_no_alias("psi", out, (f, g))
-    geom = _geom(f, ext, 1)
+    geom = _geom(f, ext, 1, window=window)
     from . import _build
 
     lib = _build.load("density_psi", f.device)
     rc = lib.bflbm_density_psi(
         f.device.index, f.data_ptr(), g.data_ptr(), out.data_ptr(), geom,
         int(params.use_sc_pseudo), float(params.sc_ref_density),
+        None if strips is None else strips.data_ptr(),
+        0 if strips is None else int(strips.shape[-2]),
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "density_psi")
     density_launches += 1
@@ -429,20 +524,23 @@ _LAP_TWO_CS2 = float(np.float32(2.0 / CS2))
 
 def laplacian_psi(psi: torch.Tensor,
                   out: Optional[torch.Tensor] = None,
-                  ext: Optional[Ext] = None) -> torch.Tensor:
+                  ext: Optional[Ext] = None, *,
+                  window: Optional[Box] = None) -> torch.Tensor:
     """The 19-point laplacian of both (2, X, Y, Z) psi fields of the
     density pre-pass, a (2, X, Y, Z) tensor (written into `out` when
     given; it must not alias psi).  ext: psi is a halo-extended block's,
     valid p - 1 cells beyond its interior; the laplacian is written p - 2
-    cells beyond it, the rest of `out` is left as it was.
+    cells beyond it, the rest of `out` is left as it was.  window: a box
+    inside that region: only its cells are written.
 
     CPU tensors run :func:`laplacian_psi_reference`.  CUDA tensors launch
     ``csrc/laplacian_psi.cu`` or raise."""
     global laplacian_launches
+    _check_box_args(psi, ext, window)
     if psi.device.type == "cpu":
         ref = laplacian_psi_reference(psi, ext)
         if ext is not None:
-            return _write_region(out, ref, psi, 2, ext, 2)
+            return _write_region(out, ref, psi, 2, ext, 2, window)
         if out is None:
             return ref
         return out.copy_(ref)
@@ -453,7 +551,7 @@ def laplacian_psi(psi: torch.Tensor,
         out = torch.empty_like(psi)
     _check_field("lap", out, psi, 2)
     _check_no_alias("lap", out, (psi,))
-    geom = _geom(psi, ext, 2, need=2)
+    geom = _geom(psi, ext, 2, need=2, window=window)
     from . import _build
 
     lib = _build.load("laplacian_psi", psi.device)
@@ -475,17 +573,24 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
              noise_dist: str = "clt4",
              ref: Optional[torch.Tensor] = None, *,
              lap: Optional[torch.Tensor] = None,
-             ext: Optional[Ext] = None) -> Pair:
+             ext: Optional[Ext] = None,
+             window: Optional[Box] = None,
+             strips: Optional[torch.Tensor] = None,
+             strips_out: Optional[torch.Tensor] = None) -> Pair:
     """Launch the K kernel on CUDA tensors: f, g -> out.  psi: the
     pre-pass output of (f, g) for a coupled configuration, None for an
     uncoupled one.  lap: the laplacian pre-pass output of psi when
     alpha1 != 0, else None.  ref: the (2, X, Y, Z) USE_REF_STATE amplitude
     fields or None (ignored when kBT = 0, as in the JAX kernel).  ext: the
     arrays are a halo-extended block with pads at least sd_depth deep;
-    the interior of out is written, its pads are left as they were.  The
-    library is the build of ``fused_step.cu`` for the relaxation
-    (:func:`general_relax`), the force and alpha1.  Raises for what the
-    kernel does not take."""
+    the interior of out is written, its pads are left as they were.
+    window: a box inside the interior: only its cells are written.
+    strips: the received y strips ((2, 2, Q, X, rows, Z)), read for the
+    y halo in place of the y pads; strips_out: strips of the same layout
+    into which K also writes its first and last `rows` interior rows (on
+    the interior x cells).  The library is the build of ``fused_step.cu``
+    for the relaxation (:func:`general_relax`), the force and alpha1.
+    Raises for what the kernel does not take."""
     global launches
     check_noise_dist(noise_dist)
     if f.device.type != "cuda":
@@ -509,7 +614,14 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
         _check_no_alias("ref", ref, tuple(out))
         if not params.noise_on:
             ref = None
-    geom = _geom(f, ext, None, need=sd_depth(params))
+    _check_box_args(f, ext, window, (strips, strips_out))
+    if strips_out is not None:
+        _check_no_alias("strips_out", strips_out,
+                        (f, g) + tuple(t for t in (strips, psi, lap, ref)
+                                       if t is not None))
+    geom = _geom(f, ext, None, need=sd_depth(params), window=window)
+    rows = next((int(t.shape[-2]) for t in (strips, strips_out)
+                 if t is not None), 0)
     from . import _build
 
     lib = _build.load("fused_step" + ("_general" if general_relax(params)
@@ -530,6 +642,8 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
         -CS2 * params.alpha0, CS2 * params.alpha1,
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_f)),
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_g)),
+        None if strips is None else strips.data_ptr(),
+        None if strips_out is None else strips_out.data_ptr(), rows,
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "fused_step")
     launches += 1
@@ -537,10 +651,29 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
             + (["alpha1"] if lap is not None else [])
             + (["ref"] if ref is not None else [])
             + (["ext"] if ext is not None else [])
+            + (["window"] if window is not None else [])
+            + (["ystrips"] if strips is not None else [])
             + ([noise_dist] if params.noise_on else []))
     for tag in tags:
         mode_launches[tag] = mode_launches.get(tag, 0) + 1
     return out
+
+
+def prepass_windows(params: LBMParams, ext: Ext, shape,
+                    window: Box) -> Tuple[Box, Box]:
+    """The windows of the pre-passes A and L in front of a K window: K's
+    grown by sd - 1 and sd - 2 cells (the reach of its psi and lap reads
+    and of L's psi reads), inside the regions A and L write.  Raises
+    unless the window spans every axis without pads: there the rings
+    would wrap around the block."""
+    for d, ((a, b), p, n) in enumerate(zip(window, ext.pad,
+                                           tuple(shape)[-3:])):
+        if not p and (a, b) != (0, int(n)):
+            raise ValueError(f"a K window must span axis {d}, which has no "
+                             f"pads; got {(a, b)} of {n}")
+    sd = sd_depth(params)
+    return (blocked.grow(window, sd - 1, ext.bounds(shape, 1)),
+            blocked.grow(window, max(sd - 2, 0), ext.bounds(shape, 2)))
 
 
 def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
@@ -550,7 +683,10 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
                          psi: Optional[torch.Tensor] = None,
                          ref: Optional[torch.Tensor] = None,
                          lap: Optional[torch.Tensor] = None,
-                         ext: Optional[Ext] = None) -> Pair:
+                         ext: Optional[Ext] = None,
+                         window: Optional[Box] = None,
+                         strips: Optional[torch.Tensor] = None,
+                         strips_out: Optional[torch.Tensor] = None) -> Pair:
     """One K step of the post-collide pair (f, g) with noise word `word`
     at step label `step`; returns the new pair (written into `out` when
     given — it must not alias f or g: the pull reads neighbours).
@@ -564,21 +700,38 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
     interior of `out` and leaves its pads as they were (unset in an `out`
     allocated here).
 
-    CPU tensors run :func:`k_step_reference`.  CUDA tensors launch the
+    window (K7's ``win`` / ``owin`` / ``out_alias``): a box inside the
+    interior, spanning every axis without pads; the step writes only its
+    cells of `out`, and the pre-passes their rings in front of it
+    (:func:`prepass_windows`) of psi and lap.  strips, strips_out (K7's
+    ``ystrips``): the y halo of A and K is read from the received strips
+    and never from the y pads, and K writes its edge rows into
+    strips_out (:func:`launch_k`); neither goes with a window.
+
+    CPU tensors run :func:`k_step_reference` (with a window it computes
+    the whole interior and writes the window).  CUDA tensors launch the
     CUDA kernels on the current stream (the pre-passes A and, with
     alpha1, L, then K), or raise: ValueError or TypeError for tensors the
     kernels do not take, RuntimeError for a failed build or launch.
     """
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
+    _check_box_args(f, ext, window, (strips, strips_out))
+    if window is not None and (strips is not None or strips_out is not None):
+        raise ValueError("a window launch takes no y strips")
+    a_win = l_win = None
+    if window is not None:
+        a_win, l_win = prepass_windows(params, ext, f.shape, window)
     if f.device.type == "cpu":
         fo, go = k_step_reference(f, g, word, step, params, noise_dist, ref,
-                                  ext)
+                                  ext, strips)
+        if strips_out is not None:
+            _write_strips(strips_out, fo, go, ext, f.shape)
         if ext is not None:
             return (_write_region(None if out is None else out[0], fo, f, Q,
-                                  ext, None),
+                                  ext, None, window),
                     _write_region(None if out is None else out[1], go, g, Q,
-                                  ext, None))
+                                  ext, None, window))
         if out is None:
             return fo, go
         out[0].copy_(fo)
@@ -589,11 +742,13 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
     check_noise_dist(noise_dist)
     if out is None:
         out = (torch.empty_like(f), torch.empty_like(g))
-    psi = (density_psi(f, g, params, out=psi, ext=ext) if is_coupled(params)
-           else None)
-    lap = laplacian_psi(psi, out=lap, ext=ext) if has_alpha1(params) else None
+    psi = (density_psi(f, g, params, out=psi, ext=ext, window=a_win,
+                       strips=strips) if is_coupled(params) else None)
+    lap = (laplacian_psi(psi, out=lap, ext=ext, window=l_win)
+           if has_alpha1(params) else None)
     return launch_k(f, g, word, step, params, out, psi, noise_dist, ref,
-                    lap=lap, ext=ext)
+                    lap=lap, ext=ext, window=window, strips=strips,
+                    strips_out=strips_out)
 
 
 # ---------------------------------------------------------------------------

@@ -257,11 +257,21 @@ class ShardedSession(FusedSession):
     reference, in the transactional sub-chunks of :class:`FusedSession`.
     The noise is keyed by global coordinates, so the trajectory is
     FusedSession's for every mesh: bitwise before the first mass restore,
-    and within the float64 summation order's rounding after it."""
+    and within the float64 summation order's rounding after it.
+
+    overlap, y_exchange (JAX's ``kernel_opts``): the sweep
+    (:func:`bflbm_tpu_torch.parallel.kernel.layout`).  overlap "auto"
+    keeps the serial exchange, True runs it on a side stream of each card
+    under the interior windows' kernels (the overlap split), "force"
+    splits every axis; y_exchange "strips" ships the y halo as strips
+    that the kernels read and write, "auto" and "serial" keep the copy
+    exchange (strips measured slower, ``parallel.kernel.layout``).  Every
+    sweep gives the same trajectory bitwise."""
 
     def __init__(self, mesh: mesh_lib.Mesh, params: LBMParams,
                  shape: Tuple[int, int, int], *, noise_dist: str = "clt4",
-                 mass_restore_int: int = 1000, ref_fields=None):
+                 mass_restore_int: int = 1000, ref_fields=None,
+                 overlap="auto", y_exchange: str = "auto"):
         super().__init__(params, shape, noise_dist=noise_dist,
                          mass_restore_int=mass_restore_int,
                          ref_fields=ref_fields)
@@ -271,7 +281,11 @@ class ShardedSession(FusedSession):
                 "axis must divide and each sharded block extent must be at "
                 f"least {fused_step.sd_depth(params)}")
         self.mesh = mesh
-        self.pad = kernel_par.pads(mesh, params)
+        self.overlap = overlap
+        self.y_exchange = y_exchange
+        self.layout = kernel_par.layout(mesh, self.shape, params, overlap,
+                                        y_exchange)
+        self.pad = self.layout.pad
         self._home = None
 
     def enter(self, state: SimState,
@@ -280,12 +294,13 @@ class ShardedSession(FusedSession):
         post-collide state (step t+1); counts as one step."""
         pc = super().enter(state, word)
         self._home = state.f.device
-        return kernel_par.pad_state(pc, self.mesh, self.params)
+        return kernel_par.pad_state(pc, self.mesh, self.pad)
 
     def _ksteps(self, n: int):
         return kernel_par.make_kernel_ksteps(
             self.mesh, self.params, n, self._mass_restore_arg(),
-            noise_dist=self.noise_dist)
+            noise_dist=self.noise_dist, overlap=self.overlap,
+            y_exchange=self.y_exchange)
 
     def _whole_f(self, pc: mesh_lib.ShardedState) -> torch.Tensor:
         return mesh_lib.gather_field([b[0] for b in pc.blocks], self.mesh,
@@ -311,17 +326,21 @@ class ShardedSession(FusedSession):
 
 def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
                  mass_restore_int: int = 1000, ref_fields=None,
-                 mesh: Optional[mesh_lib.Mesh] = None) -> FusedSession:
+                 mesh: Optional[mesh_lib.Mesh] = None, overlap="auto",
+                 y_exchange: str = "auto") -> FusedSession:
     """The session for this configuration (the counterpart of
     ``bflbm_tpu.kernels.session.make_session``): a :class:`ShardedSession`
-    on a mesh of more than one block, else the single-device
-    :class:`FusedSession`.  The kernels run every configuration, alpha1
-    included.  Raises ValueError for an unknown generator name or a mesh
-    that cannot hold the domain."""
+    on a mesh of more than one block, with the sweep options overlap and
+    y_exchange, else the single-device :class:`FusedSession`, which has
+    no exchange to split.  The kernels run every configuration, alpha1
+    included.  Raises ValueError for an unknown generator name or sweep
+    option, or a mesh that cannot hold the domain."""
     if mesh is not None and mesh.size > 1:
         return ShardedSession(mesh, params, shape, noise_dist=noise_dist,
                               mass_restore_int=mass_restore_int,
-                              ref_fields=ref_fields)
+                              ref_fields=ref_fields, overlap=overlap,
+                              y_exchange=y_exchange)
+    kernel_par.check_sweep(overlap, y_exchange)
     return FusedSession(params, shape, noise_dist=noise_dist,
                         mass_restore_int=mass_restore_int,
                         ref_fields=ref_fields)

@@ -79,6 +79,49 @@ class Ext:
         return interior(t, [p if cut is None else min(p, cut)
                             for p in self.pad])
 
+    def bounds(self, shape: Sequence[int], cut: Optional[int] = None
+               ) -> Box:
+        """The box of :meth:`region` in the array coordinates of arrays
+        ending in `shape`."""
+        return tuple((s, int(n) - s) for s, n in zip(
+            (p if cut is None else min(p, cut) for p in self.pad),
+            tuple(shape)[-3:]))
+
+
+# A box of a block's arrays: per spatial axis the cells [start, stop), in
+# array coordinates (pads included).
+Box = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
+
+
+def box_view(t: torch.Tensor, box: Box) -> torch.Tensor:
+    """View of t's cells in `box` (its last three axes)."""
+    return t[(slice(None),) * (t.dim() - 3)
+             + tuple(slice(int(a), int(b)) for a, b in box)]
+
+
+def inside(box: Box, outer: Box) -> bool:
+    return all(o0 <= a < b <= o1 for (a, b), (o0, o1) in zip(box, outer))
+
+
+def grow(box: Box, by: int, within: Box) -> Box:
+    """`box` grown by `by` cells on every side, clipped to `within`."""
+    return tuple((max(a - by, w0), min(b + by, w1))
+                 for (a, b), (w0, w1) in zip(box, within))
+
+
+def mount_strips(a: torch.Tensor, strips: torch.Tensor, species: int
+                 ) -> torch.Tensor:
+    """A copy of the padded block array `a` (.., X, Y, Z) whose y pads
+    hold the received y strips of `species` (the strips exchange,
+    :func:`bflbm_tpu_torch.parallel.halo.strip_plan`): `strips` is
+    (2 sides, 2 species, .., X, rows, Z), side 0 mounted below the
+    interior rows, side 1 above them."""
+    rows = int(strips.shape[-2])
+    out = a.clone()
+    out[..., :rows, :] = strips[0, species]
+    out[..., out.shape[-2] - rows:, :] = strips[1, species]
+    return out
+
 
 def interior(t: torch.Tensor, pad: Sequence[int]) -> torch.Tensor:
     """View of t without `pad` cells on each side of its last three

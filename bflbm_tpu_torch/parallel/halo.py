@@ -11,7 +11,9 @@ filled and the D3Q19 edge diagonals arrive through two hops (SURVEY.md
 §7 hard part 4).  One exchange a step replaces the reference's
 ``FillBoundary`` calls (LBM_binary.H:553-592).  Every copy is a
 ``Tensor.copy_`` between views, a peer copy when the blocks sit on
-different cards.
+different cards.  :func:`strip_plan` is the strips exchange of a
+y-sharded mesh, in which the y halo travels as compact strips that the
+K kernel writes (K7's ystrips).
 
 :func:`make_halo_nsteps` is the plain engine: the halo exchange and the
 plain block step (:func:`bflbm_tpu_torch.ops.blocked.step_on_block`),
@@ -37,11 +39,13 @@ Copy = Tuple[torch.Tensor, torch.Tensor]
 
 
 def halo_plan(blocks: Sequence[torch.Tensor], mesh: mesh_lib.Mesh,
-              pad: Sequence[int]) -> List[Copy]:
+              pad: Sequence[int], axes: Sequence[int] = (0, 1, 2)
+              ) -> List[Copy]:
     """The (destination, source) view pairs of one exchange of these
-    block tensors, in the order they must run (axis by axis)."""
+    block tensors, in the order they must run (axis by axis); only the
+    rounds of `axes` (the strips exchange takes the x round alone)."""
     plan = []
-    for d in range(3):
+    for d in axes:
         p = int(pad[d])
         if not p:
             continue
@@ -70,6 +74,45 @@ def halo_plan(blocks: Sequence[torch.Tensor], mesh: mesh_lib.Mesh,
             # high pad my high neighbour's first p
             plan.append((cut(blk, 0), cut(lo_nb, n_int)))
             plan.append((cut(blk, p + n_int), cut(hi_nb, p)))
+    return plan
+
+
+def strip_plan(sent: Sequence[torch.Tensor],
+               received: Sequence[torch.Tensor], mesh: mesh_lib.Mesh,
+               pad: Sequence[int]) -> List[Copy]:
+    """The y-strip exchange (``bflbm_tpu/parallel/kernel.py:
+    _strip_exchange``, K7's ystrips) of per-block strip tensors (2 sides,
+    2 species, Q, X, rows, Z): the strips K wrote (`sent`; side 0 the
+    first interior rows, side 1 the last) and those the next step reads
+    (`received`; side 0 mounted below the interior, side 1 above).  First
+    every block's sent strips go whole to its y neighbours, one
+    contiguous copy each: its last rows become the high neighbour's
+    strip below, its first rows the low neighbour's strip above.  Then,
+    with x pads, the x-pad columns of every received strip are copied
+    from the x neighbours' received strips, whose interior columns carry
+    the diagonal (x, y) corners: y first, then x, the opposite of
+    :func:`halo_plan`'s order.  On a 1-block y axis a block's strips go
+    to itself, the periodic wrap."""
+    plan = []
+    for b in range(mesh.size):
+        c = list(mesh.coords(b))
+        lo_nb = mesh.index((c[0], c[1] - 1, c[2]))
+        hi_nb = mesh.index((c[0], c[1] + 1, c[2]))
+        plan.append((received[b][0], sent[lo_nb][1]))
+        plan.append((received[b][1], sent[hi_nb][0]))
+    px = int(pad[0])
+    if px:
+        n_int = int(received[0].shape[-3]) - 2 * px
+        for b in range(mesh.size):
+            c = list(mesh.coords(b))
+            lo_nb = received[mesh.index((c[0] - 1, c[1], c[2]))]
+            hi_nb = received[mesh.index((c[0] + 1, c[1], c[2]))]
+            for side in (0, 1):
+                r = received[b][side]
+                plan.append((r.narrow(-3, 0, px),
+                             lo_nb[side].narrow(-3, n_int, px)))
+                plan.append((r.narrow(-3, px + n_int, px),
+                             hi_nb[side].narrow(-3, px, px)))
     return plan
 
 

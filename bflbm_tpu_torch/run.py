@@ -90,7 +90,7 @@ def _sync(device) -> None:
 
 def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
         noise_dist: Optional[str] = None, mass_restore_int: int = 1000,
-        mesh=None) -> SimState:
+        mesh=None, overlap="auto", y_exchange: str = "auto") -> SimState:
     """Execute a configured run on `device`; returns the final state.
 
     on_frame(step, packed_hydro) is called at plot_int cadence.
@@ -99,7 +99,9 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
     mesh: a :class:`~bflbm_tpu_torch.parallel.mesh.Mesh` or a mesh shape
     (X, Y, Z) to decompose the domain over (a shape takes the node's
     cards, or `device` for a CPU run); the state, its views and
-    everything written stay on `device`.
+    everything written stay on `device`.  overlap, y_exchange: the
+    decomposed sweep (``kernels.session.ShardedSession``; no CLI flag, as
+    in JAX's CLI), e.g. ``run(cfg, mesh=(2, 2, 1), overlap=True)``.
     """
     t_start = time.perf_counter()
     tm = {"advance": 0.0, "views": 0.0, "host_obs": 0.0, "io": 0.0}
@@ -137,7 +139,8 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
             ref_state = (rho_eq, phi_eq, stats.center_of_mass(rho_eq))
         sess = make_session(p, cfg.shape, noise_dist=dist,
                             mass_restore_int=mass_restore_int,
-                            ref_fields=ref_state, mesh=mesh)
+                            ref_fields=ref_state, mesh=mesh,
+                            overlap=overlap, y_exchange=y_exchange)
 
         def prelude_peek(s: SimState):
             (word,) = peek_words(s.gen, 1)

@@ -81,7 +81,24 @@ Phases (each raises on failure; the script then exits non-zero):
    FusedSession at steps 901 and 1101 (bitwise printed), with launches
    per block, MLUPS and the exchange's time; (c) ``run(cfg, mesh=(2, 1,
    1))`` with alpha1 at 256^3 for 100 steps, its final frame read back
-   against the frame of the same run without a mesh.
+   against the frame of the same run without a mesh;
+10. the rest of K7, the blocks on one card: (a) A, L and K launched on
+   the overlap split's windows (the interior window and the seam bands)
+   into NaN-filled outputs, in four modes (u8 uncoupled, clt4 with
+   alpha0, alpha1, the ref operand) on meshes (2, 1, 1) and (2, 2, 1):
+   each writes exactly its window, bitwise the whole-block ext launch
+   there, within 2e-5 of the plain versions; A and K fed by the exchanged
+   y strips on (2, 2, 1) with NaN y pads, within 2e-5 of plain and
+   bitwise the pad-fed launch, the strips K writes bitwise its edge rows;
+   32^3 split and strips sessions bitwise the serial one through a
+   restore; (b) at 256^3 the K launches of a step on the windows,
+   strip-fed and pad-fed timed, and the phase-5 droplet through the split
+   ShardedSession on (2, 1, 1) and (2, 2, 1) and the strips one on
+   (2, 2, 1), 1 + 1100 steps with the restore at step 1000, against phase
+   9b's serial sessions at steps 901 (bitwise printed) and 1101, with
+   MLUPS, launches by mode, the host's enqueue time and, from CUDA
+   events, each sweep's step split into exchange, interior kernels,
+   exposed exchange and bands.
 
 Each phase prints its wall time.  Phase 0 prints the card's name and
 power limit on a line of its own, as ``nvidia-smi`` gives them; the line
@@ -140,8 +157,11 @@ KERNELS = {
     # of 18-neighbour gradients (216) and the square-gradient terms
     "b_a1": dict(bytes=2 * 19 * 4 * 2 + 2 * 4 + 2 * 4, ops=3030),
 }
-# the ext modes (K7) move the same bytes per cell of their region
-KERNELS.update(a_ext=KERNELS["a"], l_ext=KERNELS["l"], k_ext=KERNELS["b"])
+# the ext modes (K7) move the same bytes per cell of their region; the
+# windows of a step cover the interior once; the strips add the bytes of
+# the strips K writes (_kernel_ms_22)
+KERNELS.update(a_ext=KERNELS["a"], l_ext=KERNELS["l"], k_ext=KERNELS["b"],
+               k_window=KERNELS["b"], k_ystrips=KERNELS["b"])
 SRC = "bflbm_tpu_torch/kernels/csrc/"
 TPU_KERNEL = "bflbm_tpu/kernels/fused_step.py:1956"
 
@@ -164,11 +184,11 @@ def _work_cells(key, cells):
     return cells
 
 
-def _bound_ms(key, cells):
-    """The least time for the kernel's work at `cells` cells, and what
-    sets it."""
+def _bound_ms(key, cells, extra_bytes=0):
+    """The least time for the kernel's work at `cells` cells (and
+    `extra_bytes` more to move), and what sets it."""
     k = KERNELS[key]
-    t_bytes = k["bytes"] * cells / HBM_BPS * 1e3
+    t_bytes = (k["bytes"] * cells + extra_bytes) / HBM_BPS * 1e3
     t_ops = k["ops"] * cells / F32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1215,12 +1235,12 @@ def _ext_256(dcfg, dev, cells, errs):
 
 def _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups):
     """Phase 9b: the 256^3 droplet-fluct configuration of phase 5 through
-    ShardedSession (make_session with a mesh of cuda:0 repeated) on
-    meshes (2, 1, 1) and (2, 2, 1): 1 + 11 x 100 steps with the restore
-    at step 1000, held against phase 5's FusedSession (the same seed, so
-    the same words) at step 901 (the last chunk boundary before the
-    restore) and at 1101.  Returns {mesh: (K, A, ext launches, MLUPS,
-    exchange ms)}."""
+    ShardedSession (make_session with a mesh of cuda:0 repeated, the
+    serial exchange) on meshes (2, 1, 1) and (2, 2, 1): 1 + 11 x 100
+    steps with the restore at step 1000, held against phase 5's
+    FusedSession (the same seed, so the same words) at step 901 (the last
+    chunk boundary before the restore) and at 1101.  Returns {mesh: (K,
+    A, ext launches, MLUPS, exchange ms, {901: view, 1101: view})}."""
     import torch
 
     from bflbm_tpu_torch.kernels import fused_step
@@ -1234,13 +1254,15 @@ def _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups):
     for ms in ((2, 1, 1), (2, 2, 1)):
         mesh = mesh_lib.make_mesh(ms)
         state = model.make_initial_state(dcfg, device=dev)
-        sess = make_session(dcfg.params, SHAPE, noise_dist="clt4", mesh=mesh)
+        sess = make_session(dcfg.params, SHAPE, noise_dist="clt4", mesh=mesh,
+                            y_exchange="serial")
         _check(isinstance(sess, ShardedSession), f"{type(sess)}")
         torch.cuda.synchronize()
         fused_step.reset_launch_counts()
         pc = sess.enter(state)
         del state
         cmp = {}
+        views = {}
         t_adv = 0.0
         for _ in range(NCHUNKS):
             t0 = time.perf_counter()
@@ -1248,7 +1270,7 @@ def _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups):
             torch.cuda.synchronize()
             t_adv += time.perf_counter() - t0
             if pc.step == 901:
-                v = sess.exit_view(pc)
+                v = views[901] = sess.exit_view(pc)
                 w = phase5_views[901]
                 cmp[901] = (max(_maxdiff(v.f, w.f), _maxdiff(v.g, w.g)),
                             torch.equal(v.f, w.f) and torch.equal(v.g, w.g))
@@ -1261,6 +1283,7 @@ def _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups):
                      torch.equal(v.f, w.f) and torch.equal(v.g, w.g))
         _check_finite(v.f, v.g)
         _check(v.step == 1 + n_k, f"final step {v.step}")
+        views[1101] = v
         del v
         plan = halo.halo_plan(pc.blocks, mesh, pc.pad)
         ex_ms = _time_ms(lambda: [halo.run_plan(plan) for _ in range(NREP)],
@@ -1277,8 +1300,8 @@ def _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups):
         _check(counts == (mesh.size * n_k,) * 3, f"launches {counts}")
         _check(max(cmp[901][0], cmp[1101][0]) <= TOL,
                f"sharded session disagrees with FusedSession: {cmp}")
-        out[ms] = counts + (mlups, ex_ms)
-        del pc, sess, plan
+        out[ms] = counts + (mlups, ex_ms, views)
+        del pc, sess, plan, views
         torch.cuda.empty_cache()
     return out
 
@@ -1335,6 +1358,469 @@ def _sharded_driver(tmp):
     return launches
 
 
+# -- phase 10: the rest of K7 (windows and the overlap split, y strips) ------
+
+WIN_MODES = tuple(m for m in EXT_MODES
+                  if m[0] in ("u8 uncoupled", "clt4 alpha0", "alpha1", "ref"))
+WIN_MESHES = ((2, 1, 1), (2, 2, 1))
+# the sweeps of phase 10b: (mesh, ShardedSession options)
+SWEEPS = (((2, 1, 1), dict(overlap=True)), ((2, 2, 1), dict(overlap=True)),
+          ((2, 2, 1), dict(y_exchange="strips")))
+SPAN_STEPS = 20
+
+
+def _window_check(got, want, plain, win, bounds):
+    """A launch into a NaN-filled `got` on window `win`: (it wrote exactly
+    the window, finite; its cells equal `want`'s bitwise; max |got -
+    plain| there, plain covering the launch's whole region `bounds`)."""
+    import torch
+
+    from bflbm_tpu_torch.ops import blocked
+
+    v = blocked.box_view(got, win)
+    only = (int(torch.isnan(got).sum()) == got.numel() - v.numel()
+            and bool(torch.isfinite(v).all()))
+    rel = tuple((a - s, b - s) for (a, b), (s, _) in zip(win, bounds))
+    return (only, torch.equal(v, blocked.box_view(want, win)),
+            _maxdiff(v, blocked.box_view(plain, rel)))
+
+
+def _nan_outside(t, box):
+    """A copy of t with every cell outside `box` NaN."""
+    import torch
+
+    from bflbm_tpu_torch.ops import blocked
+
+    out = torch.full_like(t, float("nan"))
+    blocked.box_view(out, box).copy_(blocked.box_view(t, box))
+    return out
+
+
+def _windows_vs_plain(f, g, params, dist, ref, mesh, tag, errs):
+    """Phase 10a (at 32^3, and at 256^3 in phase 10b): A, L and K launched
+    on every window of the overlap split (the interior window and the
+    seam bands) of every block of (f, g) decomposed over `mesh`, into
+    NaN-filled outputs: each must write exactly its window, bitwise the
+    whole-block ext launch's cells there, within TOL of the plain
+    versions (max |delta| into errs["window"]).  Then the interior
+    window's A, L and K once more on a copy of the block whose pads are
+    all NaN (what the split's side stream fills meanwhile), from NaN psi
+    and lap: the window must come out bitwise the same, so it read no
+    pad."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    lay = kernel_par.layout(mesh, tuple(f.shape[1:]), params, True)
+    _check(any(lay.split), f"{tag}: the split is not feasible")
+    ss, exts = _padded_blocks(f, g, mesh, params)
+    _check(tuple(ss.pad) == lay.pad, f"{tag}: pads {ss.pad} != {lay.pad}")
+    refs = (mesh_lib.shard_field(ref, mesh, ss.pad) if ref is not None
+            else [None] * mesh.size)
+    inner, bands = kernel_par.split_windows(lay, ss.blocks[0].shape,
+                                            fused_step.sd_depth(params))
+    only = bits = blind = True
+    err = 0.0
+    before = fused_step.mode_launches.get("window", 0)
+    for b, ext in enumerate(exts):
+        fb, gb = ss.blocks[b][0], ss.blocks[b][1]
+
+        def nan(lead):
+            return torch.full((lead,) + tuple(fb.shape[1:]), float("nan"),
+                              device=fb.device)
+
+        psi = lap = None
+        if fused_step.is_coupled(params):
+            psi = fused_step.density_psi(fb, gb, params, ext=ext)
+            psi_r = fused_step.density_psi_reference(fb, gb, params, ext)
+            if fused_step.has_alpha1(params):
+                lap = fused_step.laplacian_psi(psi, ext=ext)
+                lap_r = fused_step.laplacian_psi_reference(psi, ext)
+        whole = fused_step.fused_stream_collide(
+            fb, gb, EXT_WORD, EXT_STEP, params, noise_dist=dist,
+            ref=refs[b], ext=ext)
+        plain = fused_step.k_step_reference(fb, gb, EXT_WORD, EXT_STEP,
+                                            params, dist, refs[b], ext)
+        checks = []
+        for win in (inner,) + tuple(bands):
+            out = (nan(19), nan(19))
+            fused_step.launch_k(fb, gb, EXT_WORD, EXT_STEP, params, out, psi,
+                                dist, refs[b], lap=lap, ext=ext, window=win)
+            for o, w, p in zip(out, whole, plain):
+                checks.append(_window_check(o, w, p, win,
+                                            ext.bounds(fb.shape)))
+            if psi is None:
+                continue
+            a_win, l_win = fused_step.prepass_windows(params, ext, fb.shape,
+                                                      win)
+            o = fused_step.density_psi(fb, gb, params, out=nan(2), ext=ext,
+                                       window=a_win)
+            checks.append(_window_check(o, psi, psi_r, a_win,
+                                        ext.bounds(fb.shape, 1)))
+            if lap is not None:
+                o = fused_step.laplacian_psi(psi, out=nan(2), ext=ext,
+                                             window=l_win)
+                checks.append(_window_check(o, lap, lap_r, l_win,
+                                            ext.bounds(fb.shape, 2)))
+        # the interior window with every pad NaN
+        box = ext.bounds(fb.shape)
+        bf, bg = _nan_outside(fb, box), _nan_outside(gb, box)
+        bref = None if refs[b] is None else _nan_outside(refs[b], box)
+        bpsi = blap = None
+        if psi is not None:
+            a_win, l_win = fused_step.prepass_windows(params, ext, fb.shape,
+                                                      inner)
+            bpsi = fused_step.density_psi(bf, bg, params, out=nan(2),
+                                          ext=ext, window=a_win)
+            blind &= torch.equal(blocked.box_view(bpsi, a_win),
+                                 blocked.box_view(psi, a_win))
+            if lap is not None:
+                blap = fused_step.laplacian_psi(bpsi, out=nan(2), ext=ext,
+                                                window=l_win)
+                blind &= torch.equal(blocked.box_view(blap, l_win),
+                                     blocked.box_view(lap, l_win))
+        out = (nan(19), nan(19))
+        fused_step.launch_k(bf, bg, EXT_WORD, EXT_STEP, params, out, bpsi,
+                            dist, bref, lap=blap, ext=ext, window=inner)
+        blind &= all(torch.equal(blocked.box_view(o, inner),
+                                 blocked.box_view(w, inner))
+                     for o, w in zip(out, whole))
+        torch.cuda.synchronize()
+        only &= all(c[0] for c in checks)
+        bits &= all(c[1] for c in checks)
+        err = max([err] + [c[2] for c in checks])
+        del bf, bg, bref, bpsi, blap, out, whole, plain
+    n = fused_step.mode_launches.get("window", 0) - before
+    print(f"[phase 10] {tag}: {n} window K launches ({1 + len(bands)} "
+          f"windows a block, and the interior window on NaN pads; A, L in "
+          f"front); each wrote exactly its window: {only}; == the "
+          f"whole-block ext launch there bitwise: {bits}; the interior "
+          f"window on NaN pads, from NaN psi and lap, bitwise the same: "
+          f"{blind}; max|window - plain ext| {err:.3e} (tol {TOL})",
+          flush=True)
+    _check(only and bits and blind and err <= TOL and n == mesh.size
+           * (2 + len(bands)), f"{tag}: window launches failed")
+    errs["window"].append(err)
+
+
+def _strips_vs_plain(f, g, params, dist, ref, tag, errs):
+    """Phase 10a: A and K fed by the exchanged y strips on mesh (2, 2, 1),
+    the blocks' y pads NaN: within TOL of the plain versions (max |delta|
+    into errs["ystrips"]) and bitwise the pad-fed ext launch; the strips
+    K writes equal its edge rows bitwise."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh((2, 2, 1), f.device)
+    lay = kernel_par.layout(mesh, tuple(f.shape[1:]), params,
+                            y_exchange="strips")
+    ss, exts = _padded_blocks(f, g, mesh, params)
+    _check(lay.strips and tuple(ss.pad) == lay.pad, f"{tag}: {lay}")
+    refs = (mesh_lib.shard_field(ref, mesh, ss.pad) if ref is not None
+            else [None] * mesh.size)
+    coupled = fused_step.is_coupled(params)
+    padfed = [fused_step.fused_stream_collide(
+        b[0], b[1], EXT_WORD, EXT_STEP, params, noise_dist=dist, ref=r,
+        ext=e) for b, r, e in zip(ss.blocks, refs, exts)]
+    psi_pad = [fused_step.density_psi(b[0], b[1], params, ext=e)
+               if coupled else None for b, e in zip(ss.blocks, exts)]
+    sent = kernel_par.strip_buffers(ss.blocks, ss.pad)
+    received = [torch.empty_like(t) for t in sent]
+    halo.run_plan(halo.strip_plan(sent, received, mesh, ss.pad))
+    px, py = ss.pad[0], ss.pad[1]
+    bits = edge = True
+    err = 0.0
+    before = fused_step.mode_launches.get("ystrips", 0)
+    for b, (blk, ext) in enumerate(zip(ss.blocks, exts)):
+        blk[..., :py, :] = float("nan")
+        blk[..., blk.shape[-2] - py:, :] = float("nan")
+        written = torch.full_like(sent[b], float("nan"))
+        fo, go = fused_step.fused_stream_collide(
+            blk[0], blk[1], EXT_WORD, EXT_STEP, params, noise_dist=dist,
+            ref=refs[b], ext=ext, strips=received[b], strips_out=written)
+        fr, gr = fused_step.k_step_reference(blk[0], blk[1], EXT_WORD,
+                                             EXT_STEP, params, dist, refs[b],
+                                             ext, received[b])
+        err = max(err, _maxdiff(ext.region(fo), fr),
+                  _maxdiff(ext.region(go), gr))
+        bits &= (torch.equal(ext.region(fo), ext.region(padfed[b][0]))
+                 and torch.equal(ext.region(go), ext.region(padfed[b][1])))
+        for s, o in enumerate((fo, go)):
+            inner = o[:, px:o.shape[1] - px]
+            ny = inner.shape[2] - 2 * py
+            edge &= (torch.equal(written[0, s][:, px:o.shape[1] - px],
+                                 inner[:, :, py:2 * py])
+                     and torch.equal(written[1, s][:, px:o.shape[1] - px],
+                                     inner[:, :, ny:ny + py]))
+        if coupled:
+            psi = fused_step.density_psi(blk[0], blk[1], params, ext=ext,
+                                         strips=received[b])
+            err = max(err, _maxdiff(ext.region(psi, 1),
+                                    fused_step.density_psi_reference(
+                                        blk[0], blk[1], params, ext,
+                                        received[b])))
+            bits &= torch.equal(ext.region(psi, 1),
+                                ext.region(psi_pad[b], 1))
+        torch.cuda.synchronize()
+    n = fused_step.mode_launches.get("ystrips", 0) - before
+    print(f"[phase 10] {tag}: {n} strip-fed K launches (y pads NaN): max|"
+          f"strip-fed - plain| A, K {err:.3e} (tol {TOL}); == the pad-fed "
+          f"ext launch bitwise: {bits}; strips written == K's edge rows "
+          f"bitwise: {edge}", flush=True)
+    _check(err <= TOL and bits and edge and n == mesh.size,
+           f"{tag}: strip-fed launches failed")
+    errs["ystrips"].append(err)
+
+
+def _sweep_sessions_small(dev):
+    """Phase 10a: 1 + 2 + 3 steps of a 32^3 alpha1 droplet (kBT 1e-5, the
+    restore every 3 steps) through the split and the strips
+    ShardedSession on mesh (2, 2, 1), against the serial one, bitwise."""
+    import torch
+
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.kernels.session import ShardedSession
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+    from bflbm_tpu_torch.state import init_state
+
+    params = LBMParams(**dict(ALPHA1, kBT=KBT))
+    f, g = _perturbed_droplet(SMALL, params, 53, dev, radius=0.3)
+    mesh = mesh_lib.make_mesh((2, 2, 1), dev)
+    words = [7919 * k - 5 for k in range(6)]
+    got = {}
+    for tag, opts in (("serial", dict(y_exchange="serial")),
+                      ("split", dict(overlap=True)),
+                      ("strips", dict(y_exchange="strips"))):
+        sess = ShardedSession(mesh, params, SMALL, mass_restore_int=3,
+                              **opts)
+        pc = sess.enter(init_state(f.clone(), g.clone(), 0), words[0])
+        pc = sess.advance(pc, 2, words[1:3])
+        got[tag] = sess.exit(sess.advance(pc, 3, words[3:]))
+    torch.cuda.synchronize()
+    same = {t: torch.equal(got[t].f, got["serial"].f)
+            and torch.equal(got[t].g, got["serial"].g)
+            for t in ("split", "strips")}
+    print(f"[phase 10] 32^3 alpha1 sessions on mesh (2, 2, 1), 1 + 5 steps "
+          f"through a restore: split == serial bitwise {same['split']}, "
+          f"strips == serial bitwise {same['strips']}", flush=True)
+    _check(all(same.values()), f"sweep sessions differ: {same}")
+
+
+def _kernel_ms_22(dcfg, dev, cells, errs):
+    """Phase 10b: at the main path's shapes, the 256^3 droplet on mesh
+    (2, 2, 1) (four 128 x 128 x 256 blocks on the card): the window
+    launches of A, L and K on every block (phase 10a's checks: exactly
+    the window, bitwise the whole-block launch, within TOL of plain, the
+    interior window on NaN pads) and the strip-fed A and K (within TOL of
+    plain, bitwise the pad-fed launch, the strips written), in the clt4
+    configuration and with alpha1, errors into errs.  Then the K launches
+    of one step timed: on the split's five windows of every block,
+    strip-fed (writing the strips), and on the whole blocks (pad-fed, the
+    ext mode), beside the plain versions (one run each; the plain window
+    is the plain ext K of each block, once, cut to the windows).  Returns
+    ms per step."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+    from bflbm_tpu_torch.utils.timing import time_steps
+
+    params = dcfg.params
+    pc = FusedSession(params, SHAPE).enter(
+        model.make_initial_state(dcfg, device=dev))
+    f, g = pc.f, pc.g
+    del pc
+    mesh = mesh_lib.make_mesh((2, 2, 1), dev)
+    for p, tag in ((params, "clt4"),
+                   (dataclasses.replace(params, **ALPHA1), "alpha1")):
+        _windows_vs_plain(f, g, p, "clt4", None, mesh,
+                          f"256^3 {tag}, mesh (2, 2, 1)", errs)
+        torch.cuda.empty_cache()
+        _strips_vs_plain(f, g, p, "clt4", None,
+                         f"256^3 {tag}, mesh (2, 2, 1)", errs)
+        torch.cuda.empty_cache()
+    ss, exts = _padded_blocks(f, g, mesh, params)
+    del f, g
+    lay = kernel_par.layout(mesh, SHAPE, params, True)
+    inner, bands = kernel_par.split_windows(lay, ss.blocks[0].shape,
+                                            fused_step.sd_depth(params))
+    wins = (inner,) + tuple(bands)
+    fg = [(b[0], b[1]) for b in ss.blocks]
+    outs = [(torch.empty_like(b[0]), torch.empty_like(b[1]))
+            for b in ss.blocks]
+    psis = [fused_step.density_psi(*fg[b], params, ext=exts[b])
+            for b in range(4)]
+    sent = kernel_par.strip_buffers(ss.blocks, ss.pad)
+    received = [torch.empty_like(t) for t in sent]
+    halo.run_plan(halo.strip_plan(sent, received, mesh, ss.pad))
+    t = {}
+    t["window"] = _time_ms(lambda: [
+        fused_step.launch_k(*fg[b], 1, i, params, outs[b], psis[b], "clt4",
+                            ext=exts[b], window=w)
+        for i in range(NREP) for b in range(4) for w in wins], cells, NREP)
+    t["ystrips"] = _time_ms(lambda: [
+        fused_step.launch_k(*fg[b], 1, i, params, outs[b], psis[b], "clt4",
+                            ext=exts[b], strips=received[b],
+                            strips_out=sent[b])
+        for i in range(NREP) for b in range(4)], cells, NREP)
+    t["ext"] = _time_ms(lambda: [
+        fused_step.launch_k(*fg[b], 1, i, params, outs[b], psis[b], "clt4",
+                            ext=exts[b])
+        for i in range(NREP) for b in range(4)], cells, NREP)
+
+    def once(run):
+        return time_steps(run, cells, 1, warmup=0, repeats=1)["best_s"] * 1e3
+
+    t["window_plain"] = once(lambda: [
+        [blocked.box_view(o, w) for o in fused_step.k_step_reference(
+            *fg[b], 1, 0, params, "clt4", None, exts[b]) for w in wins]
+        for b in range(4)])
+    t["ystrips_plain"] = once(lambda: [
+        fused_step.k_step_reference(*fg[b], 1, 0, params, "clt4", None,
+                                    exts[b], received[b])
+        for b in range(4)])
+    # bytes the strips add: K writes 2 sides x 2 species x 19 x Xp x sd x Z
+    t["strip_bytes"] = sum(int(s.numel()) * 4 for s in sent)
+    print(f"[phase 10] 256^3 on mesh (2, 2, 1), K per step (four blocks): "
+          f"on the split's {len(wins)} windows a block {t['window']:.4f} ms, "
+          f"strip-fed {t['ystrips']:.4f} ms (+{t['strip_bytes'] / 1e6:.1f} "
+          f"MB of strips written), whole blocks pad-fed {t['ext']:.4f} ms; "
+          f"plain: the ext K of each block cut to its windows "
+          f"{t['window_plain']:.1f} ms, strip-fed {t['ystrips_plain']:.1f} "
+          f"ms", flush=True)
+    return t
+
+
+def _span_split(mesh_shape, params, opts, pc_whole, words):
+    """CUDA-event split of SPAN_STEPS decomposed steps of the post-collide
+    state pc_whole in the sweep of `opts` (ms a step: exchange, interior,
+    exposed, bands) and the host's enqueue time a step (µs)."""
+    import torch
+
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(mesh_shape, pc_whole.f.device)
+    lay = kernel_par.layout(mesh, SHAPE, params, **opts)
+    ss = kernel_par.pad_state(pc_whole, mesh, lay.pad)
+    spans = []
+    run_k = kernel_par.make_kernel_ksteps(mesh, params, SPAN_STEPS,
+                                          noise_dist="clt4", spans=spans,
+                                          **opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ss = run_k(ss, words)
+    host_us = (time.perf_counter() - t0) / SPAN_STEPS * 1e6
+    torch.cuda.synchronize()
+    out = kernel_par.span_ms(spans[2:])
+    out["host_us"] = host_us
+    del ss
+    return out
+
+
+def _sweep_sessions_256(dcfg, dev, cells, serial):
+    """Phase 10b: the phase-5 droplet through the split ShardedSession on
+    meshes (2, 1, 1) and (2, 2, 1) and the strips one on (2, 2, 1), 1 +
+    1100 steps with the restore at step 1000, against phase 9b's serial
+    sessions at steps 901 (bitwise printed) and 1101 (within TOL), with
+    MLUPS, launches by mode and the host's enqueue time; then every sweep
+    and the serial ones split into exchange, interior kernels, exposed
+    exchange and bands over SPAN_STEPS steps by CUDA events.  Returns
+    {(mesh, sweep): (launches by mode, MLUPS)} and the splits."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession, make_session
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    n_k = CHUNK * NCHUNKS
+    for ms, opts in SWEEPS:
+        key = (ms, "split" if opts.get("overlap") else "strips")
+        mesh = mesh_lib.make_mesh(ms)
+        sess = make_session(dcfg.params, SHAPE, noise_dist="clt4", mesh=mesh,
+                            **opts)
+        _check(any(sess.layout.split) == (key[1] == "split")
+               and sess.layout.strips == (key[1] == "strips"),
+               f"{key}: layout {sess.layout}")
+        state = model.make_initial_state(dcfg, device=dev)
+        torch.cuda.synchronize()
+        fused_step.reset_launch_counts()
+        pc = sess.enter(state)
+        del state
+        cmp = {}
+        t_adv = t_host = 0.0
+        for _ in range(NCHUNKS):
+            t0 = time.perf_counter()
+            pc = sess.advance(pc, CHUNK)
+            t_host += time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t_adv += time.perf_counter() - t0
+            if pc.step in (901, 1 + n_k):
+                v = sess.exit_view(pc)
+                w = serial[ms][5][pc.step]
+                cmp[pc.step] = (max(_maxdiff(v.f, w.f), _maxdiff(v.g, w.g)),
+                                torch.equal(v.f, w.f)
+                                and torch.equal(v.g, w.g))
+                if pc.step == 1 + n_k:
+                    _check_finite(v.f, v.g)
+                    _check(v.step == 1 + n_k, f"final step {v.step}")
+                del v
+        modes = dict(fused_step.mode_launches)
+        counts = (fused_step.launches, fused_step.density_launches)
+        mlups = cells * n_k / t_adv / 1e6
+        print(f"[phase 10] ShardedSession {key[1]} on mesh {ms} (layout "
+              f"{sess.layout}): launches K {counts[0]}, A {counts[1]}, by "
+              f"mode {modes}; vs phase 9b's serial session: step 901 "
+              f"max|delta| {cmp[901][0]:.3e} (bitwise {cmp[901][1]}), step "
+              f"1101 {cmp[1101][0]:.3e} (bitwise {cmp[1101][1]}) (tol {TOL})"
+              f"; {n_k} steps in {t_adv:.3f} s = {mlups:.1f} MLUPS (serial, "
+              f"phase 9b: {serial[ms][3]:.1f}); host enqueue "
+              f"{t_host / n_k * 1e6:.1f} us a step", flush=True)
+        wins = 1 + 2 * sum(sess.layout.split)
+        want = ({"window": mesh.size * n_k * wins} if key[1] == "split"
+                else {"ystrips": mesh.size * n_k})
+        _check(all(modes.get(k) == v for k, v in want.items()),
+               f"{key}: launches {modes}, expected {want}")
+        _check(max(cmp[901][0], cmp[1101][0]) <= TOL,
+               f"{key}: the sweep disagrees with the serial session: {cmp}")
+        out[key] = (modes, mlups)
+        del pc, sess
+        torch.cuda.empty_cache()
+    # the per-step split of every sweep, from one post-collide state
+    pc = FusedSession(dcfg.params, SHAPE).enter(
+        model.make_initial_state(dcfg, device=dev))
+    words = [104729 * k + 1 for k in range(SPAN_STEPS)]
+    spans = {}
+    for ms, tag, opts in (((2, 1, 1), "serial", dict(y_exchange="serial")),
+                          ((2, 1, 1), "split", dict(overlap=True)),
+                          ((2, 2, 1), "serial", dict(y_exchange="serial")),
+                          ((2, 2, 1), "split", dict(overlap=True)),
+                          ((2, 2, 1), "strips", dict(y_exchange="strips"))):
+        sp = spans[(ms, tag)] = _span_split(ms, dcfg.params, opts, pc, words)
+        print(f"[phase 10] per step, mesh {ms} {tag} (CUDA events, "
+              f"{SPAN_STEPS - 2} steps): exchange {sp['exchange']:.4f} ms, "
+              f"interior kernels {sp['interior']:.4f} ms, exchange exposed "
+              f"{sp['exposed']:.4f} ms, bands {sp['bands']:.4f} ms; host "
+              f"enqueue {sp['host_us']:.1f} us a step", flush=True)
+        torch.cuda.empty_cache()
+    del pc
+    return out, spans
+
+
 def main() -> int:
     import torch
 
@@ -1348,6 +1834,7 @@ def main() -> int:
     from bflbm_tpu_torch.kernels.session import FusedSession, make_session
     from bflbm_tpu_torch.models import binary_fluid as model
     from bflbm_tpu_torch.observables import stats
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
     from bflbm_tpu_torch.utils.timing import time_steps
 
     smi = subprocess.run(
@@ -1637,6 +2124,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(9)
 
+    # -- phase 10: the rest of K7 (windows / the overlap split, y strips) ---
+    k7_errs = {"window": [], "ystrips": []}
+    for tag, kw, dist, with_ref in WIN_MODES:
+        p = LBMParams(**kw)
+        f, g = _perturbed_droplet(SMALL, p, 61, dev, radius=0.3)
+        ref = _ref_operand(f, g, (1, 2, -2)) if with_ref else None
+        for ms in WIN_MESHES:
+            _windows_vs_plain(f, g, p, dist, ref,
+                              mesh_lib.make_mesh(ms, dev),
+                              f"32^3 {tag}, mesh {ms}", k7_errs)
+        _strips_vs_plain(f, g, p, dist, ref, f"32^3 {tag}, mesh (2, 2, 1)",
+                         k7_errs)
+        del f, g, ref
+    _sweep_sessions_small(dev)
+    torch.cuda.empty_cache()
+    k7_ms = _kernel_ms_22(dcfg, dev, cells, k7_errs)
+    torch.cuda.empty_cache()
+    sweeps, spans = _sweep_sessions_256(dcfg, dev, cells, sharded)
+    for ms in ((2, 1, 1), (2, 2, 1)):
+        row = [f"serial {sharded[ms][3]:.1f}"] + [
+            f"{k[1]} {v[1]:.1f}" for k, v in sweeps.items() if k[0] == ms]
+        print(f"[phase 10] 256^3 MLUPS on mesh {ms}: " + ", ".join(row)
+              + f"; exchange exposed a step: serial "
+              f"{spans[(ms, 'serial')]['exposed']:.4f} ms, split "
+              f"{spans[(ms, 'split')]['exposed']:.4f} ms", flush=True)
+    for ms in sharded:   # the views are no longer needed
+        sharded[ms] = sharded[ms][:5]
+    torch.cuda.empty_cache()
+    phase_done(10)
+
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
             ("k1a", "k_step_kernel (uncoupled, u8)", "fused_step.cu",
@@ -1686,8 +2203,25 @@ def main() -> int:
              max(ext_errs["k_ext"]),
              "K7 ext_mode + shard origin in the seed (:1878-1880): K on the "
              "padded block, interior written at the pad offset; 256^3 on "
-             "mesh (2,1,1), both blocks")):
-        bound, by = _bound_ms(key, _work_cells(key, cells))
+             "mesh (2,1,1), both blocks"),
+            ("k_window", "k_step_kernel (ext window, coupled, clt4)",
+             "fused_step.cu", k7_ms["window"], k7_ms["window_plain"], None,
+             sweeps[((2, 2, 1), "split")][0]["window"],
+             max(k7_errs["window"]),
+             "K7 window (overlap split): win/odomain/owin/out_alias "
+             "(:1167-1187, 1215-1218, 1886-1910), parallel/kernel.py:646-729;"
+             " K on the interior window and the seam bands of the four "
+             "blocks of 256^3 on mesh (2,2,1), a step"),
+            ("k_ystrips", "k_step_kernel (ext ystrips, coupled, clt4)",
+             "fused_step.cu", k7_ms["ystrips"], k7_ms["ystrips_plain"], None,
+             sweeps[((2, 2, 1), "strips")][0]["ystrips"],
+             max(k7_errs["ystrips"]),
+             "K7 ystrips (:1233-1245, 1501-1530, 1913-1919), parallel/"
+             "kernel.py:205-250, 575-605: K fed by the received y strips, "
+             "writing its edge rows into the strips; the four blocks of "
+             "256^3 on mesh (2,2,1), a step")):
+        extra = k7_ms["strip_bytes"] if key == "k_ystrips" else 0
+        bound, by = _bound_ms(key, _work_cells(key, cells), extra)
         record.append({
             "name": name, "route": "cuda", "source": SRC + src,
             "replaces": TPU_KERNEL, "mode": mode, "launches": launches,

@@ -520,3 +520,236 @@ def test_sharded_session_matches_cpu_and_fused(cuda, mesh_shape):
     early = go(cuda, card, 0, (2,))
     fused = go(cuda, None, 0, (2,))
     assert torch.equal(early.f, fused.f) and torch.equal(early.g, fused.g)
+
+
+# K7 window launches (the overlap split) and strip-fed launches (ystrips)
+
+def _padded_droplet(cuda, params, mesh_shape, seed=23):
+    shape = (32, 32, 32)
+    base = model.init_droplet(shape, params, radius=0.3, device="cpu")
+    f, g = model.perturbed_populations(shape, seed, base=base, device=cuda)
+    mesh = mesh_lib.make_mesh(mesh_shape, cuda)
+    pad = mesh.pads(fused_step.sd_depth(params))
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+    halo.exchange_halo(ss.blocks, mesh, pad)
+    return shape, mesh, ss, halo.block_exts(mesh, shape, pad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 1)])
+@pytest.mark.parametrize("mode", ["u8 uncoupled", "clt4 alpha0", "alpha1",
+                                  "ref"])
+def test_window_launches_write_their_window(cuda, mesh_shape, mode):
+    """A, L and K launched on the overlap split's windows (the interior
+    window and the seam bands) into NaN-filled outputs: each writes
+    exactly its window, bitwise the whole-block ext launch there, within
+    ATOL of the plain versions."""
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+
+    kw, dist, with_ref = _EXT_MODES[mode]
+    params = LBMParams(**kw)
+    shape, mesh, ss, exts = _padded_droplet(cuda, params, mesh_shape)
+    lay = kernel_par.layout(mesh, shape, params, True)
+    assert any(lay.split) and lay.pad == ss.pad
+    inner, bands = kernel_par.split_windows(lay, ss.blocks[0].shape,
+                                            fused_step.sd_depth(params))
+    fb, gb = ss.blocks[-1][0], ss.blocks[-1][1]
+    ext = exts[-1]
+    ref = (torch.stack([fb.sum(0), gb.sum(0)]).contiguous() if with_ref
+           else None)
+    psi = lap = None
+    if fused_step.is_coupled(params):
+        psi = fused_step.density_psi(fb, gb, params, ext=ext)
+        if fused_step.has_alpha1(params):
+            lap = fused_step.laplacian_psi(psi, ext=ext)
+    whole = fused_step.fused_stream_collide(fb, gb, 11, 7, params,
+                                            noise_dist=dist, ref=ref,
+                                            ext=ext)
+    fr, gr = fused_step.k_step_reference(fb, gb, 11, 7, params, dist, ref,
+                                         ext)
+
+    def nan(lead):
+        return torch.full((lead,) + tuple(fb.shape[1:]), float("nan"),
+                          device=cuda)
+
+    def check(got, want, win, plain_region, bounds):
+        assert torch.equal(blocked.box_view(got, win),
+                           blocked.box_view(want, win))
+        assert int(torch.isnan(got).sum()) == got.numel() \
+            - blocked.box_view(got, win).numel()
+        rel = tuple((a - s, b - s) for (a, b), (s, _) in zip(win, bounds))
+        assert _maxdiff(blocked.box_view(got, win),
+                        blocked.box_view(plain_region, rel)) <= ATOL
+
+    fused_step.reset_launch_counts()
+    for win in [inner] + bands:
+        out = (nan(19), nan(19))
+        fused_step.launch_k(fb, gb, 11, 7, params, out, psi, dist, ref,
+                            lap=lap, ext=ext, window=win)
+        torch.cuda.synchronize()
+        for got, want, pl in zip(out, whole, (fr, gr)):
+            check(got, want, win, pl, ext.bounds(fb.shape))
+        if psi is not None:
+            a_win, l_win = fused_step.prepass_windows(params, ext, fb.shape,
+                                                      win)
+            got = fused_step.density_psi(fb, gb, params, out=nan(2),
+                                         ext=ext, window=a_win)
+            check(got, psi, a_win,
+                  fused_step.density_psi_reference(fb, gb, params, ext),
+                  ext.bounds(fb.shape, 1))
+            if lap is not None:
+                got = fused_step.laplacian_psi(psi, out=nan(2), ext=ext,
+                                               window=l_win)
+                check(got, lap, l_win,
+                      fused_step.laplacian_psi_reference(psi, ext),
+                      ext.bounds(fb.shape, 2))
+    assert fused_step.mode_launches["window"] == 1 + len(bands)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 1)])
+@pytest.mark.parametrize("mode", ["u8 uncoupled", "clt4 alpha0", "alpha1",
+                                  "ref"])
+def test_interior_window_reads_no_pad(cuda, mesh_shape, mode):
+    """The split launches the interior window's A, L and K while the side
+    stream fills the pads: on a copy of the block whose pads are all NaN,
+    from NaN psi and lap, they give the window bitwise what the
+    whole-block launches give on exchanged pads."""
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+
+    kw, dist, with_ref = _EXT_MODES[mode]
+    params = LBMParams(**kw)
+    shape, mesh, ss, exts = _padded_droplet(cuda, params, mesh_shape, 25)
+    lay = kernel_par.layout(mesh, shape, params, True)
+    inner, _ = kernel_par.split_windows(lay, ss.blocks[0].shape,
+                                        fused_step.sd_depth(params))
+
+    def nan_pads(t, box):
+        out = torch.full_like(t, float("nan"))
+        blocked.box_view(out, box).copy_(blocked.box_view(t, box))
+        return out
+
+    for blk, ext in zip(ss.blocks, exts):
+        fb, gb = blk[0], blk[1]
+        box = ext.bounds(fb.shape)
+        ref = (torch.stack([fb.sum(0), gb.sum(0)]).contiguous() if with_ref
+               else None)
+        whole = fused_step.fused_stream_collide(fb, gb, 5, 3, params,
+                                                noise_dist=dist, ref=ref,
+                                                ext=ext)
+        bf, bg = nan_pads(fb, box), nan_pads(gb, box)
+        nan2 = torch.full((2,) + tuple(fb.shape[1:]), float("nan"),
+                          device=cuda)
+        psi = lap = None
+        if fused_step.is_coupled(params):
+            a_win, l_win = fused_step.prepass_windows(params, ext, fb.shape,
+                                                      inner)
+            psi = fused_step.density_psi(bf, bg, params, out=nan2.clone(),
+                                         ext=ext, window=a_win)
+            want = fused_step.density_psi(fb, gb, params, ext=ext)
+            assert torch.equal(blocked.box_view(psi, a_win),
+                               blocked.box_view(want, a_win))
+            if fused_step.has_alpha1(params):
+                lap = fused_step.laplacian_psi(psi, out=nan2.clone(),
+                                               ext=ext, window=l_win)
+                want = fused_step.laplacian_psi(want, ext=ext)
+                assert torch.equal(blocked.box_view(lap, l_win),
+                                   blocked.box_view(want, l_win))
+        out = (torch.full_like(fb, float("nan")),
+               torch.full_like(gb, float("nan")))
+        fused_step.launch_k(bf, bg, 5, 3, params, out, psi, dist,
+                            None if ref is None else nan_pads(ref, box),
+                            lap=lap, ext=ext, window=inner)
+        torch.cuda.synchronize()
+        for got, w in zip(out, whole):
+            assert torch.equal(blocked.box_view(got, inner),
+                               blocked.box_view(w, inner))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["u8 uncoupled", "clt4 alpha0", "alpha1"])
+def test_strip_fed_kernels_match_plain(cuda, mode):
+    """On mesh (2, 2, 1), A and K reading the y halo from the exchanged
+    strips (the blocks' y pads NaN) against their plain versions, and
+    bitwise the pad-fed ext launch; the strips K writes equal its edge
+    rows bitwise."""
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+
+    kw, dist, _ = _EXT_MODES[mode]
+    params = LBMParams(**kw)
+    shape, mesh, ss, exts = _padded_droplet(cuda, params, (2, 2, 1))
+    pad = ss.pad
+    padfed = [fused_step.fused_stream_collide(b[0], b[1], 3, 9, params,
+                                              noise_dist=dist, ext=e)
+              for b, e in zip(ss.blocks, exts)]
+    sent = kernel_par.strip_buffers(ss.blocks, pad)
+    received = [torch.empty_like(t) for t in sent]
+    halo.run_plan(halo.strip_plan(sent, received, mesh, pad))
+    py = pad[1]
+    fused_step.reset_launch_counts()
+    for b, (blk, ext) in enumerate(zip(ss.blocks, exts)):
+        blk[..., :py, :] = float("nan")
+        blk[..., blk.shape[-2] - py:, :] = float("nan")
+        out_strips = torch.full_like(sent[b], float("nan"))
+        fo, go = fused_step.fused_stream_collide(
+            blk[0], blk[1], 3, 9, params, noise_dist=dist, ext=ext,
+            strips=received[b], strips_out=out_strips)
+        torch.cuda.synchronize()
+        fr, gr = fused_step.k_step_reference(blk[0], blk[1], 3, 9, params,
+                                             dist, None, ext, received[b])
+        assert max(_maxdiff(ext.region(fo), fr),
+                   _maxdiff(ext.region(go), gr)) <= ATOL
+        assert torch.equal(ext.region(fo), ext.region(padfed[b][0]))
+        assert torch.equal(ext.region(go), ext.region(padfed[b][1]))
+        px = pad[0]
+        for s, o in enumerate((fo, go)):
+            inner = o[:, px:o.shape[1] - px]
+            ny = inner.shape[2] - 2 * py
+            assert torch.equal(out_strips[0, s][:, px:o.shape[1] - px],
+                               inner[:, :, py:2 * py])
+            assert torch.equal(out_strips[1, s][:, px:o.shape[1] - px],
+                               inner[:, :, ny:ny + py])
+        if fused_step.is_coupled(params):
+            psi = fused_step.density_psi(blk[0], blk[1], params, ext=ext,
+                                         strips=received[b])
+            want = fused_step.density_psi_reference(blk[0], blk[1], params,
+                                                    ext, received[b])
+            assert _maxdiff(ext.region(psi, 1), want) <= ATOL
+    assert fused_step.mode_launches["ystrips"] == mesh.size
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(overlap=True),
+                                  dict(y_exchange="strips")])
+def test_split_and_strips_sessions_match_cpu_and_serial(cuda, opts):
+    """A split session and a strips session on the card (alpha1 droplet,
+    1 + 2 + 4 steps, restore every 4) against the same session on the CPU
+    within ATOL and the serial session on the card bitwise."""
+    params = LBMParams(**_DROP, alpha0=1.2, alpha1=0.5, kBT=1e-5)
+    shape = (16, 16, 32)
+    base = model.init_droplet(shape, params, radius=0.3, device="cpu")
+    f, g = model.perturbed_populations(shape, 24, base=base, device="cpu")
+    words = [29 * k - 11 for k in range(7)]
+
+    def go(dev, kw):
+        sess = ShardedSession(mesh_lib.make_mesh((2, 2, 1), dev), params,
+                              shape, mass_restore_int=4, **kw)
+        pc = sess.enter(init_state(f.to(dev), g.to(dev), 0), words[0])
+        pc = sess.advance(pc, 2, words[1:3])
+        pc = sess.advance(pc, 4, words[3:])
+        return sess.exit(pc)
+
+    fused_step.reset_launch_counts()
+    got = go(cuda, opts)
+    modes = dict(fused_step.mode_launches)
+    if opts.get("overlap"):
+        assert modes["window"] == 6 * 4 * 5
+    else:
+        assert modes["ystrips"] == 6 * 4
+    serial = go(cuda, dict(y_exchange="serial"))
+    assert torch.equal(got.f, serial.f) and torch.equal(got.g, serial.g)
+    cpu = go("cpu", opts)
+    assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
+        <= ATOL
