@@ -25,10 +25,17 @@ the live densities or from a stored reference state (USE_REF_STATE, the
   psi, then the K kernel takes its neighbours' gradient for the
   square-gradient force.
 
-Each of them also takes ``ext=``, an :class:`~bflbm_tpu_torch.ops.blocked.
-Ext` (K7's ext mode): the arrays are then one block of a decomposed
-domain, extended by pads of depth p on its sharded axes that the halo
-exchange has filled (:mod:`bflbm_tpu_torch.parallel.halo`).  A writes psi
+:func:`blocked_stream_collide` runs T steps in one launch (K4, temporal
+blocking) of ``csrc/blocked_step.cu`` for the uncoupled configurations,
+the intermediate steps kept in shared memory (plain version
+:func:`bflbm_tpu_torch.ops.blocked.blocked_sweep_reference`, tile for
+tile); :func:`make_ksteps` takes ``block=T`` and :func:`auto_block` picks
+T from the card's measurements.
+
+Each of the one-step wrappers also takes ``ext=``, an
+:class:`~bflbm_tpu_torch.ops.blocked.Ext` (K7's ext mode): the arrays are
+then one block of a decomposed domain, extended by pads of depth p on its
+sharded axes that the halo exchange has filled (:mod:`bflbm_tpu_torch.parallel.halo`).  A writes psi
 on the interior and p - 1 cells beyond it, L the laplacian p - 2 cells
 beyond, and K the interior, into arrays of the same padded layout; the
 plain versions run :mod:`bflbm_tpu_torch.ops.blocked`.  Every launch
@@ -274,17 +281,21 @@ def laplacian_psi_reference(psi: torch.Tensor,
 # (K7, on a halo-extended block), "window" (K7's win / owin: a box of the
 # block, the overlap split), "ystrips" (K7's ystrips: the y halo from the
 # received strips) and, for launches with noise, the generator's name.
+# blocked_launches counts the launches of the blocked sweep
+# (blocked_stream_collide, T steps each; also mode_launches["blocked"]).
 launches = 0
 density_launches = 0
 laplacian_launches = 0
+blocked_launches = 0
 mode_launches: Dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
-    global launches, density_launches, laplacian_launches
+    global launches, density_launches, laplacian_launches, blocked_launches
     launches = 0
     density_launches = 0
     laplacian_launches = 0
+    blocked_launches = 0
     mode_launches.clear()
 
 
@@ -752,6 +763,179 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
 
 
 # ---------------------------------------------------------------------------
+# K4: T steps per launch (temporal blocking, csrc/blocked_step.cu).
+# ---------------------------------------------------------------------------
+
+# Shared memory one thread block of an H100 may hold (227 KB, dynamic):
+# what caps T.
+SMEM_PER_BLOCK = 232448
+_BLOCKED_MAX_THREADS = 384
+# The (y, z) cross-section of a blocked tile per T, the largest whose
+# shared memory fits (the tile marches along all of x): 8 x 32 at T = 2
+# (155,040 bytes), 8 x 16 at T = 3 (191,520), 8 x 8 at T = 4 (200,640);
+# T >= 5 needs 317,376 bytes on 8 x 8.
+_BLOCKED_SECTIONS = {1: (8, 32), 2: (8, 32), 3: (8, 16), 4: (8, 8)}
+# Where the configurations the blocked sweep does not run are queued.
+K4_COUPLED_ITEM = "ROADMAP Queue 2: K4 for the coupled and alpha1 paths"
+K4_MESH_ITEM = "ROADMAP Queue 2: the decomposed path at block T"
+
+
+def blocked_tile(T: int, shape) -> Tuple[int, int, int]:
+    """The output tile of a T-step sweep over arrays (.., X, Y, Z): all X
+    planes, and the (y, z) cross-section of ``_BLOCKED_SECTIONS``."""
+    by, bz = _BLOCKED_SECTIONS.get(int(T), (8, 8))
+    return (int(tuple(shape)[-3]), by, bz)
+
+
+def blocked_smem_bytes(T: int, tile) -> int:
+    """Dynamic shared memory of a T-step launch on `tile` (as
+    ``csrc/blocked_step.cu`` bflbm_blocked_smem): three planes of 2 x 19
+    float32 a cell of each intermediate phase, whose plane is the (y, z)
+    cross-section grown by T - 1 - s cells on each side."""
+    _, by, bz = tile
+    return sum(3 * 2 * Q * 4 * (by + 2 * p) * (bz + 2 * p)
+               for p in range(1, int(T)))
+
+
+def blocked_threads(T: int, tile) -> int:
+    """Threads of a blocked launch: phase 0's cells of a plane, rounded
+    up to a warp, at most 384 (the threads loop over more)."""
+    _, by, bz = tile
+    cells = (by + 2 * (T - 1)) * (bz + 2 * (T - 1))
+    return min(_BLOCKED_MAX_THREADS, -(-cells // 32) * 32)
+
+
+def check_block(params: LBMParams, T) -> None:
+    """Raise ValueError for a block T the port does not run: below 1,
+    above 1 for a coupled or alpha1 configuration, or more shared memory
+    on its tile (:func:`blocked_tile`) than a thread block holds."""
+    if isinstance(T, bool) or not isinstance(T, (int, np.integer)) or T < 1:
+        raise ValueError(f"block must be an integer >= 1, got {T!r}")
+    T = int(T)
+    if T > 1 and is_coupled(params):
+        raise ValueError(
+            f"block = {T} > 1 runs uncoupled configurations only (alpha0 = "
+            f"alpha1 = 0); the coupled and alpha1 paths run block 1 "
+            f"({K4_COUPLED_ITEM})")
+    tile = blocked_tile(T, (1, 1, 1))   # its x extent needs no memory
+    need = blocked_smem_bytes(T, tile)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"block = {T} on tiles of {tile[1]} x {tile[2]} cells (y, z) "
+            f"needs {need} bytes of shared memory; a thread block holds at "
+            f"most {SMEM_PER_BLOCK}")
+
+
+def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
+                           words: Sequence[int], step0: int,
+                           params: LBMParams, T: int,
+                           out: Optional[Pair] = None, *,
+                           noise_dist: str = "clt4",
+                           ref: Optional[torch.Tensor] = None) -> Pair:
+    """T K steps of the post-collide pair (f, g) in one sweep (K4): step
+    s draws word ``words[s]`` at step label ``step0 + s``; returns the
+    pair at label step0 + T (written into `out` when given; it must not
+    alias f or g).  ref: the (2, X, Y, Z) USE_REF_STATE amplitude fields,
+    held for the T steps, or None.  The kernel's output tiles are
+    :func:`blocked_tile`'s.  Uncoupled configurations
+    only: the Shan-Chen and alpha1 forces need pre-passes inside every
+    phase (raises ValueError).
+
+    CPU tensors run :func:`bflbm_tpu_torch.ops.blocked.
+    blocked_sweep_reference` on the kernel's tiles.  CUDA tensors launch
+    ``csrc/blocked_step.cu`` once on the current stream, or raise:
+    ValueError or TypeError for what the kernel does not take (a T past
+    its shared memory among it, :func:`check_block`), RuntimeError for a
+    failed build or launch.  Neither runs the steps one by one."""
+    global blocked_launches
+    if g.device != f.device:
+        raise ValueError(f"g is on {g.device}, f on {f.device}")
+    check_noise_dist(noise_dist)
+    if is_coupled(params):
+        raise ValueError("the blocked sweep runs uncoupled configurations "
+                         f"(alpha0 = alpha1 = 0) ({K4_COUPLED_ITEM})")
+    check_block(params, T)
+    T = int(T)
+    tile = blocked_tile(T, f.shape)
+    words = [int(w) for w in words]
+    if len(words) != T:
+        raise ValueError(f"need {T} words, got {len(words)}")
+    if f.device.type == "cpu":
+        fo, go = blocked.blocked_sweep_reference(f, g, words, step0, params,
+                                                 T, tile, noise_dist, ref)
+        if out is None:
+            return fo, go
+        out[0].copy_(fo)
+        out[1].copy_(go)
+        return out
+    if f.device.type != "cuda":
+        raise ValueError(f"no blocked sweep for device {f.device}")
+    _check_field("f", f, f, Q)
+    _check_field("g", g, f, Q)
+    if out is None:
+        out = (torch.empty_like(f), torch.empty_like(g))
+    for name, t in zip(("out[0]", "out[1]"), out):
+        _check_field(name, t, f, Q)
+        _check_no_alias(name, t, (f, g))
+    if ref is not None:
+        _check_field("ref", ref, f, 2)
+        _check_no_alias("ref", ref, tuple(out))
+        if not params.noise_on:
+            ref = None
+    from . import _build
+
+    lib = _build.load("blocked_step" + ("_general" if general_relax(params)
+                                        else ""), f.device)
+    coef = (ctypes.c_float * 33)(*_noise_coef(
+        float(params.kBT), params.lam_f, params.lam_g, noise_dist))
+    X, Y, Z = (int(n) for n in f.shape[1:])
+    rc = lib.bflbm_blocked_step(
+        f.device.index, f.data_ptr(), g.data_ptr(),
+        None if ref is None else ref.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
+        (ctypes.c_int * T)(*[_as_i32(w) for w in words]), T,
+        _as_i32(step0), (ctypes.c_int * 3)(*tile), blocked_threads(T, tile),
+        params.div_eps, 0.5 * params.lam_f, 0.5 * params.lam_g,
+        params.lam_f, params.lam_g, int(params.noise_on),
+        NOISE_DISTS[noise_dist][0], coef,
+        torch.cuda.current_stream(f.device).cuda_stream)
+    _raise_on(rc, lib, "blocked_step")
+    blocked_launches += 1
+    mode_launches["blocked"] = mode_launches.get("blocked", 0) + 1
+    return out
+
+
+# The block the sessions take when none is given: the T of the fastest
+# step per mode, measured at 256^3 on an H100 (``chip_smoke.py`` phase 11,
+# PERF.md section 6).  There K4 at T = 2 beat the one-step kernel with the
+# noise off (its step has the least arithmetic) and under general tau (the
+# one-step kernel is register-bound there); with noise the one-step kernel
+# was faster at every T, and T = 3 and 4 lost in every mode.
+AUTO_BLOCK = {"off": 2, "u8": 1, "clt4": 1, "clt2": 1, "bm": 1, "ref": 1,
+              "general": 2}
+
+
+def auto_block(params: LBMParams, n: int, noise_dist: str = "clt4",
+               use_ref: bool = False) -> int:
+    """The port's counterpart of JAX's ``_auto_block``: T for a run of n
+    K steps, from :data:`AUTO_BLOCK` (general relaxation first, then the
+    ref operand, then the generator, or "off" at kBT = 0); 1 for a coupled
+    or alpha1 configuration (no K4 for them yet) and for n < 2; at most
+    n."""
+    if n < 2 or is_coupled(params):
+        return 1
+    if general_relax(params):
+        key = "general"
+    elif not params.noise_on:
+        key = "off"
+    elif use_ref:
+        key = "ref"
+    else:
+        key = noise_dist
+    return max(1, min(AUTO_BLOCK[key], int(n)))
+
+
+# ---------------------------------------------------------------------------
 # Mass restore and the K-step loop.
 # ---------------------------------------------------------------------------
 
@@ -778,12 +962,17 @@ def _maybe_restore(prev_step: int, st: SimState, mass_restore) -> SimState:
 
 
 def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
-                noise_dist: str = "clt4"):
+                noise_dist: str = "clt4", block: int = 1):
     """fn(s, words=None, ref=None) -> s: n K steps of a post-collide
-    SimState, one K launch per step (block 1; a coupled configuration
-    adds the density pre-pass, alpha1 the laplacian pre-pass too),
-    ping-ponging two buffer pairs and reusing one psi (and lap) scratch
-    for the chunk.
+    SimState.  block = T > 1 (uncoupled only, :func:`check_block`) runs
+    n // T blocked sweeps (:func:`blocked_stream_collide`, one launch
+    each), then n % T single steps, as JAX's ``make_ksteps`` (T is cut to
+    n); block 1 runs one K launch per step (a coupled configuration adds
+    the density pre-pass, alpha1 the laplacian pre-pass too).  The mass
+    restore is applied once per sweep or single step, after the one whose
+    [prev, step) crossed a multiple of its interval: with T = 2 from an
+    odd step it lands after step 1001, not 1000, as in JAX.  Two buffer
+    pairs ping-pong and one psi (and lap) scratch serves the chunk.
 
     The input's buffers are reused as the second pair, so `s` is
     consumed.  words: the n per-step noise words (default: drawn from
@@ -791,6 +980,8 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
     fixed for the n steps.  mass_restore: optional (interval, m0f,
     m0g)."""
     check_noise_dist(noise_dist)
+    check_block(params, block)
+    T = max(1, min(int(block), n)) if n else 1
 
     def run_k(s: SimState, words: Optional[Sequence[int]] = None,
               ref: Optional[torch.Tensor] = None) -> SimState:
@@ -798,6 +989,8 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
             words = draw_words(s.gen, n)
         if len(words) != n:
             raise ValueError(f"need {n} words, got {len(words)}")
+        words = list(words)
+        n_blocked = n // T if T > 1 else 0
         cur = s
         spare = None
         psi = lap = None
@@ -806,7 +999,16 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
                               device=s.f.device)
             if has_alpha1(params):
                 lap = torch.empty_like(psi)
-        for w in words:
+        for k in range(n_blocked):
+            if spare is None:
+                spare = (torch.empty_like(cur.f), torch.empty_like(cur.g))
+            fo, go = blocked_stream_collide(
+                cur.f, cur.g, words[k * T:(k + 1) * T], cur.step, params, T,
+                out=spare, noise_dist=noise_dist, ref=ref)
+            spare = (cur.f, cur.g)
+            nxt = cur.replace(f=fo, g=go, step=cur.step + T)
+            cur = _maybe_restore(cur.step, nxt, mass_restore)
+        for w in words[n_blocked * T:]:
             if spare is None:
                 spare = (torch.empty_like(cur.f), torch.empty_like(cur.g))
             fo, go = fused_stream_collide(cur.f, cur.g, w, cur.step, params,

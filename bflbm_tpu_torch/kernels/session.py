@@ -3,6 +3,7 @@ K-step's post-collide space across chunks.
 
     pc = session.enter(state)      # one plain prelude+collide: 1 full step
     pc = session.advance(pc, n)    # n fused K = collide∘stream steps
+                                   #   (T a launch with block=T)
     view = session.exit_view(pc)   # post-stream view (pc stays live)
     state = session.exit(pc)       # final post-stream state
 
@@ -64,7 +65,12 @@ class FusedSession:
 
     noise_dist: the hash-stream generator, "clt4" (default, as in the
     JAX package), "u8", "clt2" or "bm" (both the entry prelude and the
-    kernel use it).  mass_restore_int: cadence (in steps) of the global
+    kernel use it).  block: K steps per launch (K4, temporal blocking;
+    uncoupled configurations only, :func:`fused_step.check_block`); None
+    takes :func:`fused_step.auto_block` for each advance's n, as JAX's
+    auto block does.  An advance of n runs n // T blocked sweeps, then
+    n % T single steps, and the mass restore falls after the sweep that
+    crossed its step.  mass_restore_int: cadence (in steps) of the global
     exact-mass restore (:func:`fused_step.mass_restore_step`); 0
     disables it.  The invariants (m0f, m0g) are captured at the first
     :meth:`enter`.  ref_fields: optional (rho_eq, phi_eq, com_ref) of
@@ -75,8 +81,11 @@ class FusedSession:
 
     def __init__(self, params: LBMParams, shape: Tuple[int, int, int], *,
                  noise_dist: str = "clt4", mass_restore_int: int = 1000,
-                 ref_fields=None):
+                 ref_fields=None, block: Optional[int] = None):
         fused_step.check_noise_dist(noise_dist)
+        if block is not None:
+            fused_step.check_block(params, block)
+        self.block = block
         self.params = params
         self.shape = tuple(int(s) for s in shape)
         self.noise_dist = noise_dist
@@ -129,9 +138,17 @@ class FusedSession:
                                      self.params)
         return state.replace(f=f1, g=g1, step=state.step + 1)
 
+    def block_for(self, n: int) -> int:
+        """The block an advance of n steps runs."""
+        if self.block is not None:
+            return self.block
+        return fused_step.auto_block(self.params, n, self.noise_dist,
+                                     self.use_ref)
+
     def _ksteps(self, n: int):
         return fused_step.make_ksteps(self.params, n, self._mass_restore_arg(),
-                                      noise_dist=self.noise_dist)
+                                      noise_dist=self.noise_dist,
+                                      block=self.block_for(n))
 
     def advance(self, pc: SimState, n: int,
                 words: Optional[Sequence[int]] = None) -> SimState:
@@ -186,7 +203,8 @@ class FusedSession:
         """Transactional USE_REF_STATE advance
         (``bflbm_tpu/kernels/session.py:244-280``): sub-chunks of at most
         ``_REF_CAP`` steps, each run with the ref fields rolled by the
-        COM shift at its start; when the shift at its end differs (a
+        COM shift at its start and with the block of its own length
+        (:meth:`block_for`), as JAX's are; when the shift at its end differs (a
         cell-boundary crossing inside a sub-chunk of more than one step)
         the state is restored from a copy and the sub-chunk halved, until
         the crossing lands on a sub-chunk boundary.  A crossing inside a
@@ -266,15 +284,21 @@ class ShardedSession(FusedSession):
     splits every axis; y_exchange "strips" ships the y halo as strips
     that the kernels read and write, "auto" and "serial" keep the copy
     exchange (strips measured slower, ``parallel.kernel.layout``).  Every
-    sweep gives the same trajectory bitwise."""
+    sweep gives the same trajectory bitwise.  block: None or 1; the
+    blocks run one step a launch (a larger block raises ValueError)."""
 
     def __init__(self, mesh: mesh_lib.Mesh, params: LBMParams,
                  shape: Tuple[int, int, int], *, noise_dist: str = "clt4",
                  mass_restore_int: int = 1000, ref_fields=None,
-                 overlap="auto", y_exchange: str = "auto"):
+                 overlap="auto", y_exchange: str = "auto",
+                 block: Optional[int] = None):
+        if block not in (None, 1):
+            raise ValueError(
+                f"block = {block!r}: the decomposed session runs block 1 "
+                f"({fused_step.K4_MESH_ITEM})")
         super().__init__(params, shape, noise_dist=noise_dist,
                          mass_restore_int=mass_restore_int,
-                         ref_fields=ref_fields)
+                         ref_fields=ref_fields, block=1)
         if not kernel_par.supports(mesh, self.shape, params):
             raise ValueError(
                 f"mesh {mesh.shape} cannot hold domain {self.shape}: every "
@@ -327,20 +351,23 @@ class ShardedSession(FusedSession):
 def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
                  mass_restore_int: int = 1000, ref_fields=None,
                  mesh: Optional[mesh_lib.Mesh] = None, overlap="auto",
-                 y_exchange: str = "auto") -> FusedSession:
+                 y_exchange: str = "auto",
+                 block: Optional[int] = None) -> FusedSession:
     """The session for this configuration (the counterpart of
     ``bflbm_tpu.kernels.session.make_session``): a :class:`ShardedSession`
     on a mesh of more than one block, with the sweep options overlap and
     y_exchange, else the single-device :class:`FusedSession`, which has
-    no exchange to split.  The kernels run every configuration, alpha1
-    included.  Raises ValueError for an unknown generator name or sweep
-    option, or a mesh that cannot hold the domain."""
+    no exchange to split, with `block` steps a launch (None: auto).  The
+    kernels run every configuration, alpha1 included, at block 1.
+    Raises ValueError for an unknown generator name or sweep option, a
+    mesh that cannot hold the domain, or a block the port does not run
+    (above 1 on a mesh or for a coupled or alpha1 configuration)."""
     if mesh is not None and mesh.size > 1:
         return ShardedSession(mesh, params, shape, noise_dist=noise_dist,
                               mass_restore_int=mass_restore_int,
                               ref_fields=ref_fields, overlap=overlap,
-                              y_exchange=y_exchange)
+                              y_exchange=y_exchange, block=block)
     kernel_par.check_sweep(overlap, y_exchange)
     return FusedSession(params, shape, noise_dist=noise_dist,
                         mass_restore_int=mass_restore_int,
-                        ref_fields=ref_fields)
+                        ref_fields=ref_fields, block=block)

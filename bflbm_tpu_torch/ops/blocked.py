@@ -17,6 +17,9 @@ the block's neighbour function, :meth:`Window.at`), so a block's interior
 equals the periodic step's cells; the noise is keyed by global
 coordinates (the block's origin and the global domain), as the JAX
 kernel's seed operand keys it.
+
+The same pieces give the plain version of K4, T steps per sweep on tiles
+whose phases shrink by the stencil depth (:func:`blocked_sweep_reference`).
 """
 
 from __future__ import annotations
@@ -254,3 +257,72 @@ def step_on_block(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
     h = hydro_ops.hydrovars_with_acc(fs, gs, hbar, af, ag, xi_f, xi_g,
                                      params)
     return collide_ops.collide(fs, gs, h, xi_f, xi_g, params)
+
+
+def periodic_box(t: torch.Tensor, box: Box) -> torch.Tensor:
+    """A copy of t's cells in `box` of its last three axes, which are
+    periodic: a box may start below 0 or end past an axis' extent, and its
+    cells there wrap."""
+    out = t
+    for d, (a, b) in enumerate(box):
+        ax = t.dim() - 3 + d
+        idx = torch.arange(int(a), int(b), device=t.device) % t.shape[ax]
+        out = out.index_select(ax, idx)
+    return out
+
+
+def tile_boxes(shape: Sequence[int], tile: Sequence[int]):
+    """The output tiles of a blocked sweep over the periodic domain
+    `shape`: boxes of `tile` cells from the origin, in order; the last
+    tile of an axis that `tile` does not divide reaches past its extent
+    (its cells there are the wrapped ones, which the sweep computes and
+    does not write)."""
+    ranges = [range(0, int(n), int(b)) for n, b in zip(shape, tile)]
+    return [tuple((a, a + int(b)) for a, b in zip(start, tile))
+            for start in ((x, y, z) for x in ranges[0] for y in ranges[1]
+                          for z in ranges[2])]
+
+
+def blocked_sweep_reference(f: torch.Tensor, g: torch.Tensor,
+                            words: Sequence[int], step0: int,
+                            params: LBMParams, T: int,
+                            tile: Sequence[int], noise_dist: str = "clt4",
+                            ref: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T K steps of the post-collide pair (f, g) on the periodic domain,
+    computed as the K4 kernel (``csrc/blocked_step.cu``) computes them:
+    tile by tile (:func:`tile_boxes`), phase s = 0..T-1 on the tile grown
+    by sd (T - 1 - s) cells (:func:`step_on_block` on a periodic
+    halo-extended copy, the noise of word s at step step0 + s keyed by
+    the wrapped global coordinates), each phase reading the region the
+    previous one computed, and only the tile's own cells inside the
+    domain written.  A cell near a seam is computed by several tiles and
+    must come out the same from each.  ref: the (2, X, Y, Z)
+    USE_REF_STATE amplitude fields, or None.  Uncoupled configurations
+    only (stencil depth 1)."""
+    sd = sd_depth(params)
+    if sd != 1:
+        raise ValueError("the blocked sweep runs uncoupled configurations "
+                         f"(stencil depth 1), not depth {sd}")
+    if T < 1 or len(words) != T:
+        raise ValueError(f"T = {T} steps need T >= 1 and T words, got "
+                         f"{len(words)}")
+    shape = tuple(int(n) for n in f.shape[1:])
+    fo, go = torch.empty_like(f), torch.empty_like(g)
+    for box in tile_boxes(shape, tile):
+        halo = tuple((a - sd * T, b + sd * T) for a, b in box)
+        cf, cg = periodic_box(f, halo), periodic_box(g, halo)
+        for s in range(T):
+            p = sd * (T - 1 - s)
+            region = tuple((a - p, b + p) for a, b in box)
+            ext = Ext((sd,) * 3, tuple(a for a, _ in region), shape)
+            r = (None if ref is None
+                 else periodic_box(ref, tuple((a - sd, b + sd)
+                                              for a, b in region)))
+            cf, cg = step_on_block(cf, cg, int(words[s]), int(step0) + s,
+                                   params, ext, noise_dist, r)
+        keep = tuple((a, min(b, n)) for (a, b), n in zip(box, shape))
+        cut = tuple((0, b - a) for a, b in keep)
+        box_view(fo, keep).copy_(box_view(cf, cut))
+        box_view(go, keep).copy_(box_view(cg, cut))
+    return fo, go

@@ -17,12 +17,14 @@ Usage:
         --checkpoint out/eq/checkpoint0020000 \\
         --ref-state out/eq/equilibrium.npz --out out/fluct
     python -m bflbm_tpu_torch.run --preset droplet-eq --mesh 2 1 1
+    python -m bflbm_tpu_torch.run --preset mixture-fluct --block 2
 
 ``--mesh X Y Z`` decomposes the domain over a mesh of blocks, one per
 card (:class:`~bflbm_tpu_torch.kernels.session.ShardedSession`); on a
 node with fewer cards the cards repeat.  Views, frames, observables and
 checkpoints are taken from the gathered state, so a run writes the same
-files with or without a mesh.
+files with or without a mesh.  ``--block T`` runs T K steps per kernel
+launch (K4, uncoupled configurations; default auto).
 
 Noise: every step draws one word from the state's generator and the
 coordinate-keyed hash stream (clt4 unless ``--noise-dist`` says
@@ -90,7 +92,8 @@ def _sync(device) -> None:
 
 def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
         noise_dist: Optional[str] = None, mass_restore_int: int = 1000,
-        mesh=None, overlap="auto", y_exchange: str = "auto") -> SimState:
+        mesh=None, overlap="auto", y_exchange: str = "auto",
+        block: Optional[int] = None) -> SimState:
     """Execute a configured run on `device`; returns the final state.
 
     on_frame(step, packed_hydro) is called at plot_int cadence.
@@ -102,6 +105,8 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
     everything written stay on `device`.  overlap, y_exchange: the
     decomposed sweep (``kernels.session.ShardedSession``; no CLI flag, as
     in JAX's CLI), e.g. ``run(cfg, mesh=(2, 2, 1), overlap=True)``.
+    block: K steps a launch (K4; None: ``fused_step.auto_block``), as
+    ``--block``.
     """
     t_start = time.perf_counter()
     tm = {"advance": 0.0, "views": 0.0, "host_obs": 0.0, "io": 0.0}
@@ -140,7 +145,8 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
         sess = make_session(p, cfg.shape, noise_dist=dist,
                             mass_restore_int=mass_restore_int,
                             ref_fields=ref_state, mesh=mesh,
-                            overlap=overlap, y_exchange=y_exchange)
+                            overlap=overlap, y_exchange=y_exchange,
+                            block=block)
 
         def prelude_peek(s: SimState):
             (word,) = peek_words(s.gen, 1)
@@ -367,7 +373,7 @@ def _cfg_json(cfg: RunConfig) -> dict:
 
 def main(argv=None):
     """The CLI, on the card.  It keeps the JAX CLI's flags that have a
-    meaning here; --distributed, --engine, --block, --transform, --f64,
+    meaning here; --distributed, --engine, --transform, --f64,
     --profile-dir and --noise-source are not ported (ROADMAP)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse
@@ -401,6 +407,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--mesh", type=int, nargs=3, default=None,
                     help="device mesh shape (x y z)")
+    ap.add_argument("--block", type=int, default=None,
+                    help="K steps per kernel launch (temporal blocking; "
+                    "default auto)")
     ap.add_argument("--noise-dist", default=None,
                     choices=["clt4", "clt2", "u8", "bm"],
                     help="hash-stream normal generator (default clt4; "
@@ -452,7 +461,8 @@ def main(argv=None):
     mesh = None
     if args.mesh is not None:
         mesh = mesh_lib.make_mesh(tuple(args.mesh))
-    opts = {k: v for k, v in (("noise_dist", args.noise_dist),
+    opts = {k: v for k, v in (("block", args.block),
+                              ("noise_dist", args.noise_dist),
                               ("mass_restore_int", args.mass_restore_int))
             if v is not None}
     state = run(cfg, mesh=mesh, **opts)

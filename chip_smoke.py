@@ -98,7 +98,22 @@ Phases (each raises on failure; the script then exits non-zero):
    9b's serial sessions at steps 901 (bitwise printed) and 1101, with
    MLUPS, launches by mode, the host's enqueue time and, from CUDA
    events, each sweep's step split into exchange, interior kernels,
-   exposed exchange and bands.
+   exposed exchange and bands;
+11. K4, T K steps a launch with the intermediate steps in shared memory
+   (``csrc/blocked_step.cu``): (a) one launch at T = 2, 3, 4 in every
+   uncoupled mode (noise off, u8, clt4, clt2, Box-Muller, the ref
+   operand, general tau) at 32^3 and at 20 x 12 x 40, which no tile
+   divides, against its plain version (the plain sweep on the kernel's
+   tiles) and against T one-step K launches with the same words, max
+   |delta| <= 2e-5, bitwise printed; (b) at 256^3 the same for u8
+   against the plain sweep on one whole-domain tile (timed), and the K
+   launch and the K4 launches timed in every mode (ms a launch and a
+   step, the fastest T beside ``fused_step.AUTO_BLOCK``); (c) phase 3's
+   mixture session at T = 1, 2, 3, 4 (u8) and T = 3 (clt4): launches (11
+   x (100 // T) K4, 11 x (100 % T) K), masses after the restore, density
+   variance, MLUPS, ms a step beside the bound; (d) the mixture's two
+   phases through ``run.main`` at 64^3, the fluctuating one with
+   ``--block 2``: S(k) within 5% of kBT / cs^2, beside phase 7's.
 
 Each phase prints its wall time.  Phase 0 prints the card's name and
 power limit on a line of its own, as ``nvidia-smi`` gives them; the line
@@ -1821,6 +1836,233 @@ def _sweep_sessions_256(dcfg, dev, cells, serial):
     return out, spans
 
 
+# -- phase 11: K4, T steps a launch (temporal blocking) ------------------------
+
+K4_BLOCKS = (2, 3, 4)
+# uncoupled modes: tag, LBMParams keywords, generator, with the ref operand
+K4_MODES = (
+    ("off", dict(kBT=0.0), "u8", False),
+    ("u8", dict(kBT=KBT), "u8", False),
+    ("clt4", dict(kBT=KBT), "clt4", False),
+    ("clt2", dict(kBT=KBT), "clt2", False),
+    ("bm", dict(kBT=KBT), "bm", False),
+    ("ref", dict(kBT=KBT), "clt4", True),
+    ("general", dict(kBT=KBT, tau_f=0.7, tau_g=0.6), "clt4", False),
+)
+K4_ODD = (20, 12, 40)   # a shape no blocked tile divides
+# the 256^3 mixture sessions: (block, generator)
+K4_SESSIONS = ((1, "u8"), (2, "u8"), (3, "u8"), (4, "u8"), (3, "clt4"))
+# a launch of T steps moves the bytes of one step and does the operations
+# of T (the recomputed ring cells are the design's, not the function's)
+for _t in K4_BLOCKS:
+    KERNELS[f"k4_{_t}"] = dict(bytes=KERNELS["k1a"]["bytes"],
+                               ops=KERNELS["k1a"]["ops"] * _t)
+
+
+def _k4_ref(shape, dev, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return (1.0 + 0.1 * torch.rand((2,) + tuple(shape), generator=gen)).to(dev)
+
+
+def _k4_vs_plain(f, g, params, dist, ref, T, tag, errs, plain_tile=None):
+    """One K4 launch of T steps against its plain version (the plain sweep
+    on the kernel's tiles, or on `plain_tile`) and against T one-step K
+    launches with the same words; appends the larger error to errs[T] and
+    returns (bitwise to plain, bitwise to the one-step launches, seconds
+    of the plain version)."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import blocked
+
+    words = [104729 * (k + 1) - 2 ** 30 for k in range(T)]
+    before = fused_step.blocked_launches
+    fo, go = fused_step.blocked_stream_collide(f, g, words, 77, params, T,
+                                               noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    _check(fused_step.blocked_launches == before + 1,
+           f"{tag}: K4 launches went {before} -> "
+           f"{fused_step.blocked_launches}, expected +1")
+    _check_finite(fo, go)
+    t0 = time.perf_counter()
+    fr, gr = blocked.blocked_sweep_reference(
+        f, g, words, 77, params, T,
+        plain_tile or fused_step.blocked_tile(T, f.shape), dist, ref)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    e_plain = max(_maxdiff(fo, fr), _maxdiff(go, gr))
+    bit_plain = bool(torch.equal(fo, fr) and torch.equal(go, gr))
+    del fr, gr
+    fa, ga = f, g
+    for s, w in enumerate(words):
+        fa, ga = fused_step.fused_stream_collide(fa, ga, w, 77 + s, params,
+                                                 noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    e_k1 = max(_maxdiff(fo, fa), _maxdiff(go, ga))
+    bit_k1 = bool(torch.equal(fo, fa) and torch.equal(go, ga))
+    print(f"[phase 11] {tag} T={T}: max|K4 - plain| = {e_plain:.3e} "
+          f"(bitwise {bit_plain}), max|K4 - {T} x K| = {e_k1:.3e} (bitwise "
+          f"{bit_k1}) (tol {TOL})", flush=True)
+    _check(max(e_plain, e_k1) <= TOL,
+           f"{tag} T={T}: K4 disagrees: {e_plain}, {e_k1} > {TOL}")
+    errs[T].append(max(e_plain, e_k1))
+    return bit_plain, bit_k1, plain_s
+
+
+def _k4_small(dev, errs):
+    """11a: K4 in every uncoupled mode at T = 2, 3, 4 on 32^3 and on a
+    shape no tile divides, against plain and against T x K."""
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.models import binary_fluid as model
+
+    bits = []
+    for shape in (SMALL, K4_ODD):
+        f, g = model.perturbed_populations(shape, 71, device=dev)
+        for tag, kw, dist, with_ref in K4_MODES:
+            ref = _k4_ref(shape, dev, 72) if with_ref else None
+            for T in K4_BLOCKS:
+                bits.append(_k4_vs_plain(f, g, LBMParams(**kw), dist, ref, T,
+                                         f"{shape} {tag}", errs)[:2])
+    print(f"[phase 11] 11a: {len(bits)} launches; bitwise to plain "
+          f"{sum(b[0] for b in bits)}, bitwise to T one-step launches "
+          f"{sum(b[1] for b in bits)}", flush=True)
+
+
+def _k4_256(f, g, errs):
+    """11b: K4 (u8) at 256^3 on (f, g) against the plain sweep on one
+    whole-domain tile and against T one-step launches; returns the plain
+    version's ms a launch per T."""
+    import torch
+
+    from bflbm_tpu_torch.config import LBMParams
+
+    plain_ms = {}
+    for T in K4_BLOCKS:
+        _, _, plain_s = _k4_vs_plain(f, g, LBMParams(kBT=KBT), "u8", None, T,
+                                     "256^3 u8", errs, plain_tile=SHAPE)
+        plain_ms[T] = plain_s * 1e3
+        torch.cuda.empty_cache()
+    return plain_ms
+
+
+def _k4_times(f, g, cells):
+    """11b: the K launch (T = 1) and the K4 launch (T = 2, 3, 4) timed at
+    256^3 on (f, g) in every uncoupled mode (NREP launches, NREP // T for
+    K4, at least 5); prints ms a launch and a step and which T gives the
+    fastest step, beside fused_step.AUTO_BLOCK."""
+    import torch
+
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.kernels import fused_step
+
+    out = (torch.empty_like(f), torch.empty_like(g))
+    ref = _k4_ref(SHAPE, f.device, 73)
+    table = {}
+    for tag, kw, dist, with_ref in K4_MODES:
+        p = LBMParams(**kw)
+        r = ref if with_ref else None
+        row = {}
+        for T in (1,) + K4_BLOCKS:
+            if T == 1:
+                def run(p=p, dist=dist, r=r):
+                    for i in range(NREP):
+                        fused_step.fused_stream_collide(
+                            f, g, 1, i, p, out=out, noise_dist=dist, ref=r)
+            else:
+                def run(p=p, dist=dist, r=r, T=T):
+                    for i in range(max(5, NREP // T)):
+                        fused_step.blocked_stream_collide(
+                            f, g, [1] * T, i, p, T, out=out,
+                            noise_dist=dist, ref=r)
+            row[T] = _time_ms(run, cells, NREP if T == 1
+                              else max(5, NREP // T))
+        best = min(row, key=lambda t: row[t] / t)
+        table[tag] = row
+        print(f"[phase 11] 256^3 {tag}: ms a launch / a step: " + ", ".join(
+            f"T={t} {v:.4f} / {v / t:.4f}" for t, v in row.items())
+            + f"; fastest step at T = {best} (AUTO_BLOCK "
+            f"{fused_step.AUTO_BLOCK[tag]})", flush=True)
+    return table
+
+
+def _k4_sessions(dev, cells):
+    """11c: phase 3's 256^3 mixture session (chunks of 100, restore every
+    1000 steps) at each block of K4_SESSIONS: launches, masses, density
+    variance and MLUPS."""
+    import torch
+
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+
+    params = LBMParams(kBT=KBT)
+    n_k = CHUNK * NCHUNKS
+    res = {}
+    for T, dist in K4_SESSIONS:
+        tag = f"phase 11 session T={T} {dist}"
+        state = model.init_mixture(SHAPE, params, device=dev)
+        view, counts, t_adv, _ = _run_session(
+            FusedSession(params, SHAPE, noise_dist=dist, block=T), state, tag)
+        del state
+        nb = fused_step.blocked_launches
+        want = ((NCHUNKS * (CHUNK // T), NCHUNKS * (CHUNK % T)) if T > 1
+                else (0, n_k))
+        _check((nb, counts[0]) == want and counts[1] == 0,
+               f"{tag}: launches K4 {nb}, K {counts[0]} != {want}")
+        rho_t = view.f.sum(0) + view.g.sum(0)
+        var_ratio = float(rho_t.var()) / (float(rho_t.mean()) * KBT / CS2)
+        mlups = cells * n_k / t_adv / 1e6
+        print(f"[{tag}] K4 launches {nb}, K launches {counts[0]}; var / "
+              f"(rho kBT / cs^2) = {var_ratio:.4f} (tol {VAR_RTOL}); "
+              f"{mlups:.1f} MLUPS", flush=True)
+        _check(abs(var_ratio - 1.0) <= VAR_RTOL,
+               f"{tag}: density fluctuations off equipartition: {var_ratio}")
+        res[(T, dist)] = (mlups, nb)
+        del view, rho_t
+        torch.cuda.empty_cache()
+    return res
+
+
+def _k4_driver(tmp, sk_block1):
+    """11d: the mixture's two phases through the CLI at 64^3, the
+    fluctuating one with ``--block 2``: S(k) within 5% of kBT / cs^2,
+    beside phase 7's block-1 run."""
+    import os
+
+    import numpy as np
+
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.kernels import fused_step
+
+    eq = os.path.join(tmp, "k4_eq")
+    out = os.path.join(tmp, "k4_sk")
+    t0 = time.perf_counter()
+    run_mod.main(["--preset", "mixture-eq", "--shape", "64", "64", "64",
+                  "--nsteps", "500", "--plot-int", "100", "--out", eq])
+    fused_step.reset_launch_counts()
+    run_mod.main(["--preset", "mixture-fluct", "--shape", "64", "64", "64",
+                  "--checkpoint", os.path.join(eq, "checkpoint0000500"),
+                  "--nsteps", "600", "--sf-window", "400", "--sf-every",
+                  "10", "--plot-int", "0", "--block", "2", "--out", out])
+    nb, nk = fused_step.blocked_launches, fused_step.launches
+    with np.load(os.path.join(out, "structfact0001100.npz")) as d:
+        s_k = d["s_k"][0].real
+    centre = tuple(n // 2 for n in s_k.shape)
+    off = np.ones(s_k.shape, bool)
+    off[centre] = False
+    ratio = float(s_k[off].mean()) / (KBT / CS2)
+    print(f"[phase 11] run --preset mixture-fluct --block 2 (64^3, steps "
+          f"500-1100, from a mixture-eq checkpoint) in "
+          f"{time.perf_counter() - t0:.2f} s: K4 launches {nb}, K launches "
+          f"{nk}; mean Re S_rho,rho(k != 0) / (kBT / cs^2) = {ratio:.4f} "
+          f"(tol 0.05; phase 7, block auto: {sk_block1:.4f})", flush=True)
+    _check(nb > 0, "run --block 2 launched no K4 sweep")
+    _check(abs(ratio - 1.0) <= 0.05, f"S(k) ratio {ratio} at --block 2")
+
+
 def main() -> int:
     import torch
 
@@ -1918,7 +2160,8 @@ def main() -> int:
     # -- phase 3: the mixture path ------------------------------------------
     state = model.init_mixture(SHAPE, params, device=dev)
     view, counts, t_adv, t_enter = _run_session(
-        FusedSession(params, SHAPE, noise_dist="u8"), state, "phase 3")
+        FusedSession(params, SHAPE, noise_dist="u8", block=1), state,
+        "phase 3")
     del state
     n_k = CHUNK * NCHUNKS
     _check(counts == (n_k, 0), f"launches {counts} != ({n_k}, 0)")
@@ -2084,7 +2327,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         flag_launches = _driver_flag_modes(tmp, eq, ckpt)
         torch.cuda.empty_cache()
-        _driver_structfact(tmp)
+        sk_phase7 = _driver_structfact(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done(7)
@@ -2153,6 +2396,30 @@ def main() -> int:
         sharded[ms] = sharded[ms][:5]
     torch.cuda.empty_cache()
     phase_done(10)
+
+    # -- phase 11: K4, T steps a launch ---------------------------------------
+    k4_errs = {t: [] for t in K4_BLOCKS}
+    _k4_small(dev, k4_errs)
+    torch.cuda.empty_cache()
+    f, g = model.perturbed_populations(SHAPE, 7, device=dev)
+    k4_plain_ms = _k4_256(f, g, k4_errs)
+    k4_ms = _k4_times(f, g, cells)
+    del f, g
+    torch.cuda.empty_cache()
+    k4_sessions = _k4_sessions(dev, cells)
+    for (t, dist), (mlups, _) in k4_sessions.items():
+        ms = k4_ms[dist][t]
+        bound = _bound_ms("k1a" if t == 1 else f"k4_{t}", cells)[0]
+        print(f"[phase 11] 256^3 mixture {dist} T={t}: {mlups:.1f} MLUPS; "
+              f"launch {ms:.4f} ms = {ms / t:.4f} ms a step against a bound "
+              f"of {bound / t:.4f} ms a step", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        _k4_driver(tmp, sk_phase7)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_done(11)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
@@ -2227,6 +2494,19 @@ def main() -> int:
             "replaces": TPU_KERNEL, "mode": mode, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    for t in K4_BLOCKS:
+        key = f"k4_{t}"
+        bound, by = _bound_ms(key, cells)
+        record.append({
+            "name": f"blocked_kernel (K4, T = {t}, uncoupled, u8)",
+            "route": "cuda", "source": SRC + "blocked_step.cu",
+            "replaces": TPU_KERNEL,
+            "mode": f"K4: block = {t} (:1142-1867, phases :1799-1823), "
+                    "the intermediate phases in shared memory; 256^3",
+            "launches": k4_sessions[(t, "u8")][1],
+            "max_abs_err": max(k4_errs[t]), "ms": k4_ms["u8"][t],
+            "plain_ms": k4_plain_ms[t], "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

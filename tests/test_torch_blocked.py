@@ -1,0 +1,376 @@
+"""K4, T K steps per sweep (temporal blocking), on the CPU.
+
+The port's plain blocked sweep (``ops.blocked.blocked_sweep_reference``,
+the plain version of ``csrc/blocked_step.cu``, tile for tile) against
+JAX's blocked Pallas kernel in interpret mode and against composed
+one-step K calls; ``FusedSession(block=T)`` against the block-1
+composition with JAX's restore rule; the refusals and ``auto_block``.
+Tolerances: against JAX, those of ``tests/test_fused_kernel.py::
+test_blocked_equals_composed_with_noise`` (rtol 5e-4, atol 5e-7, the sums
+to 1e-6: another transform order); against the port's own composition
+atol 2e-6 (the same arithmetic; bitwise equality is printed).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from torch_parity import jax_words, perturbed_pops, to_np, to_torch
+
+import jax
+from bflbm_tpu.config import LBMParams as JParams
+from bflbm_tpu.kernels.fused_step import _fused_step_call
+from bflbm_tpu.models import binary_fluid as jmodel
+from bflbm_tpu.state import init_state as jinit
+from bflbm_tpu_torch import run as trun
+from bflbm_tpu_torch.config import LBMParams as TParams
+from bflbm_tpu_torch.kernels import fused_step as tfs
+from bflbm_tpu_torch.kernels.session import (FusedSession, ShardedSession,
+                                             make_session)
+from bflbm_tpu_torch.ops import blocked
+from bflbm_tpu_torch.parallel import mesh as tmesh_lib
+from bflbm_tpu_torch.state import init_state as tinit
+
+ATOL = 2e-6
+SHAPE = (8, 10, 12)   # no kernel tile divides it (y by 8, z by 32/16/8)
+WORDS = [1234567, -987654, 55555, -3, 2 ** 30]
+MODES = {   # name -> (LBMParams kwargs, generator, with the ref operand)
+    "off": (dict(kBT=0.0), "u8", False),
+    "u8": (dict(kBT=1e-5), "u8", False),
+    "clt4": (dict(kBT=1e-5), "clt4", False),
+    "clt2": (dict(kBT=1e-5), "clt2", False),
+    "bm": (dict(kBT=1e-5), "bm", False),
+    "ref": (dict(kBT=1e-5), "clt4", True),
+    "general": (dict(kBT=1e-5, tau_f=0.7, tau_g=0.6), "clt4", False),
+}
+
+
+def _state(shape, seed):
+    return tuple(to_torch(a) for a in perturbed_pops(shape, seed))
+
+
+def _ref_operand(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (1.0 + 0.1 * rng.standard_normal((2,) + shape)).astype(np.float32))
+
+
+def _composed(f, g, words, step0, params, dist, ref=None):
+    for s, w in enumerate(words):
+        f, g = tfs.k_step_reference(f, g, w, step0 + s, params, dist, ref)
+    return f, g
+
+
+def test_plain_sweep_matches_jax_blocked_kernel():
+    """One T = 2 sweep of the port's plain blocked version against JAX's
+    blocked kernel (``block=2, noise_impl="hash"``, interpret mode) on
+    the same words and step, uncoupled, clt4."""
+    shape = (8, 8, 8)
+    f, g = perturbed_pops(shape, 91)
+    w0, w1, s0 = 1234567, -987654, 42
+    with pltpu.force_tpu_interpret_mode():
+        jf, jg = _fused_step_call(
+            JParams(alpha0=0.0, kBT=1e-5), shape, (8, 8), True,
+            jnp.asarray([w0, w1, s0], jnp.int32), jnp.asarray(f),
+            jnp.asarray(g), block=2, noise_impl="hash", transform="mxu")
+    tp = TParams(alpha0=0.0, kBT=1e-5)
+    tf, tg = blocked.blocked_sweep_reference(
+        to_torch(f), to_torch(g), [w0, w1], s0, tp, 2,
+        tfs.blocked_tile(2, shape), "clt4")
+    np.testing.assert_allclose(to_np(tf), np.asarray(jf), rtol=5e-4,
+                               atol=5e-7)
+    np.testing.assert_allclose(to_np(tg), np.asarray(jg), rtol=5e-4,
+                               atol=5e-7)
+    np.testing.assert_allclose(float(tf.double().sum()),
+                               float(np.asarray(jf, np.float64).sum()),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("T", [2, 3, 4])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_plain_sweep_equals_composition(T, mode):
+    """Tiling with recomputed seams equals composition: the plain sweep on
+    the kernel's tiles (which do not divide SHAPE) against T one-step
+    plain K calls with the same words."""
+    kw, dist, with_ref = MODES[mode]
+    params = TParams(**kw)
+    f, g = _state(SHAPE, 92)
+    ref = _ref_operand(SHAPE, 93) if with_ref else None
+    got = blocked.blocked_sweep_reference(
+        f, g, WORDS[:T], 40, params, T, tfs.blocked_tile(T, SHAPE), dist, ref)
+    want = _composed(f, g, WORDS[:T], 40, params, dist, ref)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"T={T} {mode}: max |sweep - composed| = {err:.3e}, bitwise "
+          f"{all(torch.equal(a, b) for a, b in zip(got, want))}")
+    assert err <= ATOL
+
+
+@pytest.mark.parametrize("T,tile", [(2, (3, 4, 5)), (3, (5, 3, 7)),
+                                    (4, (2, 2, 16))])
+def test_plain_sweep_small_tiles(T, tile):
+    """Many tiles a domain, seams on every axis: still the composition."""
+    params = TParams(kBT=1e-5)
+    f, g = _state(SHAPE, 94)
+    got = blocked.blocked_sweep_reference(f, g, WORDS[:T], 7, params, T,
+                                          tile, "clt4")
+    want = _composed(f, g, WORDS[:T], 7, params, "clt4")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"T={T} tile {tile}: max |sweep - composed| = {err:.3e}")
+    assert err <= ATOL
+
+
+def test_tile_boxes_cover_the_domain():
+    seen = torch.zeros(SHAPE, dtype=torch.int64)
+    for box in blocked.tile_boxes(SHAPE, (3, 4, 5)):
+        keep = tuple((a, min(b, n)) for (a, b), n in zip(box, SHAPE))
+        blocked.box_view(seen, keep).add_(1)
+    assert bool((seen == 1).all())
+    xs = torch.arange(-3, 9)
+    got = blocked.periodic_box(xs.view(1, 1, -1), ((0, 1), (0, 1), (-2, 14)))
+    assert torch.equal(got[0, 0], torch.cat([xs[-2:], xs, xs[:2]]))
+
+
+def _session(params, words, chunks, block, restore, dist="u8"):
+    f, g = _state(SHAPE, 95)
+    sess = FusedSession(params, SHAPE, noise_dist=dist,
+                        mass_restore_int=restore, block=block)
+    pc = sess.enter(tinit(f, g, 5), words[0])
+    used = 1
+    for c in chunks:
+        pc = sess.advance(pc, c, words[used:used + c])
+        used += c
+    return pc
+
+
+def _restores(monkeypatch):
+    steps = []
+    real = tfs.mass_restore_step
+
+    def record(st, m0f, m0g):
+        steps.append(st.step)
+        return real(st, m0f, m0g)
+
+    monkeypatch.setattr(tfs, "mass_restore_step", record)
+    return steps
+
+
+def test_session_chunks_of_whole_sweeps_are_bitwise(monkeypatch):
+    """FusedSession(block=2, mass_restore_int=3): chunks [2, 2, 2] equal
+    [6] bitwise (the same sweeps), and the restores land on the sweep
+    ends that crossed a multiple of 3: steps 3 and 7, not 6, as in JAX."""
+    steps = _restores(monkeypatch)
+    p = TParams(kBT=1e-5)
+    words = [9 * k - 4 for k in range(7)]
+    a = _session(p, words, (6,), 2, 3)
+    assert steps == [3, 7]
+    b = _session(p, words, (2, 2, 2), 2, 3)
+    assert a.step == b.step == 7
+    assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+
+
+def test_session_other_split_within_restore_rounding(monkeypatch):
+    """[2, 3, 1] (sweeps, then a sweep and a single step, then a single
+    step) against [6]: the restore lands after step 6 instead of 7, so
+    the two agree to the restore's rounding only."""
+    steps = _restores(monkeypatch)
+    p = TParams(kBT=1e-5)
+    words = [9 * k - 4 for k in range(7)]
+    a = _session(p, words, (6,), 2, 3)
+    b = _session(p, words, (2, 3, 1), 2, 3)
+    assert steps == [3, 7, 3, 6]
+    err = max(float((a.f - b.f).abs().max()), float((a.g - b.g).abs().max()))
+    assert 0 < err <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["u8", "ref", "general"])
+def test_session_equals_block1_composition(mode):
+    """A block-2 session against one-step plain K calls with the mass
+    restore applied where JAX's rule puts it (after each sweep or single
+    step that crossed a multiple of the interval)."""
+    kw, dist, with_ref = MODES[mode]
+    p = TParams(**kw)
+    words = [5 * k + 1 for k in range(8)]
+    f, g = _state(SHAPE, 95)
+    ref_fields = None
+    if with_ref:
+        rho = f.sum(0) + 0.01
+        ref_fields = (rho, g.sum(0) + 0.01, torch.tensor([3.5, 4.5, 5.5],
+                                                         dtype=torch.float64))
+    sess = FusedSession(p, SHAPE, noise_dist=dist, mass_restore_int=3,
+                        block=2, ref_fields=ref_fields)
+    pc = sess.enter(tinit(f, g, 5), words[0])
+    want = pc.replace(f=pc.f.clone(), g=pc.g.clone())
+    m0 = sess._m0
+    ref = sess._ref_operand(sess._ref_shift(pc.f)) if with_ref else None
+    got = sess.advance(pc, 7, words[1:])
+    steps = [2, 2, 2, 1]
+    used = 1
+    for n in steps:
+        prev = want.step
+        fa, ga = _composed(want.f, want.g, words[used:used + n], want.step,
+                           p, dist, ref)
+        want = tfs._maybe_restore(prev, want.replace(f=fa, g=ga,
+                                                     step=prev + n),
+                                  (3,) + tuple(m0))
+        used += n
+    if with_ref:   # no COM crossing here: one roll for the whole advance
+        assert sess.ref_violations() == 0 and sess.ref_retry_steps == 0
+    err = max(float((got.f - want.f).abs().max()),
+              float((got.g - want.g).abs().max()))
+    print(f"{mode}: max |session - composition| = {err:.3e}, bitwise "
+          f"{torch.equal(got.f, want.f) and torch.equal(got.g, want.g)}")
+    assert got.step == want.step == 8 and err <= ATOL
+
+
+def test_make_ksteps_runs_sweeps_then_singles(monkeypatch):
+    """An advance of n at block T is n // T sweeps of T words each, then
+    n % T single steps; T is cut to n."""
+    calls = []
+    real_b, real_k = tfs.blocked_stream_collide, tfs.fused_stream_collide
+
+    def blocked_(f, g, words, step0, params, T, *a, **kw):
+        calls.append(("sweep", step0, T, list(words)))
+        return real_b(f, g, words, step0, params, T, *a, **kw)
+
+    def single(f, g, word, step, *a, **kw):
+        calls.append(("single", step, 1, [word]))
+        return real_k(f, g, word, step, *a, **kw)
+
+    monkeypatch.setattr(tfs, "blocked_stream_collide", blocked_)
+    monkeypatch.setattr(tfs, "fused_stream_collide", single)
+    p = TParams(kBT=1e-5)
+    f, g = _state(SHAPE, 96)
+    out = tfs.make_ksteps(p, 7, block=3, noise_dist="u8")(
+        tinit(f, g, 0, step=10), list(range(7)))
+    assert out.step == 17
+    assert calls == [("sweep", 10, 3, [0, 1, 2]), ("sweep", 13, 3, [3, 4, 5]),
+                     ("single", 16, 1, [6])]
+    calls.clear()
+    tfs.make_ksteps(p, 2, block=4, noise_dist="u8")(tinit(f, g, 0), [8, 9])
+    assert calls == [("sweep", 0, 2, [8, 9])]
+
+
+def test_blocked_session_matches_jax_hash_chain():
+    """The slice as a whole: FusedSession(block=2) over 9 K steps (four
+    sweeps and a single step) against JAX's all-hash jnp chain fed the
+    same words (atol 2e-5, as tests/test_torch_session.py)."""
+    shape = (16, 16, 16)
+    f, g = perturbed_pops(shape, 41)
+    _, words = jax_words(jax.random.PRNGKey(4), 10)
+    one = jax.jit(lambda s: jmodel.step(s, JParams(kBT=1e-5),
+                                        noise_source="hash",
+                                        noise_dist="u8")[0])
+    st = jinit(jnp.asarray(f), jnp.asarray(g), 4)
+    for _ in range(10):
+        st = one(st)
+    sess = FusedSession(TParams(kBT=1e-5), shape, mass_restore_int=0,
+                        noise_dist="u8", block=2)
+    pc = sess.enter(tinit(to_torch(f), to_torch(g), 4), words[0])
+    got = sess.exit(sess.advance(pc, 9, words[1:]))
+    assert got.step == int(st.step) == 10
+    np.testing.assert_allclose(to_np(got.f), np.asarray(st.f), rtol=0,
+                               atol=2e-5)
+    np.testing.assert_allclose(to_np(got.g), np.asarray(st.g), rtol=0,
+                               atol=2e-5)
+
+
+_DROPLET = dict(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0, kBT=1e-5)
+
+
+@pytest.mark.parametrize("kw", [_DROPLET,
+                                dict(_DROPLET, alpha0=1.2, alpha1=0.5,
+                                     rho_lo=0.1)])
+def test_coupled_and_alpha1_refuse_block(kw):
+    p = TParams(**kw)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
+        FusedSession(p, SHAPE, block=2)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
+        make_session(p, SHAPE, block=3)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
+        tfs.make_ksteps(p, 4, block=2)
+    f, g = _state(SHAPE, 97)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
+        tfs.blocked_stream_collide(f, g, [1, 2], 0, p, 2)
+    with pytest.raises(ValueError, match="uncoupled"):
+        tfs.blocked_stream_collide(f, g, [1], 0, p, 1)
+    assert isinstance(FusedSession(p, SHAPE, block=1), FusedSession)
+    assert tfs.auto_block(p, 100, "clt4") == 1
+
+
+def test_mesh_refuses_block():
+    mesh = tmesh_lib.make_mesh((2, 1, 1), "cpu")
+    p = TParams(kBT=1e-5)
+    with pytest.raises(ValueError, match="decomposed path at block T"):
+        make_session(p, (16, 16, 16), mesh=mesh, block=2)
+    with pytest.raises(ValueError, match="decomposed path at block T"):
+        ShardedSession(mesh, p, (16, 16, 16), block=4)
+    assert isinstance(make_session(p, (16, 16, 16), mesh=mesh, block=1),
+                      ShardedSession)
+
+
+@pytest.mark.parametrize("T", [0, -1, 2.0, 9])
+def test_bad_block_values_refused(T):
+    with pytest.raises(ValueError, match="block"):
+        FusedSession(TParams(kBT=1e-5), SHAPE, block=T)
+
+
+def test_block_past_shared_memory_refused():
+    """T = 5 on the 8 x 8 cross-section needs 317,376 bytes of shared
+    memory a block, past the 232,448 a block holds: refused on the CPU
+    too, since the plain version runs the kernel's tiles."""
+    p = TParams(kBT=1e-5)
+    with pytest.raises(ValueError, match="317376 bytes"):
+        FusedSession(p, SHAPE, block=5)
+    f, g = _state(SHAPE, 98)
+    with pytest.raises(ValueError, match="317376 bytes"):
+        tfs.blocked_stream_collide(f, g, [1] * 5, 0, p, 5)
+    assert tfs.blocked_smem_bytes(4, tfs.blocked_tile(4, SHAPE)) == 200640
+    assert tfs.blocked_smem_bytes(2, tfs.blocked_tile(2, SHAPE)) == 155040
+    assert tfs.blocked_smem_bytes(3, tfs.blocked_tile(3, SHAPE)) == 191520
+    with pytest.raises(ValueError, match="words"):
+        tfs.blocked_stream_collide(f, g, [1, 2, 3], 0, p, 2)
+
+
+def test_auto_block_table():
+    n = 100
+    for key, kw, dist, use_ref in (
+            ("off", dict(kBT=0.0), "u8", False),
+            ("u8", dict(kBT=1e-5), "u8", False),
+            ("clt4", dict(kBT=1e-5), "clt4", False),
+            ("clt2", dict(kBT=1e-5), "clt2", False),
+            ("bm", dict(kBT=1e-5), "bm", False),
+            ("ref", dict(kBT=1e-5), "clt4", True),
+            ("general", dict(kBT=1e-5, tau_f=0.7), "u8", False)):
+        p = TParams(**kw)
+        assert tfs.auto_block(p, n, dist, use_ref) == tfs.AUTO_BLOCK[key]
+        assert tfs.auto_block(p, 1, dist, use_ref) == 1
+        assert tfs.auto_block(p, 2, dist, use_ref) == min(
+            2, tfs.AUTO_BLOCK[key])
+        if not use_ref:
+            assert FusedSession(p, SHAPE, noise_dist=dist).block_for(n) \
+                == tfs.AUTO_BLOCK[key]
+    for T in tfs.AUTO_BLOCK.values():
+        tfs.check_block(TParams(kBT=1e-5), T)
+
+
+def test_run_block_option(tmp_path, monkeypatch):
+    """run(cfg, block=) and --block reach make_session."""
+    seen = []
+    real = trun.make_session
+
+    def record(*a, **kw):
+        seen.append(kw.get("block"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(trun, "make_session", record)
+    cfg = trun.preset("mixture-eq").replace(
+        shape=(8, 8, 8), nsteps=5, plot_int=0, print_int=0, sf_window=0,
+        t_window=0, out_dir=str(tmp_path / "a")).with_params(kBT=1e-5)
+    a = trun.run(cfg, device="cpu", block=2)
+    b = trun.run(dataclasses.replace(cfg, out_dir=str(tmp_path / "b")),
+                 device="cpu", block=1)
+    assert seen == [2, 1] and a.step == b.step == 5
+    assert float((a.f - b.f).abs().max()) <= ATOL

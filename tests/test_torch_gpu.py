@@ -753,3 +753,83 @@ def test_split_and_strips_sessions_match_cpu_and_serial(cuda, opts):
     cpu = go("cpu", opts)
     assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
         <= ATOL
+
+
+_K4_MODES = {   # name -> (LBMParams kwargs, generator, with the ref operand)
+    "off": (dict(kBT=0.0), "u8", False),
+    "u8": (dict(kBT=1e-5), "u8", False),
+    "clt4": (dict(kBT=1e-5), "clt4", False),
+    "clt2": (dict(kBT=1e-5), "clt2", False),
+    "bm": (dict(kBT=1e-5), "bm", False),
+    "ref": (dict(kBT=1e-5), "clt4", True),
+    "general": (dict(kBT=1e-5, tau_f=0.7, tau_g=0.6), "clt4", False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [2, 3, 4])
+@pytest.mark.parametrize("mode", sorted(_K4_MODES))
+@pytest.mark.parametrize("shape", [(16, 16, 16), (12, 20, 40)])
+def test_blocked_kernel_matches_plain(cuda, T, mode, shape):
+    """One K4 launch of T steps against its plain version (the plain sweep
+    on the kernel's tiles; (12, 20, 40) is divided by none) and against T
+    one-step K launches with the same words."""
+    from bflbm_tpu_torch.ops import blocked
+
+    kw, dist, with_ref = _K4_MODES[mode]
+    params = LBMParams(**kw)
+    f, g = model.perturbed_populations(shape, 31, device=cuda)
+    ref = (1.0 + 0.1 * torch.rand((2,) + shape, generator=torch.Generator()
+                                  .manual_seed(32))).to(cuda) \
+        if with_ref else None
+    words = [7919 * k - 3 for k in range(T)]
+    before = fused_step.blocked_launches
+    fo, go = fused_step.blocked_stream_collide(f, g, words, 40, params, T,
+                                               noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    assert fused_step.blocked_launches == before + 1
+    fr, gr = blocked.blocked_sweep_reference(
+        f, g, words, 40, params, T, fused_step.blocked_tile(T, f.shape),
+        dist, ref)
+    assert max(_maxdiff(fo, fr), _maxdiff(go, gr)) <= ATOL
+    fa, ga = f, g
+    for s, w in enumerate(words):
+        fa, ga = fused_step.fused_stream_collide(fa, ga, w, 40 + s, params,
+                                                 noise_dist=dist, ref=ref)
+    assert max(_maxdiff(fo, fa), _maxdiff(go, ga)) <= ATOL
+
+
+@pytest.mark.gpu
+def test_blocked_session_matches_cpu(cuda):
+    """FusedSession(block=3) on the card (1 + 7 steps, restore every 4)
+    against the same session on the CPU: two sweeps and a single step."""
+    params = LBMParams(kBT=1e-5)
+    shape = (16, 16, 32)
+    f, g = model.perturbed_populations(shape, 33, device="cpu")
+    words = [13 * k + 2 for k in range(8)]
+
+    def go(dev):
+        sess = FusedSession(params, shape, noise_dist="u8",
+                            mass_restore_int=4, block=3)
+        pc = sess.enter(init_state(f.to(dev), g.to(dev), 0), words[0])
+        return sess.exit(sess.advance(pc, 7, words[1:]))
+
+    fused_step.reset_launch_counts()
+    got = go(cuda)
+    assert fused_step.blocked_launches == 2 and fused_step.launches == 1
+    cpu = go("cpu")
+    assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
+        <= ATOL
+
+
+@pytest.mark.gpu
+def test_blocked_kernel_refusals(cuda):
+    f, g = model.perturbed_populations((8, 8, 8), 34, device=cuda)
+    p = LBMParams(kBT=1e-5)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_step.blocked_stream_collide(f, g, [1] * 5, 0, p, 5)
+    with pytest.raises(ValueError, match="alias"):
+        fused_step.blocked_stream_collide(f, g, [1, 2], 0, p, 2, out=(f, g))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fused_step.blocked_stream_collide(
+            f, g, [1, 2], 0, LBMParams(**_DROP, alpha0=1.5, kBT=1e-5), 2)

@@ -192,19 +192,47 @@ def test_build_is_keyed_by_sources():
                               "fused_step_general_force",
                               "fused_step_force_a1",
                               "fused_step_general_force_a1", "density_psi",
-                              "laplacian_psi")
+                              "laplacian_psi", "blocked_step",
+                              "blocked_step_general")
     for name in _build.SOURCES:
         so = _build.library_path(name)
         assert so.parent == _build.build_dir()
         assert so.parent.parts[-2:] == ("build", "bflbm_tpu_torch")
         assert so.name.startswith(f"lib{name}.")
         assert _build.source_hash(name) in so.name
-    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 8
+    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 10
     assert _build.LIBRARIES["fused_step_general_force"] == (
         "fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1"))
     assert _build.LIBRARIES["fused_step_general_force_a1"] == (
         "fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1",
                           "-DBFLBM_A1=1"))
+    assert _build.LIBRARIES["blocked_step_general"] == (
+        "blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=1",))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
+
+
+def test_lattice_tables_header_is_current():
+    """csrc/lattice_tables.cuh holds lattice.py's C, M and M_INV as the
+    float32 values the __constant__ tables get (tools/gen_lattice_tables.py
+    writes it)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "gen_lattice_tables.py"
+    spec = importlib.util.spec_from_file_location("gen_lattice_tables", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert gen.HEADER.read_text() == gen.render()
+    text = gen.HEADER.read_text()
+    from bflbm_tpu_torch import lattice as tlattice
+
+    for name, table in (("kLatM", tlattice.M), ("kLatMinv", tlattice.M_INV)):
+        body = text.split(f"float {name}[19][19] = {{")[1].split("};")[0]
+        got = np.array([[float.fromhex(v.strip().rstrip("f"))
+                         for v in row.split(",") if v.strip()]
+                        for row in body.replace("{", "").split("}")
+                        if row.strip(" ,\n")], np.float32)
+        np.testing.assert_array_equal(got, np.asarray(table, np.float32))

@@ -230,6 +230,7 @@ _ARGVS = [
     ["--preset", "droplet-eq", "--plot-fmt", "native"],
     ["--preset", "interface-eq", "--plot-fmt", "amrex"],
     ["--preset", "droplet-eq", "--mesh", "2", "1", "1"],
+    ["--preset", "mixture-fluct", "--block", "2", "--noise-dist", "u8"],
 ]
 
 

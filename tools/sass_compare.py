@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Instruction counts of the K kernels of two builds of the port, side by
 side: for every instantiation of a library in the first build, its SASS
-instruction count there, the count of the whole-domain (EXT = 0)
-instantiation with the same modes in the second build, and how many
-instructions of the two sequences match in order (a measure of how far
-the compiler rescheduled).  Needs ``cuobjdump`` (the CUDA toolkit).
+instruction count there, the count of the same instantiation in the
+second build (or, where the second build has none, of its whole-domain
+EXT = 0 one with the same modes), and how many instructions of the two
+sequences match in order (a measure of how far the compiler
+rescheduled).  Needs ``cuobjdump`` (the CUDA toolkit).
 
     python tools/sass_compare.py build/parent/build/bflbm_tpu_torch \\
         build/bflbm_tpu_torch [library ...]
@@ -57,17 +58,18 @@ def main(argv) -> int:
         a = kernels(glob.glob(os.path.join(first, f"lib{lib}.*.so"))[0])
         b = kernels(glob.glob(os.path.join(second, f"lib{lib}.*.so"))[0])
         for name, body in sorted(a.items()):
-            args = template_args(name)[:6]
-            match = [n for n, v in b.items()
-                     if template_args(n) == args + ["0"]
-                     or template_args(n) == args]
+            full = template_args(name)
+            args = full[:6]
+            match = ([n for n in b if template_args(n) == full]
+                     or [n for n in b
+                         if template_args(n) in (args + ["0"], args)])
             if not match:
                 print(f"{lib} <{','.join(args)}>: no counterpart")
                 continue
             other = b[match[0]]
             same = sum(m.size for m in difflib.SequenceMatcher(
                 None, body, other, autojunk=False).get_matching_blocks())
-            print(f"{lib} <{','.join(args)}>: {len(body)} instructions, "
+            print(f"{lib} <{','.join(full)}>: {len(body)} instructions, "
                   f"{len(other)} in the second build, {same} matching in "
                   "order")
     return 0
