@@ -3,10 +3,10 @@
 ``nvcc`` compiles each library of :data:`LIBRARIES` — a ``csrc/*.cu``
 source and its ``-D`` flags — into its own shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  ``fused_step.cu`` is built six times, once per relaxation
+seconds).  ``fused_step.cu`` and ``blocked_step.cu`` (K4, T steps a
+launch) are built six times each, once per relaxation
 (``BFLBM_GENERAL_RELAX``) and force (``BFLBM_FORCE``, and with it
-``BFLBM_A1``, the alpha1 square-gradient force), and ``blocked_step.cu``
-(K4, T steps a launch) twice, once per relaxation, so that their parts
+``BFLBM_A1``, the alpha1 square-gradient force), so that their parts
 compile in parallel.  The builds happen at first use, all libraries at
 once in parallel, into ``build/bflbm_tpu_torch/`` beside the package,
 and are cached by a hash of the source, the shared headers and the
@@ -59,6 +59,17 @@ LIBRARIES = {
     "laplacian_psi": ("laplacian_psi.cu", ()),
     "blocked_step": ("blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=0",)),
     "blocked_step_general": ("blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=1",)),
+    "blocked_step_force": ("blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=0",
+                                               "-DBFLBM_FORCE=1")),
+    "blocked_step_general_force": ("blocked_step.cu",
+                                   ("-DBFLBM_GENERAL_RELAX=1",
+                                    "-DBFLBM_FORCE=1")),
+    "blocked_step_force_a1": ("blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=0",
+                                                  "-DBFLBM_FORCE=1",
+                                                  "-DBFLBM_A1=1")),
+    "blocked_step_general_force_a1": ("blocked_step.cu",
+                                      ("-DBFLBM_GENERAL_RELAX=1",
+                                       "-DBFLBM_FORCE=1", "-DBFLBM_A1=1")),
 }
 SOURCES = tuple(LIBRARIES)
 _HEADERS = ("common.cuh", "k_cell.cuh", "lattice_tables.cuh")
@@ -159,7 +170,8 @@ def _build_unlocked() -> Dict[str, Path]:
 def ptxas_summary() -> List[str]:
     """One line per kernel instantiation of the current builds: its
     template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF,
-    A1, EXT>, blocked_kernel<NOISE, DIST, GENERAL, REF>) with the
+    A1, EXT>, blocked_kernel<NOISE, DIST, GENERAL, REF> of the library's
+    force and relaxation) with the
     ``-Xptxas -v`` registers and spills."""
     out = []
     for name in SOURCES:
@@ -203,9 +215,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "bflbm_blocked_step"):
         lib.bflbm_blocked_step.argtypes = [i, p, p, p, p, p, i, i, i, p, i,
                                            i, p, i, f, f, f, f, f, i, i, p,
-                                           p]
+                                           f, f, f, f, i, f, i, p]
         lib.bflbm_blocked_step.restype = i
-        lib.bflbm_blocked_smem.argtypes = [i, i, i]
+        lib.bflbm_blocked_smem.argtypes = [i, i, i, i]
         lib.bflbm_blocked_smem.restype = ctypes.c_longlong
     if hasattr(lib, "bflbm_laplacian_psi"):
         lib.bflbm_laplacian_psi.argtypes = [i, p, p, p, p, f, f, p]

@@ -3,59 +3,81 @@
 //
 // Replaces the TPU kernel bflbm_tpu/kernels/fused_step.py:_step_kernel at
 // block = T > 1 (the pl.pallas_call at fused_step.py:1956, its phases at
-// :1799-1823) for the uncoupled configurations (alpha0 = alpha1 = 0,
-// stencil depth 1): noise off or the hash stream with u8, clt4, clt2 or
+// :1790-1823): noise off or the hash stream with u8, clt4, clt2 or
 // Box-Muller deviates, the USE_REF_STATE operand (REF, read at every
-// phase, fused_step.py:1808-1817), and exact or general relaxation (the
-// BFLBM_GENERAL_RELAX=1 build).  The coupled and alpha1 modes would need
-// the density and laplacian pre-passes recomputed inside every phase; they
-// are not taken.
+// phase, fused_step.py:1808-1817), exact or general relaxation (the
+// BFLBM_GENERAL_RELAX=1 builds), and every stencil depth sd
+// (fused_step.sd_depth): uncoupled (alpha0 = alpha1 = 0, sd = 1), the
+// Shan-Chen force (alpha0 != 0, sd = 2, the BFLBM_FORCE=1 builds) and the
+// alpha1 square-gradient force (sd = 3, BFLBM_A1=1).  With a force each
+// phase recomputes what the one-step path takes from its pre-passes, from
+// its own streamed input, as _k_compute does inside every phase (:753-832):
+// psi of the streamed densities (csrc/density_psi.cu's arithmetic, the
+// optional Shan-Chen pseudopotential among it) on the phase's region grown
+// by sd - 1 cells, and under A1 their laplacian (csrc/laplacian_psi.cu's)
+// grown by 1; psi and the laplacian never reach device memory.
 //
 // What bounds it: a launch moves the 304 bytes a cell of one step (the 38
 // float32 populations read once, written once) for T steps, 304 / T a
-// cell a step, against T times the ~2,100 operations of a step plus those
-// of the recomputed ring cells.  The design keeps the T - 1 intermediate
-// steps out of device memory.
+// cell a step, against T times the ~2,100-3,000 operations of a step plus
+// those of the recomputed ring cells.  The design keeps the T - 1
+// intermediate steps, and every psi and laplacian, out of device memory.
 //
 // Design: x-marching columns.  One thread block per output tile of bx
 // x-planes by (by, bz) cells in y and z.  Phase s = 0..T-1 computes, plane
-// by plane, the tile grown by p_s = T - 1 - s cells on every side (the
-// JAX kernel's phase regions, stencil depth 1): (by + 2 p_s) x (bz + 2 p_s)
-// cells of planes x0 - p_s .. x0 + bx + p_s - 1.  Phase 0 pulls from device
-// memory with the periodic wrap; phase s >= 1 pulls from the planes phase
-// s - 1 keeps in shared memory, a ring of three (the x - 1, x, x + 1 of its
-// pull); the last phase (p = 0) writes the tile's cells that lie in the
-// domain, so a tile at the high edge of an axis it does not divide writes
-// only its cells inside the domain.  At march step t, phase s computes its
-// plane x0 - p_s + t - 2 s: phase s - 1 has just written the plane after
-// it, and the ring still holds the two before.  The phases of a march step
-// run in order with a barrier after each.  The march runs along x, the
-// arrays' slowest axis, so that the threads of a warp take neighbouring
-// cells along z and phase 0's device loads are contiguous.
+// by plane, the tile grown by p_s = sd (T - 1 - s) cells on every side
+// (the JAX kernel's phase regions): (by + 2 p_s) x (bz + 2 p_s) cells of
+// planes x0 - p_s .. x0 + bx + p_s - 1.  Phase 0 pulls from device memory
+// with the periodic wrap; phase s >= 1 pulls from the planes phase s - 1
+// keeps in shared memory; the last phase (p = 0) writes the tile's cells
+// that lie in the domain, so a tile at the high edge of an axis it does
+// not divide writes only its cells inside the domain.  A march step runs
+// the phases in order, each in up to three stages with a barrier after
+// each: (psi) psi of the plane sd - 1 ahead of the one it collides, on its
+// region grown by sd - 1; (lap, A1) the laplacian of the plane one ahead,
+// grown by 1; (collide) its plane, reading psi and the laplacian of the
+// planes x - 1, x, x + 1 for the gradients.  Phase s collides its plane
+// k = t - 2 sd s - (2 sd - 2) (from its first) at march step t, so phase
+// s - 1 has just written the last plane the psi stage pulls from, sd
+// ahead; each intermediate phase keeps a ring of sd + 2 population planes
+// (the x - 1 of the collide's pull to the x + sd of the psi stage's), a
+// ring of 3 psi planes (4 under A1: the lap stage reads one more) and one
+// of 3 laplacian planes.  The march runs along x, the arrays' slowest
+// axis, so that the threads of a warp take neighbouring cells along z and
+// phase 0's device loads are contiguous.
 //
 // Recomputed cells (the rings that neighbouring tiles compute too, and a
 // ring past the domain's edge, which wraps) are keyed by their wrapped
 // global coordinates: every computation of a cell pulls the same inputs and
 // draws bitwise the same noise, word s and step step0 + s at phase s.  The
-// cell arithmetic after the pull is k_cell.cuh's BFLBM_COLLIDE_CELL, the
-// code of the one-step kernel csrc/fused_step.cu, summed in the same order,
-// so a
-// blocked launch equals T one-step launches with the same words.  It
-// reads the lattice tables as compile-time constants (k_cell.cuh
-// ImmTables, the same float32 values): loop-invariant reads of the
-// __constant__ tables would be hoisted out of the cell loop into hundreds
-// of registers.
+// cell arithmetic after the pull is k_cell.cuh's BFLBM_COLLIDE_CELL_WITH,
+// the code of the one-step kernel csrc/fused_step.cu, with the gradients
+// of psi and of the laplacian summed from shared memory in gradient2's
+// order, the densities in the pre-pass's order i = 0..18, the laplacian in
+// laplacian_psi.cu's, so a blocked launch equals T one-step launches
+// (A, L and K) with the same words.  It reads the lattice tables as
+// compile-time constants (ImmTables and lattice_tables.cuh, the same
+// float32 values): loop-invariant reads of the __constant__ tables would
+// be hoisted out of the cell loop into hundreds of registers.
 //
-// Shared memory: an intermediate phase keeps 3 planes x 2 species x 19
-// populations x 4 bytes = 456 bytes a cell of its plane; the launch needs
-// the sum over s < T - 1, dynamic shared memory, allowed above 48 KB by
-// cudaFuncSetAttribute once per instantiation and device.  The host picks
-// the tile per T (kernels/fused_step.py blocked_tile): T = 2 (8 x 32),
-// 155,040 bytes; T = 3 (8 x 16), 191,520; T = 4 (8 x 8), 200,640, under the
-// 232,448 a block may hold.
+// Shared memory, per intermediate phase: sd + 2 planes x 2 species x 19
+// populations x 4 bytes a cell of its plane; per phase with a force: 3 (4
+// under A1) psi planes x 2 x 4 bytes a cell of its region grown by sd - 1,
+// and under A1 3 laplacian planes a cell of its region grown by 1.  The
+// launch needs the sum over the phases (bflbm_blocked_smem), dynamic shared
+// memory, allowed above 48 KB by cudaFuncSetAttribute once per
+// instantiation and device; the host picks the tile per (sd, T)
+// (kernels/fused_step.py blocked_tile) under the 232,448 bytes a block may
+// hold.
 
 #ifndef BFLBM_GENERAL_RELAX
 #define BFLBM_GENERAL_RELAX 0
+#endif
+#ifndef BFLBM_FORCE
+#define BFLBM_FORCE 0
+#endif
+#ifndef BFLBM_A1
+#define BFLBM_A1 0
 #endif
 
 #include "k_cell.cuh"
@@ -81,15 +103,25 @@ struct ImmTables {
 
 constexpr int KMAX = 8;            // most steps one launch takes
 constexpr int MAX_THREADS = 384;   // threads of a block, at most
-constexpr int RING = 3;            // planes an intermediate phase keeps
 constexpr int MAX_DEVICES = 64;
+constexpr bool kForce = BFLBM_FORCE != 0;
+constexpr bool kA1 = BFLBM_A1 != 0;
+static_assert(kForce || !kA1, "BFLBM_A1 needs BFLBM_FORCE");
+// This library's stencil depth: the pull 1, the psi gradient a second,
+// the gradient of the laplacian a third.
+constexpr int SD = kA1 ? 3 : (kForce ? 2 : 1);
+constexpr int POP_RING = SD + 2;   // population planes a phase keeps
+constexpr int PSI_RING = kA1 ? 4 : 3;
+constexpr int LAP_RING = 3;
 
 struct BArgs {
-  Args a;                  // fin, gin, ref, fout, gout, X, Y, Z, rx, nc
+  Args a;                  // fin, gin, ref, fout, gout, X, Y, Z, rx, nc, fc
   uint32_t words[KMAX];    // the noise word of each step
   uint32_t step0;          // the first step's label
   int T;                   // steps
   int bx, by, bz;          // the tile: x-planes, y and z cells
+  int use_sc;              // psi is the Shan-Chen pseudopotential
+  float n0;                // its reference density
 };
 
 // v mod n for any v, n > 0.
@@ -98,16 +130,85 @@ __device__ __forceinline__ int wrap_any(int v, int n) {
   return r < 0 ? r + n : r;
 }
 
-// The ring slot of x-plane x of the tile whose first plane is x0; a phase's
-// planes start at x0 - (T - 1) at the lowest.
-__device__ __forceinline__ int ring_slot(int x, int x0, int T) {
-  return (x - x0 + RING * T) % RING;
+// The floats one phase keeps in shared memory, on a region of ny x nz
+// cells: its population ring when it is not the last, its psi ring, its
+// laplacian ring.
+__host__ __device__ __forceinline__ long long phase_floats(int ny, int nz,
+                                                          bool last) {
+  long long n = 0;
+  if (!last) n += static_cast<long long>(POP_RING) * 2 * Q * ny * nz;
+  if (kForce)
+    n += static_cast<long long>(PSI_RING) * 2 * (ny + 2 * (SD - 1)) *
+         (nz + 2 * (SD - 1));
+  if (kA1) n += static_cast<long long>(LAP_RING) * 2 * (ny + 2) * (nz + 2);
+  return n;
 }
+
+// psi (with the Shan-Chen pseudopotential when use_sc) of a streamed
+// density: csrc/density_psi.cu psi_of.
+__device__ __forceinline__ float psi_of(float n, int use_sc, float n0) {
+  return use_sc ? n0 * (1.0f - expf(-n / n0)) : n;
+}
+
+// gradient2's 19-point isotropic gradient of both species of a field kept
+// in shared memory, at cell `cell` of planes vx[0..2] (x - 1, x, x + 1),
+// whose rows hold `rowz` cells and whose second species starts n floats
+// after the first: the same products summed in the same order.
+__device__ __forceinline__ void shared_gradient2(const float* (&vx)[3], int n,
+                                                 int cell, int rowz,
+                                                 float (&g0)[3],
+                                                 float (&g1)[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) g0[d] = g1[d] = 0.0f;
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
+              cz = ImmTables::c(i, 2);
+    const float* v = vx[cx + 1] + cell + cy * rowz + cz;
+    const float v0 = v[0];
+    const float v1 = v[n];
+    const float w = kLatGW[i];
+    g0[0] += (w * static_cast<float>(cx)) * v0;
+    g0[1] += (w * static_cast<float>(cy)) * v0;
+    g0[2] += (w * static_cast<float>(cz)) * v0;
+    g1[0] += (w * static_cast<float>(cx)) * v1;
+    g1[1] += (w * static_cast<float>(cy)) * v1;
+    g1[2] += (w * static_cast<float>(cz)) * v1;
+  }
+}
+
+// k_cell.cuh BFLBM_FORCES_FROM_ARRAYS with psi and its laplacian read from
+// the phase's rings: the kernel's locals psi_x, pn, pc, pnz (psi planes
+// x - 1, x, x + 1, the floats between species, the cell, a row) and
+// lap_x, ln, lc, lnz (the same for the laplacian).
+#define BLOCKED_FORCES(ARGS, CX, CY, CZ)                                     \
+  if (FORCE && (!A1 || ARGS.fc.k != 0.0f)) {                                  \
+    float grad_rho[3], grad_phi[3];                                           \
+    shared_gradient2(psi_x, pn, pc, pnz, grad_rho, grad_phi);                 \
+    const float psi_rho = psi_x[1][pc];                                       \
+    const float psi_phi = psi_x[1][pn + pc];                                  \
+_Pragma("unroll")                                                             \
+    for (int d = 0; d < 3; ++d) {                                             \
+      af[d] = ARGS.fc.k * psi_rho * grad_phi[d] * inv_rho;                    \
+      ag[d] = ARGS.fc.k * psi_phi * grad_rho[d] * inv_phi;                    \
+    }                                                                         \
+  }                                                                           \
+  if (A1) {                                                                   \
+    float gl_rho[3], gl_phi[3];                                               \
+    shared_gradient2(lap_x, ln, lc, lnz, gl_rho, gl_phi);                     \
+_Pragma("unroll")                                                             \
+    for (int d = 0; d < 3; ++d) {                                             \
+      af[d] = af[d] - ARGS.fc.a1 * gl_phi[d];                                 \
+      ag[d] = ag[d] - ARGS.fc.a1 * gl_rho[d];                                 \
+    }                                                                         \
+  }
 
 template <bool NOISE, int DIST, bool GENERAL, bool REF>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     blocked_kernel(const BArgs p) {
-  constexpr bool FORCE = false, A1 = false, EXT = false;   // uncoupled
+  constexpr bool FORCE = kForce, A1 = kA1, EXT = false;
+  constexpr int LAG = 2 * SD;       // march steps between two phases
+  constexpr int LEAD = 2 * SD - 2;  // march steps the psi stage runs ahead
   extern __shared__ float ring[];
   const Args& args = p.a;
   const int X = args.X, Y = args.Y, Z = args.Z, T = p.T;
@@ -115,34 +216,142 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int x0 = blockIdx.x * p.bx;
   const int y0 = blockIdx.y * p.by;
   const int z0 = blockIdx.z * p.bz;
-  const int nt = p.bx + 2 * (T - 1);   // march steps
+  const int nt = p.bx + LAG * (T - 1) + LEAD;   // march steps
   for (int t = 0; t < nt; ++t) {
-    const float* prev = nullptr;       // phase s - 1's ring
-    float* mine = ring;                // phase s's ring
+    const float* prev = nullptr;       // phase s - 1's population ring
+    float* slab = ring;                // phase s's shared memory
     for (int s = 0; s < T; ++s) {
-      const int ps = T - 1 - s;
+      const int ps = SD * (T - 1 - s);
       const int ny = p.by + 2 * ps, nz = p.bz + 2 * ps;
+      const int nx = p.bx + 2 * ps;
       const int ncell = ny * nz;
-      const int k = t - 2 * s;         // the phase's plane, from its first
-      const bool last = s == T - 1;
-      const int x = x0 - ps + k;       // unwrapped
-      if (k >= 0 && k < p.bx + 2 * ps && !(last && x >= X)) {
-        const int xw = wrap_any(x, X);
-        // word s, selected without indexing the parameter array at run time
-        uint32_t word = p.words[0];
+      const int k = t - LAG * s - LEAD;  // the plane it collides, from its
+      const bool last = s == T - 1;      // first x0 - ps
+      // phase s - 1's planes: its region, SD cells wider on each side
+      const int qnz = nz + 2 * SD, qn = (ny + 2 * SD) * qnz;
+      // this phase's rings: populations, psi (grown by SD - 1), laplacian
+      // (grown by 1)
+      float* mine = slab;
+      const int pnz = nz + 2 * (SD - 1), pn = (ny + 2 * (SD - 1)) * pnz;
+      float* psi_ring = mine + (last ? 0 : POP_RING * 2 * Q * ncell);
+      const int lnz = nz + 2, ln = (ny + 2) * lnz;
+      float* lap_ring = psi_ring + (FORCE ? PSI_RING * 2 * pn : 0);
+      slab += phase_floats(ny, nz, last);
+      // word s, selected without indexing the parameter array at run time
+      uint32_t word = p.words[0];
 #pragma unroll
-        for (int q = 1; q < KMAX; ++q)
-          if (q == s) word = p.words[q];
-        const uint32_t step = p.step0 + static_cast<uint32_t>(s);
-        // phase s - 1's planes x - 1, x, x + 1, one cell wider on each side
-        const int pnz = nz + 2, pn = (ny + 2) * pnz;
+      for (int q = 1; q < KMAX; ++q)
+        if (q == s) word = p.words[q];
+      const uint32_t step = p.step0 + static_cast<uint32_t>(s);
+
+      if (FORCE) {
+        // (psi) plane x0 - ps + kp of psi, on the region grown by SD - 1
+        const int kp = k + SD - 1;
+        if (kp >= 1 - SD && kp < nx + SD - 1) {
+          const int x = x0 - ps + kp;
+          const int xw = wrap_any(x, X);
+          float* out = psi_ring + wrap_any(x - x0, PSI_RING) * (2 * pn);
+          const float* below = nullptr;
+          const float* here = nullptr;
+          const float* above = nullptr;
+          if (s > 0) {
+            below = prev + wrap_any(x - 1 - x0, POP_RING) * (2 * Q * qn);
+            here = prev + wrap_any(x - x0, POP_RING) * (2 * Q * qn);
+            above = prev + wrap_any(x + 1 - x0, POP_RING) * (2 * Q * qn);
+          }
+          for (int c = threadIdx.x; c < pn; c += blockDim.x) {
+            const int j = c / pnz, l = c - j * pnz;
+            float rho = 0.0f, phi = 0.0f;
+            if (s == 0) {
+              const int yw = wrap_any(y0 - ps - (SD - 1) + j, Y);
+              const int zw = wrap_any(z0 - ps - (SD - 1) + l, Z);
+#pragma unroll
+              for (int i = 0; i < Q; ++i) {
+                const size_t src =
+                    i * plane + cell_offset(wrap(xw - ImmTables::c(i, 0), X),
+                                            wrap(yw - ImmTables::c(i, 1), Y),
+                                            wrap(zw - ImmTables::c(i, 2), Z),
+                                            Y, Z);
+                rho += __ldg(args.fin + src);
+                phi += __ldg(args.gin + src);
+              }
+            } else {
+#pragma unroll
+              for (int i = 0; i < Q; ++i) {
+                const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
+                          cz = ImmTables::c(i, 2);
+                const float* src =
+                    (cx > 0 ? below : (cx < 0 ? above : here)) +
+                    (j + 1 - cy) * qnz + (l + 1 - cz);
+                rho += src[i * qn];
+                phi += src[(Q + i) * qn];
+              }
+            }
+            out[c] = psi_of(rho, p.use_sc, p.n0);
+            out[pn + c] = psi_of(phi, p.use_sc, p.n0);
+          }
+        }
+        __syncthreads();
+        if (A1) {
+          // (lap) plane x0 - ps + kl of the laplacian, on the region grown
+          // by 1: laplacian_psi.cu's sum over the psi ring
+          const int kl = k + 1;
+          if (kl >= -1 && kl < nx + 1) {
+            const int x = x0 - ps + kl;
+            float* out = lap_ring + wrap_any(x - x0, LAP_RING) * (2 * ln);
+            for (int c = threadIdx.x; c < ln; c += blockDim.x) {
+              const int j = c / lnz, l = c - j * lnz;
+              const int pc = (j + SD - 2) * pnz + (l + SD - 2);
+              float acc[2] = {0.0f, 0.0f};
+#pragma unroll
+              for (int i = 1; i < Q; ++i) {
+                const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
+                          cz = ImmTables::c(i, 2);
+                const float* v = psi_ring +
+                                 wrap_any(x + cx - x0, PSI_RING) * (2 * pn) +
+                                 pc + cy * pnz + cz;
+                acc[0] += kLatW[i] * v[0];
+                acc[1] += kLatW[i] * v[pn];
+              }
+              const float* v =
+                  psi_ring + wrap_any(x - x0, PSI_RING) * (2 * pn);
+#pragma unroll
+              for (int sp = 0; sp < 2; ++sp)
+                out[sp * ln + c] =
+                    kLatTwoCs2 * (acc[sp] - kLatWSum * v[sp * pn + pc]);
+            }
+          }
+          __syncthreads();
+        }
+      }
+
+      // (collide) plane x0 - ps + k
+      const int x = x0 - ps + k;       // unwrapped
+      if (k >= 0 && k < nx && !(last && x >= X)) {
+        const int xw = wrap_any(x, X);
+        // phase s - 1's planes x - 1, x, x + 1
         const float* below = nullptr;
         const float* here = nullptr;
         const float* above = nullptr;
         if (s > 0) {
-          below = prev + ring_slot(x - 1, x0, T) * (2 * Q * pn);
-          here = prev + ring_slot(x, x0, T) * (2 * Q * pn);
-          above = prev + ring_slot(x + 1, x0, T) * (2 * Q * pn);
+          below = prev + wrap_any(x - 1 - x0, POP_RING) * (2 * Q * qn);
+          here = prev + wrap_any(x - x0, POP_RING) * (2 * Q * qn);
+          above = prev + wrap_any(x + 1 - x0, POP_RING) * (2 * Q * qn);
+        }
+        // psi and laplacian planes x - 1, x, x + 1
+        const float* psi_x[3] = {nullptr, nullptr, nullptr};
+        const float* lap_x[3] = {nullptr, nullptr, nullptr};
+        if (FORCE) {
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            psi_x[d] =
+                psi_ring + wrap_any(x + d - 1 - x0, PSI_RING) * (2 * pn);
+        }
+        if (A1) {
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            lap_x[d] =
+                lap_ring + wrap_any(x + d - 1 - x0, LAP_RING) * (2 * ln);
         }
         for (int c = threadIdx.x; c < ncell; c += blockDim.x) {
           const int j = c / nz, l = c - j * nz;
@@ -179,14 +388,17 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
               const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
                         cz = ImmTables::c(i, 2);
               const float* src = (cx > 0 ? below : (cx < 0 ? above : here)) +
-                                 (j + 1 - cy) * pnz + (l + 1 - cz);
-              const float fi = src[i * pn];
-              const float gi = src[(Q + i) * pn];
+                                 (j + SD - cy) * qnz + (l + SD - cz);
+              const float fi = src[i * qn];
+              const float gi = src[(Q + i) * qn];
               pull_add<GENERAL, ImmTables>(i, cx, cy, cz, fi, gi, rho, phi,
                                            jf, jg, mf, mg);
             }
           }
           const size_t idx = cell_offset(xw, yw, zw, Y, Z);
+          // the cell in the psi and laplacian rings
+          const int pc = (j + SD - 1) * pnz + (l + SD - 1);
+          const int lc = (j + 1) * lnz + (l + 1);
           float* fo;
           float* go;
           size_t oplane, oidx;
@@ -196,20 +408,20 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             oplane = plane;
             oidx = idx;
           } else {
-            fo = mine + ring_slot(x, x0, T) * (2 * Q * ncell);
+            fo = mine + wrap_any(x - x0, POP_RING) * (2 * Q * ncell);
             go = fo + Q * ncell;
             oplane = static_cast<size_t>(ncell);
             oidx = static_cast<size_t>(c);
           }
-          BFLBM_COLLIDE_CELL(args, word, step, xw, yw, zw, fo, go, oplane,
-                             oidx, ImmTables);
+          BFLBM_COLLIDE_CELL_WITH(args, word, step, xw, yw, zw, fo, go,
+                                  oplane, oidx, ImmTables,
+                                  BLOCKED_FORCES);
         }
       }
       // phase s + 1 reads what phase s wrote, and the next march step's
       // phase s overwrites a plane phase s + 1 has just read
       __syncthreads();
       prev = mine;
-      mine += RING * 2 * Q * ncell;
     }
   }
 }
@@ -281,19 +493,23 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float* m,
   return static_cast<int>(e);
 }
 
-// Dynamic shared memory bytes of a launch of T steps on tiles of (by, bz)
-// cells in y and z: 456 bytes a cell of each intermediate phase's plane.
-extern "C" long long bflbm_blocked_smem(int T, int by, int bz) {
-  long long cells = 0;
-  for (int s = 0; s + 1 < T; ++s) {
-    const int ps = T - 1 - s;
-    cells += static_cast<long long>(by + 2 * ps) * (bz + 2 * ps);
+// Dynamic shared memory bytes of a launch of T steps at stencil depth sd
+// on tiles of (by, bz) cells in y and z: the sum of every phase's rings
+// (phase_floats), or -1 for a depth this library does not run.
+extern "C" long long bflbm_blocked_smem(int sd, int T, int by, int bz) {
+  if (sd != SD) return -1;
+  long long floats = 0;
+  for (int s = 0; s < T; ++s) {
+    const int ps = SD * (T - 1 - s);
+    floats += phase_floats(by + 2 * ps, bz + 2 * ps, s == T - 1);
   }
-  return cells * RING * 2 * Q * static_cast<long long>(sizeof(float));
+  return floats * static_cast<long long>(sizeof(float));
 }
 
 // T K steps on device pointers (19, X, Y, Z) float32, z contiguous, whole
-// periodic domain: fin, gin -> fout, gout (which must not alias them).
+// periodic domain: fin, gin -> fout, gout (which must not alias them), at
+// the stencil depth sd of this library's build (1; 2 with BFLBM_FORCE; 3
+// with BFLBM_A1).
 // words: host array of the T int32 noise words, the step of word s being
 // step0 + s.  tile: host array {bx, by, bz}, the output tile (x-planes, y
 // and z cells); threads: the block's threads, a multiple of 32 up to 384.
@@ -301,9 +517,12 @@ extern "C" long long bflbm_blocked_smem(int T, int by, int bz) {
 // null (read only with noise on).  dist: 0 u8, 1 clt4, 2 clt2, 3
 // Box-Muller.  coef: host array [pref_mom, cf[15], cg[15], scale, off].
 // lam_f, lam_g: 1 / (tau + 1/2), read by the general-relaxation build.
-// Returns cudaErrorInvalidValue for arguments it does not take (T outside
-// 1..8, a tile or thread count out of range, more shared memory than a
-// block of the device may hold), else cudaGetLastError() after the launch.
+// force_k = -cs^2 alpha0; a1 = cs^2 alpha1; s_f, s_g the Guo prefactors;
+// use_sc, n0: psi is the pseudopotential with reference density n0 (read
+// by the force builds).  Returns cudaErrorInvalidValue for arguments it
+// does not take (another sd, T outside 1..8, a tile or thread count out of
+// range, more shared memory than a block of the device may hold), else
+// cudaGetLastError() after the launch.
 extern "C" int bflbm_blocked_step(int device, const float* fin,
                                   const float* gin, const float* ref,
                                   float* fout, float* gout, int X, int Y,
@@ -311,14 +530,16 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
                                   const int* tile, int threads, float eps,
                                   float half_lam_f, float half_lam_g,
                                   float lam_f, float lam_g, int noise_on,
-                                  int dist, const float* coef, void* stream) {
+                                  int dist, const float* coef, float force_k,
+                                  float a1, float s_f, float s_g, int use_sc,
+                                  float n0, int sd, void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
-  if (T < 1 || T > KMAX || tile[0] < 1 || tile[1] < 1 || tile[2] < 1 ||
-      threads < 32 || threads > MAX_THREADS || threads % 32 != 0 ||
-      X < 1 || Y < 1 || Z < 1 || device < 0 || device >= MAX_DEVICES)
+  if (sd != SD || T < 1 || T > KMAX || tile[0] < 1 || tile[1] < 1 ||
+      tile[2] < 1 || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 != 0 || X < 1 || Y < 1 || Z < 1 || device < 0 || device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = bflbm_blocked_smem(T, tile[1], tile[2]);
+  const long long smem = bflbm_blocked_smem(sd, T, tile[1], tile[2]);
   int optin = 0;
   cudaError_t e = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -334,6 +555,9 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
   b.a.Y = Y;
   b.a.Z = Z;
   b.a.rx = Relax{eps, half_lam_f, half_lam_g, lam_f, lam_g};
+  b.a.fc = Force{force_k, a1, s_f, s_g};
+  b.use_sc = use_sc;
+  b.n0 = n0;
   b.a.nc.pref_mom = coef[0];
   for (int k = 0; k < NGHOST; ++k) {
     b.a.nc.cf[k] = coef[1 + k];

@@ -351,21 +351,21 @@ __device__ __forceinline__ void gradient2(const float* __restrict__ v,
 // array's global origin, with the global extents) and the centre of the
 // FORCE and A1 gradients; the 19 post-collide populations of each species
 // are stored as FOUT[i * OPLANE + OIDX] and GOUT[...]; TAB: where the back
-// transform reads M_INV.  mf and mg are overwritten.
+// transform reads M_INV.  mf and mg are overwritten.  The accelerations
+// come from BFLBM_FORCES_FROM_ARRAYS; BFLBM_COLLIDE_CELL_WITH takes another
+// macro of the same arguments in its place (FORCES), which sets af and ag
+// from inv_rho and inv_phi with the same arithmetic on psi and lap kept
+// elsewhere (csrc/blocked_step.cu, in shared memory).
 #define BFLBM_COLLIDE_CELL(ARGS, WORD, STEP, CX, CY, CZ, FOUT, GOUT,       \
                            OPLANE, OIDX, TAB)                             \
-  do {                                                                        \
-  const Relax& rx = ARGS.rx;                                                  \
-  const float inv_rho = safe_inv(rho, rx.eps);                                \
-  const float inv_phi = safe_inv(phi, rx.eps);                                \
-  const float inv_rhot = safe_inv(rho + phi, rx.eps);                         \
-  const float wf = phi * inv_rhot;                                            \
-  const float wg = rho * inv_rhot;                                            \
-                                                                              \
-  /* Shan-Chen accelerations from psi of the streamed densities (skipped */   \
-  /* under A1 with alpha0 = 0, as in the JAX kernel), then the alpha1 */      \
-  /* square-gradient force from the laplacian of psi. */                      \
-  float af[3] = {0.0f, 0.0f, 0.0f}, ag[3] = {0.0f, 0.0f, 0.0f};               \
+  BFLBM_COLLIDE_CELL_WITH(ARGS, WORD, STEP, CX, CY, CZ, FOUT, GOUT, OPLANE, \
+                          OIDX, TAB, BFLBM_FORCES_FROM_ARRAYS)
+
+// Shan-Chen accelerations from psi of the streamed densities (skipped
+// under A1 with alpha0 = 0, as in the JAX kernel), then the alpha1
+// square-gradient force from the laplacian of psi: the (2, X, Y, Z)
+// arrays ARGS.psi and ARGS.lap, neighbours through gradient2.
+#define BFLBM_FORCES_FROM_ARRAYS(ARGS, CX, CY, CZ)                           \
   if (FORCE && (!A1 || ARGS.fc.k != 0.0f)) {                                  \
     float grad_rho[3], grad_phi[3];                                           \
     gradient2(ARGS.psi, plane, CX, CY, CZ, X, Y, Z, grad_rho, grad_phi);      \
@@ -385,7 +385,20 @@ _Pragma("unroll")                                                             \
       af[d] = af[d] - ARGS.fc.a1 * gl_phi[d];                                 \
       ag[d] = ag[d] - ARGS.fc.a1 * gl_rho[d];                                 \
     }                                                                         \
-  }                                                                           \
+  }
+
+#define BFLBM_COLLIDE_CELL_WITH(ARGS, WORD, STEP, CX, CY, CZ, FOUT, GOUT,  \
+                                OPLANE, OIDX, TAB, FORCES)                \
+  do {                                                                        \
+  const Relax& rx = ARGS.rx;                                                  \
+  const float inv_rho = safe_inv(rho, rx.eps);                                \
+  const float inv_phi = safe_inv(phi, rx.eps);                                \
+  const float inv_rhot = safe_inv(rho + phi, rx.eps);                         \
+  const float wf = phi * inv_rhot;                                            \
+  const float wg = rho * inv_rhot;                                            \
+                                                                              \
+  float af[3] = {0.0f, 0.0f, 0.0f}, ag[3] = {0.0f, 0.0f, 0.0f};               \
+  FORCES(ARGS, CX, CY, CZ)                                                    \
                                                                               \
   /* Noise moments xi_f, xi_g (rows 1..18; row 0 carries none), with the */   \
   /* amplitudes at the live densities or, under REF, at the stored ones. */   \

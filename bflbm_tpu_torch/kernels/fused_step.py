@@ -26,8 +26,10 @@ the live densities or from a stored reference state (USE_REF_STATE, the
   square-gradient force.
 
 :func:`blocked_stream_collide` runs T steps in one launch (K4, temporal
-blocking) of ``csrc/blocked_step.cu`` for the uncoupled configurations,
-the intermediate steps kept in shared memory (plain version
+blocking) of ``csrc/blocked_step.cu`` in every configuration, the
+intermediate steps kept in shared memory and, with a force, psi and its
+laplacian recomputed inside every step from its own input, with no
+pre-pass (plain version
 :func:`bflbm_tpu_torch.ops.blocked.blocked_sweep_reference`, tile for
 tile); :func:`make_ksteps` takes ``block=T`` and :func:`auto_block` picks
 T from the card's measurements.
@@ -770,60 +772,85 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
 # what caps T.
 SMEM_PER_BLOCK = 232448
 _BLOCKED_MAX_THREADS = 384
-# The (y, z) cross-section of a blocked tile per T, the largest whose
-# shared memory fits (the tile marches along all of x): 8 x 32 at T = 2
-# (155,040 bytes), 8 x 16 at T = 3 (191,520), 8 x 8 at T = 4 (200,640);
-# T >= 5 needs 317,376 bytes on 8 x 8.
-_BLOCKED_SECTIONS = {1: (8, 32), 2: (8, 32), 3: (8, 16), 4: (8, 8)}
+# The (y, z) cross-section of a blocked tile per (stencil depth, T), the
+# tile marching along all of x.  Uncoupled (sd = 1), the largest whose
+# shared memory fits: 8 x 32 at T = 2 (155,040 bytes), 8 x 16 at T = 3
+# (191,520), 8 x 8 at T = 4 (200,640); T >= 5 needs 317,376 on 8 x 8.
+# With a force (each intermediate phase keeping sd + 2 population planes,
+# every phase 3 psi planes, 4 and 3 laplacian planes under alpha1), the
+# fastest of the tiles that fit at 256^3 on an H100 (tools/k4_tiles.py,
+# PERF.md section 6): coupled (sd = 2) 8 x 16 at T = 2 (157,632), 4 x 8 at
+# T = 3 (185,952), T = 4 needs 297,856 on 4 x 4; alpha1 (sd = 3) 4 x 16 at
+# T = 2 (193,472), T = 3 needs 303,776 on 4 x 4.
+_BLOCKED_SECTIONS = {(1, 2): (8, 32), (1, 3): (8, 16), (1, 4): (8, 8),
+                     (2, 2): (8, 16), (2, 3): (4, 8), (3, 2): (4, 16)}
 # Where the configurations the blocked sweep does not run are queued.
-K4_COUPLED_ITEM = "ROADMAP Queue 2: K4 for the coupled and alpha1 paths"
-K4_MESH_ITEM = "ROADMAP Queue 2: the decomposed path at block T"
+K4_MESH_ITEM = ("ROADMAP Queue 2: the decomposed path at block T, for every "
+                "stencil depth")
 
 
-def blocked_tile(T: int, shape) -> Tuple[int, int, int]:
-    """The output tile of a T-step sweep over arrays (.., X, Y, Z): all X
-    planes, and the (y, z) cross-section of ``_BLOCKED_SECTIONS``."""
-    by, bz = _BLOCKED_SECTIONS.get(int(T), (8, 8))
+def blocked_tile(T: int, shape, sd: int = 1) -> Tuple[int, int, int]:
+    """The output tile of a T-step sweep at stencil depth sd
+    (:func:`sd_depth`) over arrays (.., X, Y, Z): all X planes, and the
+    (y, z) cross-section of ``_BLOCKED_SECTIONS`` (8 x 32 at T = 1; past
+    the table the smallest tile considered, 8 x 8 uncoupled, 4 x 4 with a
+    force)."""
+    T, sd = int(T), int(sd)
+    default = (8, 32) if T == 1 else ((8, 8) if sd == 1 else (4, 4))
+    by, bz = _BLOCKED_SECTIONS.get((sd, T), default)
     return (int(tuple(shape)[-3]), by, bz)
 
 
-def blocked_smem_bytes(T: int, tile) -> int:
-    """Dynamic shared memory of a T-step launch on `tile` (as
-    ``csrc/blocked_step.cu`` bflbm_blocked_smem): three planes of 2 x 19
-    float32 a cell of each intermediate phase, whose plane is the (y, z)
-    cross-section grown by T - 1 - s cells on each side."""
+def _phase_regions(T: int, tile, sd: int):
+    """(y, z) extents of each phase's region: the tile grown by
+    sd (T - 1 - s) cells on each side."""
     _, by, bz = tile
-    return sum(3 * 2 * Q * 4 * (by + 2 * p) * (bz + 2 * p)
-               for p in range(1, int(T)))
+    return [(by + 2 * sd * (T - 1 - s), bz + 2 * sd * (T - 1 - s))
+            for s in range(int(T))]
 
 
-def blocked_threads(T: int, tile) -> int:
-    """Threads of a blocked launch: phase 0's cells of a plane, rounded
-    up to a warp, at most 384 (the threads loop over more)."""
-    _, by, bz = tile
-    cells = (by + 2 * (T - 1)) * (bz + 2 * (T - 1))
+def blocked_smem_bytes(T: int, tile, sd: int = 1) -> int:
+    """Dynamic shared memory of a T-step launch at stencil depth sd on
+    `tile` (as ``csrc/blocked_step.cu`` bflbm_blocked_smem), float32 planes
+    of each phase's region: sd + 2 planes of 2 x 19 populations a cell of
+    each intermediate phase; with a force, 3 planes of the two psi fields
+    (4 under alpha1) on every phase's region grown by sd - 1, and under
+    alpha1 3 planes of their laplacian grown by 1."""
+    psi_ring = 4 if sd == 3 else 3
+    floats = 0
+    for s, (ny, nz) in enumerate(_phase_regions(T, tile, sd)):
+        if s < T - 1:
+            floats += (sd + 2) * 2 * Q * ny * nz
+        if sd >= 2:
+            floats += psi_ring * 2 * (ny + 2 * (sd - 1)) * (nz + 2 * (sd - 1))
+        if sd == 3:
+            floats += 3 * 2 * (ny + 2) * (nz + 2)
+    return 4 * floats
+
+
+def blocked_threads(T: int, tile, sd: int = 1) -> int:
+    """Threads of a blocked launch: the cells of phase 0's widest stage (its
+    psi region, grown by sd - 1, with a force), rounded up to a warp, at
+    most 384 (the threads loop over more)."""
+    ny, nz = _phase_regions(T, tile, sd)[0]
+    cells = (ny + 2 * (sd - 1)) * (nz + 2 * (sd - 1))
     return min(_BLOCKED_MAX_THREADS, -(-cells // 32) * 32)
 
 
 def check_block(params: LBMParams, T) -> None:
-    """Raise ValueError for a block T the port does not run: below 1,
-    above 1 for a coupled or alpha1 configuration, or more shared memory
-    on its tile (:func:`blocked_tile`) than a thread block holds."""
+    """Raise ValueError for a block T the port does not run: below 1, or
+    more shared memory on its tile (:func:`blocked_tile` at the
+    configuration's stencil depth) than a thread block holds."""
     if isinstance(T, bool) or not isinstance(T, (int, np.integer)) or T < 1:
         raise ValueError(f"block must be an integer >= 1, got {T!r}")
-    T = int(T)
-    if T > 1 and is_coupled(params):
-        raise ValueError(
-            f"block = {T} > 1 runs uncoupled configurations only (alpha0 = "
-            f"alpha1 = 0); the coupled and alpha1 paths run block 1 "
-            f"({K4_COUPLED_ITEM})")
-    tile = blocked_tile(T, (1, 1, 1))   # its x extent needs no memory
-    need = blocked_smem_bytes(T, tile)
+    T, sd = int(T), sd_depth(params)
+    tile = blocked_tile(T, (1, 1, 1), sd)   # its x extent needs no memory
+    need = blocked_smem_bytes(T, tile, sd)
     if need > SMEM_PER_BLOCK:
         raise ValueError(
-            f"block = {T} on tiles of {tile[1]} x {tile[2]} cells (y, z) "
-            f"needs {need} bytes of shared memory; a thread block holds at "
-            f"most {SMEM_PER_BLOCK}")
+            f"block = {T} at stencil depth {sd} on tiles of {tile[1]} x "
+            f"{tile[2]} cells (y, z) needs {need} bytes of shared memory; a "
+            f"thread block holds at most {SMEM_PER_BLOCK}")
 
 
 def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
@@ -837,9 +864,9 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     pair at label step0 + T (written into `out` when given; it must not
     alias f or g).  ref: the (2, X, Y, Z) USE_REF_STATE amplitude fields,
     held for the T steps, or None.  The kernel's output tiles are
-    :func:`blocked_tile`'s.  Uncoupled configurations
-    only: the Shan-Chen and alpha1 forces need pre-passes inside every
-    phase (raises ValueError).
+    :func:`blocked_tile`'s at the configuration's stencil depth.  With a
+    force (alpha0 or alpha1 != 0) every phase recomputes psi (and its
+    laplacian) from its own streamed input: neither pre-pass is launched.
 
     CPU tensors run :func:`bflbm_tpu_torch.ops.blocked.
     blocked_sweep_reference` on the kernel's tiles.  CUDA tensors launch
@@ -851,12 +878,9 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
     check_noise_dist(noise_dist)
-    if is_coupled(params):
-        raise ValueError("the blocked sweep runs uncoupled configurations "
-                         f"(alpha0 = alpha1 = 0) ({K4_COUPLED_ITEM})")
     check_block(params, T)
-    T = int(T)
-    tile = blocked_tile(T, f.shape)
+    T, sd = int(T), sd_depth(params)
+    tile = blocked_tile(T, f.shape, sd)
     words = [int(w) for w in words]
     if len(words) != T:
         raise ValueError(f"need {T} words, got {len(words)}")
@@ -885,7 +909,9 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     from . import _build
 
     lib = _build.load("blocked_step" + ("_general" if general_relax(params)
-                                        else ""), f.device)
+                                        else "")
+                      + ("_force" if sd >= 2 else "")
+                      + ("_a1" if sd == 3 else ""), f.device)
     coef = (ctypes.c_float * 33)(*_noise_coef(
         float(params.kBT), params.lam_f, params.lam_g, noise_dist))
     X, Y, Z = (int(n) for n in f.shape[1:])
@@ -894,10 +920,14 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
         None if ref is None else ref.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
         (ctypes.c_int * T)(*[_as_i32(w) for w in words]), T,
-        _as_i32(step0), (ctypes.c_int * 3)(*tile), blocked_threads(T, tile),
-        params.div_eps, 0.5 * params.lam_f, 0.5 * params.lam_g,
-        params.lam_f, params.lam_g, int(params.noise_on),
-        NOISE_DISTS[noise_dist][0], coef,
+        _as_i32(step0), (ctypes.c_int * 3)(*tile),
+        blocked_threads(T, tile, sd), params.div_eps, 0.5 * params.lam_f,
+        0.5 * params.lam_g, params.lam_f, params.lam_g,
+        int(params.noise_on), NOISE_DISTS[noise_dist][0], coef,
+        -CS2 * params.alpha0, CS2 * params.alpha1,
+        1.0 / (1.0 + 1.0 / (2.0 * params.tau_f)),
+        1.0 / (1.0 + 1.0 / (2.0 * params.tau_g)),
+        int(params.use_sc_pseudo), float(params.sc_ref_density), sd,
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "blocked_step")
     blocked_launches += 1
@@ -906,23 +936,32 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
 
 
 # The block the sessions take when none is given: the T of the fastest
-# step per mode, measured at 256^3 on an H100 (``chip_smoke.py`` phase 11,
-# PERF.md section 6).  There K4 at T = 2 beat the one-step kernel with the
-# noise off (its step has the least arithmetic) and under general tau (the
-# one-step kernel is register-bound there); with noise the one-step kernel
-# was faster at every T, and T = 3 and 4 lost in every mode.
+# step per mode and stencil depth, measured at 256^3 on an H100
+# (``chip_smoke.py`` phases 11 and 12, PERF.md section 6).  Uncoupled
+# (phase 11): K4 at T = 2 beat the one-step kernel with the noise off (its
+# step has the least arithmetic) and under general tau (the one-step kernel
+# is register-bound there); with noise the one-step kernel was faster at
+# every T, and T = 3 and 4 lost in every mode.  Coupled ("coupled ...",
+# phase 12): K4 at T = 2 was 2% faster than the pair A + B under general
+# tau (6.8169 against 6.9692 ms a step) and 1.4-1.8x slower in every other
+# mode, T = 3 3.2-6.0x slower everywhere; alpha1 ("alpha1 ..."): T = 2 was
+# 1.9-3.0x slower than A + L + B-A1 in every mode.
+_AUTO_MODES = ("off", "u8", "clt4", "clt2", "bm", "ref", "general")
 AUTO_BLOCK = {"off": 2, "u8": 1, "clt4": 1, "clt2": 1, "bm": 1, "ref": 1,
               "general": 2}
+AUTO_BLOCK.update({f"{depth} {mode}": 1 for depth in ("coupled", "alpha1")
+                   for mode in _AUTO_MODES})
+AUTO_BLOCK["coupled general"] = 2
 
 
 def auto_block(params: LBMParams, n: int, noise_dist: str = "clt4",
                use_ref: bool = False) -> int:
     """The port's counterpart of JAX's ``_auto_block``: T for a run of n
     K steps, from :data:`AUTO_BLOCK` (general relaxation first, then the
-    ref operand, then the generator, or "off" at kBT = 0); 1 for a coupled
-    or alpha1 configuration (no K4 for them yet) and for n < 2; at most
-    n."""
-    if n < 2 or is_coupled(params):
+    ref operand, then the generator, or "off" at kBT = 0; prefixed
+    "coupled " at stencil depth 2 and "alpha1 " at 3); 1 for n < 2; at
+    most n."""
+    if n < 2:
         return 1
     if general_relax(params):
         key = "general"
@@ -932,6 +971,7 @@ def auto_block(params: LBMParams, n: int, noise_dist: str = "clt4",
         key = "ref"
     else:
         key = noise_dist
+    key = {1: "", 2: "coupled ", 3: "alpha1 "}[sd_depth(params)] + key
     return max(1, min(AUTO_BLOCK[key], int(n)))
 
 
@@ -964,15 +1004,16 @@ def _maybe_restore(prev_step: int, st: SimState, mass_restore) -> SimState:
 def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
                 noise_dist: str = "clt4", block: int = 1):
     """fn(s, words=None, ref=None) -> s: n K steps of a post-collide
-    SimState.  block = T > 1 (uncoupled only, :func:`check_block`) runs
-    n // T blocked sweeps (:func:`blocked_stream_collide`, one launch
-    each), then n % T single steps, as JAX's ``make_ksteps`` (T is cut to
-    n); block 1 runs one K launch per step (a coupled configuration adds
-    the density pre-pass, alpha1 the laplacian pre-pass too).  The mass
-    restore is applied once per sweep or single step, after the one whose
-    [prev, step) crossed a multiple of its interval: with T = 2 from an
-    odd step it lands after step 1001, not 1000, as in JAX.  Two buffer
-    pairs ping-pong and one psi (and lap) scratch serves the chunk.
+    SimState.  block = T > 1 (:func:`check_block`) runs n // T blocked
+    sweeps (:func:`blocked_stream_collide`, one launch each, with no
+    pre-pass), then n % T single steps, as JAX's ``make_ksteps`` (T is cut
+    to n); block 1, and each single step, runs one K launch per step (a
+    coupled configuration adds the density pre-pass, alpha1 the laplacian
+    pre-pass too).  The mass restore is applied once per sweep or single
+    step, after the one whose [prev, step) crossed a multiple of its
+    interval: with T = 2 from an odd step it lands after step 1001, not
+    1000, as in JAX.  Two buffer pairs ping-pong, and one psi (and lap)
+    scratch serves the chunk's single steps.
 
     The input's buffers are reused as the second pair, so `s` is
     consumed.  words: the n per-step noise words (default: drawn from
@@ -994,7 +1035,8 @@ def make_ksteps(params: LBMParams, n: int, mass_restore=None, *,
         cur = s
         spare = None
         psi = lap = None
-        if is_coupled(params) and s.f.device.type == "cuda" and n:
+        if (is_coupled(params) and s.f.device.type == "cuda"
+                and n > n_blocked * T):
             psi = torch.empty((2,) + tuple(s.f.shape[1:]), dtype=s.f.dtype,
                               device=s.f.device)
             if has_alpha1(params):

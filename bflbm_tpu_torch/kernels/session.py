@@ -65,8 +65,9 @@ class FusedSession:
 
     noise_dist: the hash-stream generator, "clt4" (default, as in the
     JAX package), "u8", "clt2" or "bm" (both the entry prelude and the
-    kernel use it).  block: K steps per launch (K4, temporal blocking;
-    uncoupled configurations only, :func:`fused_step.check_block`); None
+    kernel use it).  block: K steps per launch (K4, temporal blocking, in
+    every configuration: with a force the sweeps launch no pre-pass;
+    :func:`fused_step.check_block` refuses a T past shared memory); None
     takes :func:`fused_step.auto_block` for each advance's n, as JAX's
     auto block does.  An advance of n runs n // T blocked sweeps, then
     n % T single steps, and the mass restore falls after the sweep that
@@ -358,10 +359,11 @@ def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
     on a mesh of more than one block, with the sweep options overlap and
     y_exchange, else the single-device :class:`FusedSession`, which has
     no exchange to split, with `block` steps a launch (None: auto).  The
-    kernels run every configuration, alpha1 included, at block 1.
-    Raises ValueError for an unknown generator name or sweep option, a
-    mesh that cannot hold the domain, or a block the port does not run
-    (above 1 on a mesh or for a coupled or alpha1 configuration)."""
+    kernels run every configuration, alpha1 included, at every block
+    whose tiles fit in shared memory.  Raises ValueError for an unknown
+    generator name or sweep option, a mesh that cannot hold the domain,
+    or a block the port does not run (above 1 on a mesh, or past shared
+    memory)."""
     if mesh is not None and mesh.size > 1:
         return ShardedSession(mesh, params, shape, noise_dist=noise_dist,
                               mass_restore_int=mass_restore_int,

@@ -298,12 +298,11 @@ def blocked_sweep_reference(f: torch.Tensor, g: torch.Tensor,
     previous one computed, and only the tile's own cells inside the
     domain written.  A cell near a seam is computed by several tiles and
     must come out the same from each.  ref: the (2, X, Y, Z)
-    USE_REF_STATE amplitude fields, or None.  Uncoupled configurations
-    only (stencil depth 1)."""
+    USE_REF_STATE amplitude fields, or None.  Every stencil depth: with a
+    force (sd = 2, 3) each phase recomputes its psi (and laplacian) from
+    its own streamed input on the sd - 1 ring, as the JAX kernel's
+    ``_k_compute`` does inside each of its phases."""
     sd = sd_depth(params)
-    if sd != 1:
-        raise ValueError("the blocked sweep runs uncoupled configurations "
-                         f"(stencil depth 1), not depth {sd}")
     if T < 1 or len(words) != T:
         raise ValueError(f"T = {T} steps need T >= 1 and T words, got "
                          f"{len(words)}")

@@ -24,7 +24,8 @@ card (:class:`~bflbm_tpu_torch.kernels.session.ShardedSession`); on a
 node with fewer cards the cards repeat.  Views, frames, observables and
 checkpoints are taken from the gathered state, so a run writes the same
 files with or without a mesh.  ``--block T`` runs T K steps per kernel
-launch (K4, uncoupled configurations; default auto).
+launch (K4, every configuration: the droplet presets too; default
+auto).
 
 Noise: every step draws one word from the state's generator and the
 coordinate-keyed hash stream (clt4 unless ``--noise-dist`` says

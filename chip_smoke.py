@@ -113,7 +113,20 @@ Phases (each raises on failure; the script then exits non-zero):
    x (100 // T) K4, 11 x (100 % T) K), masses after the restore, density
    variance, MLUPS, ms a step beside the bound; (d) the mixture's two
    phases through ``run.main`` at 64^3, the fluctuating one with
-   ``--block 2``: S(k) within 5% of kBT / cs^2, beside phase 7's.
+   ``--block 2``: S(k) within 5% of kBT / cs^2, beside phase 7's;
+12. K4 with the force (the coupled droplet at T = 2, 3, alpha1 at
+   T = 2; psi and its laplacian recomputed inside every phase): (a) one
+   launch in every mode (noise off, u8, clt4, clt2, Box-Muller, the ref
+   operand, general tau) at 32^3, at 20 x 12 x 40 and on the 256^3
+   droplet one step in, against its plain version and against T one-step
+   A + B (A + L + B-A1) launches, max |delta| <= 2e-5, bitwise printed,
+   and no pre-pass launched; (b) at 256^3 the K4 launch timed in every
+   mode beside the one-step pair (triple) with the bound a step and the
+   fastest T beside ``fused_step.AUTO_BLOCK``; (c) phase 5's droplet
+   session at the auto block, T = 2 and 3 (launches, masses, COM drift,
+   volume ratio, MLUPS, step 901 against phase 5's) and phase 8's alpha1
+   session at T = 2; (d) the droplet campaign at 64^3 through ``run.main
+   --block 2`` and ``run(cfg, block=2)`` with USE_REF_STATE.
 
 Each phase prints its wall time.  Phase 0 prints the card's name and
 power limit on a line of its own, as ``nvidia-smi`` gives them; the line
@@ -683,7 +696,7 @@ def _driver_flag_modes(tmp, eq, ckpt):
             out_dir=os.path.join(tmp, key)).with_params(**params)
         fused_step.reset_launch_counts()
         t0 = time.perf_counter()
-        state = run_mod.run(cfg, noise_dist=dist)
+        state = run_mod.run(cfg, noise_dist=dist, block=1)
         torch.cuda.synchronize()
         modes = dict(fused_step.mode_launches)
         rec = _metrics(os.path.join(cfg.out_dir, "metrics.jsonl"))[-1]
@@ -1866,30 +1879,37 @@ def _k4_ref(shape, dev, seed):
     return (1.0 + 0.1 * torch.rand((2,) + tuple(shape), generator=gen)).to(dev)
 
 
-def _k4_vs_plain(f, g, params, dist, ref, T, tag, errs, plain_tile=None):
+def _k4_vs_plain(f, g, params, dist, ref, T, tag, errs, plain_tile=None,
+                 phase=11):
     """One K4 launch of T steps against its plain version (the plain sweep
-    on the kernel's tiles, or on `plain_tile`) and against T one-step K
-    launches with the same words; appends the larger error to errs[T] and
-    returns (bitwise to plain, bitwise to the one-step launches, seconds
-    of the plain version)."""
+    on the kernel's tiles, or on `plain_tile`) and against T one-step
+    launches (K, or A + K, or A + L + K) with the same words; the K4
+    launch must launch no pre-pass.  Appends the larger error to errs[T]
+    and returns (bitwise to plain, bitwise to the one-step launches,
+    seconds of the plain version)."""
     import torch
 
     from bflbm_tpu_torch.kernels import fused_step
     from bflbm_tpu_torch.ops import blocked
 
     words = [104729 * (k + 1) - 2 ** 30 for k in range(T)]
-    before = fused_step.blocked_launches
+    before = (fused_step.blocked_launches, fused_step.density_launches,
+              fused_step.laplacian_launches)
     fo, go = fused_step.blocked_stream_collide(f, g, words, 77, params, T,
                                                noise_dist=dist, ref=ref)
     torch.cuda.synchronize()
-    _check(fused_step.blocked_launches == before + 1,
-           f"{tag}: K4 launches went {before} -> "
-           f"{fused_step.blocked_launches}, expected +1")
+    after = (fused_step.blocked_launches, fused_step.density_launches,
+             fused_step.laplacian_launches)
+    _check(after == (before[0] + 1,) + before[1:],
+           f"{tag}: K4, A, L launches went {before} -> {after}, expected "
+           "one K4 launch only")
     _check_finite(fo, go)
     t0 = time.perf_counter()
     fr, gr = blocked.blocked_sweep_reference(
         f, g, words, 77, params, T,
-        plain_tile or fused_step.blocked_tile(T, f.shape), dist, ref)
+        plain_tile or fused_step.blocked_tile(T, f.shape,
+                                              fused_step.sd_depth(params)),
+        dist, ref)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     e_plain = max(_maxdiff(fo, fr), _maxdiff(go, gr))
@@ -1902,7 +1922,7 @@ def _k4_vs_plain(f, g, params, dist, ref, T, tag, errs, plain_tile=None):
     torch.cuda.synchronize()
     e_k1 = max(_maxdiff(fo, fa), _maxdiff(go, ga))
     bit_k1 = bool(torch.equal(fo, fa) and torch.equal(go, ga))
-    print(f"[phase 11] {tag} T={T}: max|K4 - plain| = {e_plain:.3e} "
+    print(f"[phase {phase}] {tag} T={T}: max|K4 - plain| = {e_plain:.3e} "
           f"(bitwise {bit_plain}), max|K4 - {T} x K| = {e_k1:.3e} (bitwise "
           f"{bit_k1}) (tol {TOL})", flush=True)
     _check(max(e_plain, e_k1) <= TOL,
@@ -2061,6 +2081,269 @@ def _k4_driver(tmp, sk_block1):
           f"(tol 0.05; phase 7, block auto: {sk_block1:.4f})", flush=True)
     _check(nb > 0, "run --block 2 launched no K4 sweep")
     _check(abs(ratio - 1.0) <= 0.05, f"S(k) ratio {ratio} at --block 2")
+
+
+# -- phase 12: K4 with the force (coupled, alpha1) ----------------------------
+
+# (stencil depth tag, T) of every block the port takes with a force
+K4F_CASES = (("coupled", 2), ("coupled", 3), ("alpha1", 2))
+# the force of each depth: the droplet of phases 4-5, the alpha1 droplet
+K4F_FORCE = {"coupled": dict(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0),
+             "alpha1": ALPHA1}
+# Operations a cell of one coupled step by mode, counted as above: B's
+# 2800 (clt4) with u8's words (~170) in place of clt4's (~560), and less
+# the noise moments and amplitudes (~240) and the words with the noise
+# off; the other modes' B entries; plus the density pre-pass's 40 and,
+# under alpha1, B-A1's extra 230 and the laplacian's 80.
+_K4F_OPS = {"off": 2000, "u8": 2410, "clt4": KERNELS["b"]["ops"],
+            "clt2": KERNELS["clt2"]["ops"], "bm": KERNELS["bm"]["ops"],
+            "ref": KERNELS["k1e"]["ops"], "general": KERNELS["k1d"]["ops"]}
+# a launch of T steps moves the 304 bytes a cell of one step (psi and the
+# laplacian never leave the chip) and does the operations of T steps
+for (_d, _t) in K4F_CASES:
+    for _m, _ops in _K4F_OPS.items():
+        KERNELS[f"k4_{_d}_{_t}_{_m}"] = dict(
+            bytes=KERNELS["k1a"]["bytes"],
+            ops=_t * (_ops + 40 + (310 if _d == "alpha1" else 0)))
+
+
+def _k4f_params(depth, kw):
+    from bflbm_tpu_torch.config import LBMParams
+
+    return LBMParams(**dict(K4F_FORCE[depth], **kw))
+
+
+def _k4f_small(dev, errs):
+    """12a: K4 with the force at every (depth, T) in every mode on 32^3
+    droplets and on a shape no tile divides, against plain and against T
+    one-step launches; the ref operand is the droplet's own densities,
+    rolled, as the session passes them (phases 6-10)."""
+    bits = []
+    for shape in (SMALL, K4_ODD):
+        for depth, T in K4F_CASES:
+            f, g = _perturbed_droplet(shape, _k4f_params(depth, {}), 81, dev,
+                                      radius=0.3)
+            ref = _ref_operand(f, g, (1, 2, -2))
+            for tag, kw, dist, with_ref in K4_MODES:
+                bits.append(_k4_vs_plain(
+                    f, g, _k4f_params(depth, kw), dist,
+                    ref if with_ref else None, T, f"{shape} {depth} {tag}",
+                    errs[depth], phase=12)[:2])
+    print(f"[phase 12] 12a: {len(bits)} launches; bitwise to plain "
+          f"{sum(b[0] for b in bits)}, bitwise to T one-step launches "
+          f"{sum(b[1] for b in bits)}", flush=True)
+
+
+def _k4f_state(depth, dev):
+    """The 256^3 droplet (alpha1 droplet) of phase 5 (8), one step in."""
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+
+    cfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+        kBT=KBT, **K4F_FORCE[depth])
+    pc = FusedSession(cfg.params, SHAPE, noise_dist="clt4", block=1).enter(
+        model.make_initial_state(cfg, device=dev))
+    return pc.f, pc.g
+
+
+def _k4f_256(dev, errs, cells):
+    """12a at 256^3 and 12b: on the 256^3 droplet (alpha1 droplet) one
+    step in, K4 in every mode at every T against the plain sweep on one
+    whole-domain tile (timed for clt4) and against T one-step launches;
+    then K4 timed in every mode (ms a launch and a step) beside the
+    one-step pair A + B (triple A + L + B-A1).  Returns ({(depth, T):
+    plain ms a launch, clt4}, {depth: {mode: {T: ms a launch}}})."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+
+    plain_ms, table = {}, {}
+    for depth in ("coupled", "alpha1"):
+        f, g = _k4f_state(depth, dev)
+        blocks = [t for d, t in K4F_CASES if d == depth]
+        ref = _ref_operand(f, g, (1, 2, -2))
+        for tag, kw, dist, with_ref in K4_MODES:
+            for T in blocks:
+                _, _, plain_s = _k4_vs_plain(
+                    f, g, _k4f_params(depth, kw), dist,
+                    ref if with_ref else None, T, f"256^3 {depth} {tag}",
+                    errs[depth], plain_tile=SHAPE, phase=12)
+                if tag == "clt4":
+                    plain_ms[(depth, T)] = plain_s * 1e3
+                torch.cuda.empty_cache()
+        out = (torch.empty_like(f), torch.empty_like(g))
+        psi = torch.empty((2,) + SHAPE, dtype=f.dtype, device=dev)
+        lap = torch.empty_like(psi) if depth == "alpha1" else None
+        table[depth] = {}
+        for tag, kw, dist, with_ref in K4_MODES:
+            p = _k4f_params(depth, kw)
+            r = ref if with_ref else None
+            row = {}
+            for T in (1,) + tuple(blocks):
+                if T == 1:
+                    def run(p=p, dist=dist, r=r):
+                        for i in range(NREP):
+                            fused_step.fused_stream_collide(
+                                f, g, 1, i, p, out=out, noise_dist=dist,
+                                psi=psi, lap=lap, ref=r)
+                else:
+                    def run(p=p, dist=dist, r=r, T=T):
+                        for i in range(max(5, NREP // T)):
+                            fused_step.blocked_stream_collide(
+                                f, g, [1] * T, i, p, T, out=out,
+                                noise_dist=dist, ref=r)
+                row[T] = _time_ms(run, cells, NREP if T == 1
+                                  else max(5, NREP // T))
+            best = min(row, key=lambda t: row[t] / t)
+            table[depth][tag] = row
+            key = ("coupled " if depth == "coupled" else "alpha1 ") + tag
+            bounds = ", ".join(
+                f"T={t} "
+                f"{_bound_ms(f'k4_{depth}_{t}_{tag}', cells)[0] / t:.4f}"
+                for t in blocks)
+            steps = "pair A + B" if depth == "coupled" else "triple"
+            print(f"[phase 12] 256^3 {depth} {tag}: ms a launch / a step: "
+                  + ", ".join(f"T={t} {v:.4f} / {v / t:.4f}"
+                              for t, v in row.items())
+                  + f" (T = 1: the one-step {steps}); bound a step "
+                  f"{bounds}; fastest step at T = {best} "
+                  f"(AUTO_BLOCK {fused_step.AUTO_BLOCK[key]})", flush=True)
+        del f, g, out, psi, lap, ref
+        torch.cuda.empty_cache()
+    return plain_ms, table
+
+
+def _k4f_sessions(dev, cells, phase5_901, phase5_mlups):
+    """12c: phase 5's 256^3 droplet session (clt4) at the auto block, at
+    T = 2 and at T = 3, and phase 8's alpha1 session at T = 2: launches
+    (K4 sweeps, and A, L and K only in the single steps), masses after
+    the restore, the droplet's centre of mass and volume ratio, MLUPS;
+    the coupled ones at step 901 (before any restore) against phase 5's
+    block-1 session.  Returns {(depth, T): (MLUPS, K4 launches)}."""
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.observables import stats
+
+    res = {}
+    for depth, block in (("coupled", None), ("coupled", 2), ("coupled", 3),
+                         ("alpha1", 2)):
+        cfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+            kBT=KBT, **K4F_FORCE[depth])
+        sess = FusedSession(cfg.params, SHAPE, noise_dist="clt4",
+                            block=block)
+        T = sess.block_for(CHUNK)
+        tag = f"phase 12 session {depth} block={block} (T = {T})"
+        state = model.make_initial_state(cfg, device=dev)
+        com0 = stats.center_of_mass(state.f.sum(0))
+        keep = {901: None}
+        view, counts, t_adv, _ = _run_session(sess, state, tag, keep)
+        del state
+        nb, nl = fused_step.blocked_launches, fused_step.laplacian_launches
+        singles = NCHUNKS * (CHUNK % T if T > 1 else CHUNK)
+        want_b = NCHUNKS * (CHUNK // T) if T > 1 else 0
+        _check((nb, counts[0], counts[1]) == (want_b, singles, singles)
+               and nl == (singles if depth == "alpha1" else 0),
+               f"{tag}: launches K4 {nb}, K {counts[0]}, A {counts[1]}, "
+               f"L {nl}")
+        rho = view.f.sum(0)
+        drift = float((stats.center_of_mass(rho) - com0).norm())
+        r0 = cfg.init_radius * SHAPE[0]
+        vol = float(stats.droplet_volume_ratio(rho, 1.5, r0))
+        mlups = cells * CHUNK * NCHUNKS / t_adv / 1e6
+        vs5 = ""
+        if depth == "coupled":
+            v = keep[901]
+            e = max(_maxdiff(v.f, phase5_901[0].to(dev)),
+                    _maxdiff(v.g, phase5_901[1].to(dev)))
+            bit = bool(torch.equal(v.f.cpu(), phase5_901[0])
+                       and torch.equal(v.g.cpu(), phase5_901[1]))
+            vs5 = (f"; step 901 vs phase 5's block-1 session: max|delta| "
+                   f"{e:.3e} (bitwise {bit}, tol {TOL}); phase 5 "
+                   f"{phase5_mlups:.1f} MLUPS")
+            _check(e <= TOL, f"{tag}: step 901 differs from phase 5: {e}")
+        print(f"[{tag}] launches K4 {nb}, K {counts[0]}, A {counts[1]}, L "
+              f"{nl} (A and L only in the single steps); droplet COM drift "
+              f"{drift:.4e} cells (tol {COM_TOL}); volume ratio {vol:.4f} "
+              f"(range {VOL_RANGE}); {mlups:.1f} MLUPS{vs5}", flush=True)
+        _check(drift <= COM_TOL, f"{tag}: droplet drifted {drift} cells")
+        if depth == "coupled":
+            _check(VOL_RANGE[0] <= vol <= VOL_RANGE[1],
+                   f"{tag}: volume ratio {vol}")
+        res[(depth, block)] = (mlups, nb)
+        del view, rho, keep, sess
+        torch.cuda.empty_cache()
+    return res
+
+
+def _k4f_driver(tmp):
+    """12d: the droplet campaign at 64^3 through the driver at block 2:
+    droplet-eq through ``run.main --block 2`` (400 steps), then the
+    USE_REF_STATE droplet-fluct continuation through ``run(cfg,
+    block=2)`` (600 steps): K4 launches, A only in single steps, masses
+    after the restore at step 1000, the droplet's drift."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.kernels import fused_step
+
+    eq = os.path.join(tmp, "k4f_eq")
+    shape = (64, 64, 64)
+    t0 = time.perf_counter()
+    fused_step.reset_launch_counts()
+    run_mod.main(["--preset", "droplet-eq", "--shape", "64", "64", "64",
+                  "--nsteps", "400", "--plot-int", "200", "--print-int",
+                  "100", "--block", "2", "--out", eq])
+    eq_counts = (fused_step.blocked_launches, fused_step.launches,
+                 fused_step.density_launches)
+    ckpt = os.path.join(eq, "checkpoint0000400")
+    m0 = _npz_masses(ckpt + ".npz")
+    cfg = config.preset("droplet-fluct").replace(
+        shape=shape, checkpoint_path=ckpt, step_continue=400, nsteps=700,
+        use_ref_state=True, ref_state_path=os.path.join(eq,
+                                                        "equilibrium.npz"),
+        plot_int=0, print_int=100, droplet_int=100,
+        out_dir=os.path.join(tmp, "k4f_fluct"))
+    fused_step.reset_launch_counts()
+    state = run_mod.run(cfg, block=2)
+    torch.cuda.synchronize()
+    nb, nk, na = (fused_step.blocked_launches, fused_step.launches,
+                  fused_step.density_launches)
+    st = dict(run_mod.last_run_stats)
+    recs = _metrics(os.path.join(cfg.out_dir, "metrics.jsonl"))
+    prints = [r for r in recs if "mass_f" in r]
+    defect = max(max(abs(r["mass_f"] - m0[0]) / m0[0],
+                     abs(r["mass_g"] - m0[1]) / m0[1])
+                 for r in prints if r["step"] >= 1001)
+    drops = [r for r in recs if "droplet_com" in r]
+    com = np.asarray([r["droplet_com"] for r in drops])
+    drift = float(np.linalg.norm(com[-1] - com[0]))
+    print(f"[phase 12] droplet-eq (main --block 2, 64^3, 400 steps): "
+          f"launches K4 {eq_counts[0]}, K {eq_counts[1]}, A {eq_counts[2]}; "
+          f"droplet-fluct (run(cfg, block=2), ref + clt4, 700 steps) in "
+          f"{time.perf_counter() - t0:.2f} s with the equilibration: step "
+          f"{state.step}; launches K4 {nb}, K {nk}, A {na}; steps rerun "
+          f"after a crossing {int(st['ref_retry_steps'])}; relative mass "
+          f"defect after the restore {defect:.3e} (tol {MASS_RTOL}); "
+          f"droplet COM drift {drift:.4e} cells (tol {COM_TOL}); "
+          f"ref_roll_violations {prints[-1]['ref_roll_violations']}",
+          flush=True)
+    _check(state.step == 1100, f"final step {state.step} != 1100")
+    _check(eq_counts[0] > 0 and eq_counts[1] == eq_counts[2]
+           and nb > 0 and nk == na, "K4 not on the driver's path, or A "
+                                    "launched inside a sweep")
+    _check_finite(state.f, state.g)
+    _check(defect <= MASS_RTOL, f"mass defect {defect}")
+    _check(drift <= COM_TOL, f"droplet drifted {drift} cells")
+    return nb + eq_counts[0]
 
 
 def main() -> int:
@@ -2276,7 +2559,7 @@ def main() -> int:
     # -- phase 5: the coupled path -------------------------------------------
     state = model.make_initial_state(dcfg, device=dev)
     com0 = stats.center_of_mass(state.f.sum(0))
-    sess = make_session(dparams, SHAPE, noise_dist="clt4")
+    sess = make_session(dparams, SHAPE, noise_dist="clt4", block=1)
     phase5_views = {901: None}
     view, counts, t_adv, t_enter = _run_session(sess, state, "phase 5",
                                                 phase5_views)
@@ -2357,6 +2640,7 @@ def main() -> int:
           f"bitwise: {k_bits and big_bits}; every block's hash words == the "
           f"domain's: {w_bits}", flush=True)
     sharded = _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups)
+    phase5_901 = (phase5_views[901].f.cpu(), phase5_views[901].g.cpu())
     del phase5_views
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
@@ -2420,6 +2704,22 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_done(11)
+
+    # -- phase 12: K4 with the force (coupled, alpha1) ------------------------
+    k4f_errs = {d: {t: [] for dd, t in K4F_CASES if dd == d}
+                for d in K4F_FORCE}
+    _k4f_small(dev, k4f_errs)
+    torch.cuda.empty_cache()
+    k4f_plain_ms, k4f_ms = _k4f_256(dev, k4f_errs, cells)
+    k4f_sessions = _k4f_sessions(dev, cells, phase5_901, phase5_mlups)
+    del phase5_901
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        _k4f_driver(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_done(12)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
@@ -2507,6 +2807,22 @@ def main() -> int:
             "max_abs_err": max(k4_errs[t]), "ms": k4_ms["u8"][t],
             "plain_ms": k4_plain_ms[t], "bound_ms": bound, "bound_by": by,
             "library_ms": None})
+    for depth, t in K4F_CASES:
+        key = f"k4_{depth}_{t}_clt4"
+        bound, by = _bound_ms(key, cells)
+        record.append({
+            "name": f"blocked_kernel (K4, T = {t}, {depth}, clt4)",
+            "route": "cuda", "source": SRC + "blocked_step.cu",
+            "replaces": TPU_KERNEL,
+            "mode": f"K4: block = {t} with the force (sd = "
+                    f"{2 if depth == 'coupled' else 3}; phases :1790-1823, "
+                    "density_ext, psi, gradient, laplacian :753-832 inside "
+                    "every phase); 256^3 droplet",
+            "launches": k4f_sessions[(depth, t)][1],
+            "max_abs_err": max(k4f_errs[depth][t]),
+            "ms": k4f_ms[depth]["clt4"][t],
+            "plain_ms": k4f_plain_ms[(depth, t)], "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,10 @@
 The port's plain blocked sweep (``ops.blocked.blocked_sweep_reference``,
 the plain version of ``csrc/blocked_step.cu``, tile for tile) against
 JAX's blocked Pallas kernel in interpret mode and against composed
-one-step K calls; ``FusedSession(block=T)`` against the block-1
-composition with JAX's restore rule; the refusals and ``auto_block``.
+one-step K calls, uncoupled (stencil depth 1), with the Shan-Chen force
+(depth 2) and with alpha1 (depth 3); ``FusedSession(block=T)`` against
+the block-1 composition with JAX's restore rule; the refusals and
+``auto_block``.
 Tolerances: against JAX, those of ``tests/test_fused_kernel.py::
 test_blocked_equals_composed_with_noise`` (rtol 5e-4, atol 5e-7, the sums
 to 1e-6: another transform order); against the port's own composition
@@ -30,6 +32,7 @@ from bflbm_tpu_torch.config import LBMParams as TParams
 from bflbm_tpu_torch.kernels import fused_step as tfs
 from bflbm_tpu_torch.kernels.session import (FusedSession, ShardedSession,
                                              make_session)
+from bflbm_tpu_torch.models import binary_fluid as tmodel
 from bflbm_tpu_torch.ops import blocked
 from bflbm_tpu_torch.parallel import mesh as tmesh_lib
 from bflbm_tpu_torch.state import init_state as tinit
@@ -89,6 +92,67 @@ def test_plain_sweep_matches_jax_blocked_kernel():
                                rtol=1e-6)
 
 
+_DROPLET = dict(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0, kBT=1e-5)
+_ALPHA1 = dict(_DROPLET, alpha0=1.2, alpha1=0.5, rho_lo=0.1)
+# with a force: (stencil depth tag, T) -> LBMParams keywords of the force
+FORCE_CASES = {("coupled", 2): _DROPLET, ("coupled", 3): _DROPLET,
+               ("alpha1", 2): _ALPHA1}
+
+
+def _droplet_state(shape, params, seed):
+    base = tmodel.init_droplet(shape, params, device="cpu", radius=0.3)
+    return tmodel.perturbed_populations(shape, seed, base=base,
+                                        device="cpu")
+
+
+@pytest.mark.parametrize("kw", [_DROPLET, _ALPHA1],
+                         ids=["coupled", "alpha1"])
+def test_plain_sweep_with_force_matches_jax_blocked_kernel(kw):
+    """One T = 2 sweep with the Shan-Chen force (the alpha0 = 1.5 droplet,
+    stencil depth 2) and with alpha1 (depth 3) against JAX's blocked
+    kernel in interpret mode, which recomputes psi and its laplacian
+    inside each phase, on the same perturbed droplet, words and step."""
+    shape = (8, 8, 8)
+    tp = TParams(**kw)
+    f, g = (to_np(a) for a in _droplet_state(shape, tp, 99))
+    w0, w1, s0 = 1234567, -987654, 42
+    with pltpu.force_tpu_interpret_mode():
+        jf, jg = _fused_step_call(
+            JParams(**kw), shape, (8, 8), True,
+            jnp.asarray([w0, w1, s0], jnp.int32), jnp.asarray(f),
+            jnp.asarray(g), block=2, noise_impl="hash", transform="mxu")
+    tf, tg = blocked.blocked_sweep_reference(
+        to_torch(f), to_torch(g), [w0, w1], s0, tp, 2,
+        tfs.blocked_tile(2, shape, tfs.sd_depth(tp)), "clt4")
+    for a, b in ((tf, jf), (tg, jg)):
+        np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=5e-4,
+                                   atol=5e-7)
+        np.testing.assert_allclose(float(a.double().sum()),
+                                   float(np.asarray(b, np.float64).sum()),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(FORCE_CASES))
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_plain_sweep_with_force_equals_composition(case, mode):
+    """With a force, tiling with recomputed seams still equals
+    composition: the plain sweep on the kernel's tiles at stencil depth 2
+    (T = 2, 3) and 3 (T = 2) against T one-step plain K calls."""
+    _, T = case
+    kw, dist, with_ref = MODES[mode]
+    params = TParams(**dict(FORCE_CASES[case], **kw))
+    f, g = _droplet_state(SHAPE, params, 100)
+    ref = _ref_operand(SHAPE, 93) if with_ref else None
+    got = blocked.blocked_sweep_reference(
+        f, g, WORDS[:T], 40, params, T,
+        tfs.blocked_tile(T, SHAPE, tfs.sd_depth(params)), dist, ref)
+    want = _composed(f, g, WORDS[:T], 40, params, dist, ref)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"{case} {mode}: max |sweep - composed| = {err:.3e}, bitwise "
+          f"{all(torch.equal(a, b) for a, b in zip(got, want))}")
+    assert err <= ATOL
+
+
 @pytest.mark.parametrize("T", [2, 3, 4])
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_plain_sweep_equals_composition(T, mode):
@@ -108,12 +172,15 @@ def test_plain_sweep_equals_composition(T, mode):
     assert err <= ATOL
 
 
-@pytest.mark.parametrize("T,tile", [(2, (3, 4, 5)), (3, (5, 3, 7)),
-                                    (4, (2, 2, 16))])
-def test_plain_sweep_small_tiles(T, tile):
-    """Many tiles a domain, seams on every axis: still the composition."""
-    params = TParams(kBT=1e-5)
-    f, g = _state(SHAPE, 94)
+@pytest.mark.parametrize("T,tile,kw", [
+    (2, (3, 4, 5), {}), (3, (5, 3, 7), {}), (4, (2, 2, 16), {}),
+    (2, (3, 4, 5), _DROPLET), (3, (5, 3, 7), _DROPLET),
+    (2, (2, 4, 6), _ALPHA1)])
+def test_plain_sweep_small_tiles(T, tile, kw):
+    """Many tiles a domain, seams on every axis: still the composition,
+    at every stencil depth."""
+    params = TParams(**dict(kw, kBT=1e-5))
+    f, g = (_droplet_state(SHAPE, params, 94) if kw else _state(SHAPE, 94))
     got = blocked.blocked_sweep_reference(f, g, WORDS[:T], 7, params, T,
                                           tile, "clt4")
     want = _composed(f, g, WORDS[:T], 7, params, "clt4")
@@ -134,7 +201,8 @@ def test_tile_boxes_cover_the_domain():
 
 
 def _session(params, words, chunks, block, restore, dist="u8"):
-    f, g = _state(SHAPE, 95)
+    f, g = (_droplet_state(SHAPE, params, 95) if tfs.is_coupled(params)
+            else _state(SHAPE, 95))
     sess = FusedSession(params, SHAPE, noise_dist=dist,
                         mass_restore_int=restore, block=block)
     pc = sess.enter(tinit(f, g, 5), words[0])
@@ -157,12 +225,15 @@ def _restores(monkeypatch):
     return steps
 
 
-def test_session_chunks_of_whole_sweeps_are_bitwise(monkeypatch):
+@pytest.mark.parametrize("kw", [dict(kBT=1e-5), _DROPLET, _ALPHA1],
+                         ids=["uncoupled", "coupled", "alpha1"])
+def test_session_chunks_of_whole_sweeps_are_bitwise(monkeypatch, kw):
     """FusedSession(block=2, mass_restore_int=3): chunks [2, 2, 2] equal
     [6] bitwise (the same sweeps), and the restores land on the sweep
-    ends that crossed a multiple of 3: steps 3 and 7, not 6, as in JAX."""
+    ends that crossed a multiple of 3: steps 3 and 7, not 6, as in JAX;
+    uncoupled, on the droplet and with alpha1."""
     steps = _restores(monkeypatch)
-    p = TParams(kBT=1e-5)
+    p = TParams(**kw)
     words = [9 * k - 4 for k in range(7)]
     a = _session(p, words, (6,), 2, 3)
     assert steps == [3, 7]
@@ -185,15 +256,18 @@ def test_session_other_split_within_restore_rounding(monkeypatch):
     assert 0 < err <= 1e-5
 
 
-@pytest.mark.parametrize("mode", ["u8", "ref", "general"])
+@pytest.mark.parametrize("mode", ["u8", "ref", "general", "coupled clt4",
+                                  "coupled ref", "alpha1 general"])
 def test_session_equals_block1_composition(mode):
     """A block-2 session against one-step plain K calls with the mass
     restore applied where JAX's rule puts it (after each sweep or single
-    step that crossed a multiple of the interval)."""
-    kw, dist, with_ref = MODES[mode]
-    p = TParams(**kw)
+    step that crossed a multiple of the interval), uncoupled and with
+    the force of the droplet and of alpha1."""
+    force = {"coupled": _DROPLET, "alpha1": _ALPHA1}.get(mode.split()[0], {})
+    kw, dist, with_ref = MODES[mode.split()[-1]]
+    p = TParams(**dict(force, **kw))
     words = [5 * k + 1 for k in range(8)]
-    f, g = _state(SHAPE, 95)
+    f, g = _droplet_state(SHAPE, p, 95) if force else _state(SHAPE, 95)
     ref_fields = None
     if with_ref:
         rho = f.sum(0) + 0.01
@@ -277,27 +351,30 @@ def test_blocked_session_matches_jax_hash_chain():
                                atol=2e-5)
 
 
-_DROPLET = dict(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0, kBT=1e-5)
-
-
-@pytest.mark.parametrize("kw", [_DROPLET,
-                                dict(_DROPLET, alpha0=1.2, alpha1=0.5,
-                                     rho_lo=0.1)])
-def test_coupled_and_alpha1_refuse_block(kw):
+@pytest.mark.parametrize("kw", [_DROPLET, _ALPHA1])
+def test_coupled_and_alpha1_take_block(kw, monkeypatch):
+    """The coupled and alpha1 configurations run at block 2:
+    FusedSession, make_session, make_ksteps (one sweep, no pre-pass
+    scratch) and blocked_stream_collide (the plain sweep on the CPU)."""
     p = TParams(**kw)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        FusedSession(p, SHAPE, block=2)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        make_session(p, SHAPE, block=3)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        tfs.make_ksteps(p, 4, block=2)
-    f, g = _state(SHAPE, 97)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        tfs.blocked_stream_collide(f, g, [1, 2], 0, p, 2)
-    with pytest.raises(ValueError, match="uncoupled"):
-        tfs.blocked_stream_collide(f, g, [1], 0, p, 1)
-    assert isinstance(FusedSession(p, SHAPE, block=1), FusedSession)
-    assert tfs.auto_block(p, 100, "clt4") == 1
+    f, g = _droplet_state(SHAPE, p, 97)
+    assert FusedSession(p, SHAPE, block=2).block_for(100) == 2
+    assert make_session(p, SHAPE, block=2).block_for(5) == 2
+    calls = []
+    real = tfs.blocked_stream_collide
+
+    def record(f_, g_, words, step0, params, T, *a, **kwargs):
+        calls.append((step0, T))
+        return real(f_, g_, words, step0, params, T, *a, **kwargs)
+
+    monkeypatch.setattr(tfs, "blocked_stream_collide", record)
+    out = tfs.make_ksteps(p, 2, block=2)(tinit(f, g, 0, step=4), [1, 2])
+    assert out.step == 6 and calls == [(4, 2)]
+    fo, go = real(f, g, [1, 2], 4, p, 2)
+    assert torch.equal(fo, out.f) and torch.equal(go, out.g)
+    fo, go = real(f, g, [1], 4, p, 1)
+    want = tfs.k_step_reference(f, g, 1, 4, p, "clt4")
+    assert torch.equal(fo, want[0]) and torch.equal(go, want[1])
 
 
 def test_mesh_refuses_block():
@@ -320,7 +397,9 @@ def test_bad_block_values_refused(T):
 def test_block_past_shared_memory_refused():
     """T = 5 on the 8 x 8 cross-section needs 317,376 bytes of shared
     memory a block, past the 232,448 a block holds: refused on the CPU
-    too, since the plain version runs the kernel's tiles."""
+    too, since the plain version runs the kernel's tiles.  The tiles'
+    shared memory at every stencil depth (``csrc/blocked_step.cu``
+    bflbm_blocked_smem)."""
     p = TParams(kBT=1e-5)
     with pytest.raises(ValueError, match="317376 bytes"):
         FusedSession(p, SHAPE, block=5)
@@ -332,10 +411,35 @@ def test_block_past_shared_memory_refused():
     assert tfs.blocked_smem_bytes(3, tfs.blocked_tile(3, SHAPE)) == 191520
     with pytest.raises(ValueError, match="words"):
         tfs.blocked_stream_collide(f, g, [1, 2, 3], 0, p, 2)
+    for kw, T, tile, need in ((_DROPLET, 2, (8, 16), 157632),
+                              (_DROPLET, 3, (4, 8), 185952),
+                              (_ALPHA1, 2, (4, 16), 193472)):
+        sd = tfs.sd_depth(TParams(**kw))
+        assert tfs.blocked_tile(T, SHAPE, sd)[1:] == tile
+        assert tfs.blocked_smem_bytes(T, (8,) + tile, sd) == need
+        tfs.check_block(TParams(**kw), T)
 
 
-def test_auto_block_table():
+@pytest.mark.parametrize("kw,T,need", [(_DROPLET, 4, 297856),
+                                       (_ALPHA1, 3, 303776)],
+                         ids=["coupled T=4", "alpha1 T=3"])
+def test_force_block_past_shared_memory_refused(kw, T, need):
+    """Coupled T = 4 and alpha1 T = 3 fit no tile (4 x 4 the smallest):
+    refused with the byte figure, before any launch or plain sweep."""
+    p = TParams(**kw)
+    f, g = _droplet_state(SHAPE, p, 98)
+    with pytest.raises(ValueError, match=f"{need} bytes"):
+        FusedSession(p, SHAPE, block=T)
+    with pytest.raises(ValueError, match=f"{need} bytes"):
+        tfs.blocked_stream_collide(f, g, [1] * T, 0, p, T)
+
+
+@pytest.mark.parametrize("depth", ["", "coupled ", "alpha1 "])
+def test_auto_block_table(depth):
+    """auto_block reads AUTO_BLOCK's entry for the mode at each stencil
+    depth (prefixed "coupled " and "alpha1 "); every entry runs."""
     n = 100
+    force = {"": {}, "coupled ": _DROPLET, "alpha1 ": _ALPHA1}[depth]
     for key, kw, dist, use_ref in (
             ("off", dict(kBT=0.0), "u8", False),
             ("u8", dict(kBT=1e-5), "u8", False),
@@ -344,7 +448,8 @@ def test_auto_block_table():
             ("bm", dict(kBT=1e-5), "bm", False),
             ("ref", dict(kBT=1e-5), "clt4", True),
             ("general", dict(kBT=1e-5, tau_f=0.7), "u8", False)):
-        p = TParams(**kw)
+        p = TParams(**dict(force, **kw))
+        key = depth + key
         assert tfs.auto_block(p, n, dist, use_ref) == tfs.AUTO_BLOCK[key]
         assert tfs.auto_block(p, 1, dist, use_ref) == 1
         assert tfs.auto_block(p, 2, dist, use_ref) == min(
@@ -352,8 +457,9 @@ def test_auto_block_table():
         if not use_ref:
             assert FusedSession(p, SHAPE, noise_dist=dist).block_for(n) \
                 == tfs.AUTO_BLOCK[key]
-    for T in tfs.AUTO_BLOCK.values():
-        tfs.check_block(TParams(kBT=1e-5), T)
+    for key, T in tfs.AUTO_BLOCK.items():
+        if (key.split()[0] if " " in key else "") == depth.strip():
+            tfs.check_block(TParams(**dict(force, kBT=1e-5)), T)
 
 
 def test_run_block_option(tmp_path, monkeypatch):
@@ -373,4 +479,26 @@ def test_run_block_option(tmp_path, monkeypatch):
     b = trun.run(dataclasses.replace(cfg, out_dir=str(tmp_path / "b")),
                  device="cpu", block=1)
     assert seen == [2, 1] and a.step == b.step == 5
+    assert float((a.f - b.f).abs().max()) <= ATOL
+
+
+def test_run_droplet_block(tmp_path, monkeypatch):
+    """run(cfg, block=2) on the droplet-eq preset at 16^3 (depth 2): one
+    sweep a 2 steps through make_session, the trajectory of block 1."""
+    seen = []
+    real = tfs.blocked_stream_collide
+
+    def record(*a, **kw):
+        seen.append(a[5])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tfs, "blocked_stream_collide", record)
+    cfg = trun.preset("droplet-eq").replace(
+        shape=(16, 16, 16), nsteps=5, plot_int=0, print_int=0, sf_window=0,
+        t_window=0, out_dir=str(tmp_path / "a"))
+    a = trun.run(cfg, device="cpu", block=2)
+    assert seen == [2, 2]
+    b = trun.run(dataclasses.replace(cfg, out_dir=str(tmp_path / "b")),
+                 device="cpu", block=1)
+    assert seen == [2, 2] and a.step == b.step == 5
     assert float((a.f - b.f).abs().max()) <= ATOL

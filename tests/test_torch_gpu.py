@@ -830,6 +830,90 @@ def test_blocked_kernel_refusals(cuda):
         fused_step.blocked_stream_collide(f, g, [1] * 5, 0, p, 5)
     with pytest.raises(ValueError, match="alias"):
         fused_step.blocked_stream_collide(f, g, [1, 2], 0, p, 2, out=(f, g))
-    with pytest.raises(ValueError, match="ROADMAP"):
+    coupled = LBMParams(**_DROP, alpha0=1.5, kBT=1e-5)
+    with pytest.raises(ValueError, match="297856 bytes"):
+        fused_step.blocked_stream_collide(f, g, [1] * 4, 0, coupled, 4)
+    with pytest.raises(ValueError, match="303776 bytes"):
         fused_step.blocked_stream_collide(
-            f, g, [1, 2], 0, LBMParams(**_DROP, alpha0=1.5, kBT=1e-5), 2)
+            f, g, [1] * 3, 0, dataclasses.replace(coupled, alpha1=0.5), 3)
+    with pytest.raises(ValueError, match="decomposed path at block T"):
+        ShardedSession(mesh_lib.make_mesh((2, 1, 1), cuda), coupled,
+                       (16, 16, 16), block=2)
+
+
+# K4 with a force: (stencil depth tag, T) -> the force's LBMParams keywords
+_K4_FORCE = {
+    ("coupled", 2): dict(_DROP, alpha0=1.5),
+    ("coupled", 3): dict(_DROP, alpha0=1.5),
+    ("alpha1", 2): dict(_DROP, alpha0=1.2, alpha1=0.5),
+}
+
+
+def _droplet_pops(shape, params, seed, dev):
+    base = model.init_droplet(shape, params, device="cpu", radius=0.3)
+    return model.perturbed_populations(shape, seed, base=base, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_K4_FORCE))
+@pytest.mark.parametrize("mode", sorted(_K4_MODES))
+@pytest.mark.parametrize("shape", [(16, 16, 16), (12, 20, 40)])
+def test_blocked_force_kernel_matches_plain(cuda, case, mode, shape):
+    """One K4 launch of T steps with the Shan-Chen (and alpha1) force on a
+    perturbed droplet against its plain version (the plain sweep on the
+    kernel's tiles) and against T one-step launches (A, L, K) with the
+    same words; the sweep launches no pre-pass."""
+    from bflbm_tpu_torch.ops import blocked
+
+    _, T = case
+    kw, dist, with_ref = _K4_MODES[mode]
+    params = LBMParams(**dict(_K4_FORCE[case], **kw))
+    f, g = _droplet_pops(shape, params, 35, cuda)
+    ref = (1.0 + 0.1 * torch.rand((2,) + shape, generator=torch.Generator()
+                                  .manual_seed(36))).to(cuda) \
+        if with_ref else None
+    words = [7919 * k - 3 for k in range(T)]
+    fused_step.reset_launch_counts()
+    fo, go = fused_step.blocked_stream_collide(f, g, words, 40, params, T,
+                                               noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    assert (fused_step.blocked_launches, fused_step.density_launches,
+            fused_step.laplacian_launches) == (1, 0, 0)
+    fr, gr = blocked.blocked_sweep_reference(
+        f, g, words, 40, params, T,
+        fused_step.blocked_tile(T, f.shape, fused_step.sd_depth(params)),
+        dist, ref)
+    assert max(_maxdiff(fo, fr), _maxdiff(go, gr)) <= ATOL
+    fa, ga = f, g
+    for s, w in enumerate(words):
+        fa, ga = fused_step.fused_stream_collide(fa, ga, w, 40 + s, params,
+                                                 noise_dist=dist, ref=ref)
+    assert max(_maxdiff(fo, fa), _maxdiff(go, ga)) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha1", [0.0, 0.5])
+def test_blocked_coupled_session_matches_cpu(cuda, alpha1):
+    """A block-2 droplet session on the card (1 + 7 steps, restore every
+    4: three sweeps and a single step) against the same session on the
+    CPU; only the single step launches the pre-passes."""
+    params = LBMParams(**dict(_DROP, alpha0=1.5 if not alpha1 else 1.2,
+                              alpha1=alpha1, kBT=1e-5))
+    shape = (16, 16, 32)
+    f, g = _droplet_pops(shape, params, 37, "cpu")
+    words = [13 * k + 2 for k in range(8)]
+
+    def go(dev):
+        sess = FusedSession(params, shape, noise_dist="clt4",
+                            mass_restore_int=4, block=2)
+        pc = sess.enter(init_state(f.to(dev), g.to(dev), 0), words[0])
+        return sess.exit(sess.advance(pc, 7, words[1:]))
+
+    fused_step.reset_launch_counts()
+    got = go(cuda)
+    assert (fused_step.blocked_launches, fused_step.launches,
+            fused_step.density_launches,
+            fused_step.laplacian_launches) == (3, 1, 1, 1 if alpha1 else 0)
+    cpu = go("cpu")
+    assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
+        <= ATOL

@@ -193,14 +193,17 @@ def test_build_is_keyed_by_sources():
                               "fused_step_force_a1",
                               "fused_step_general_force_a1", "density_psi",
                               "laplacian_psi", "blocked_step",
-                              "blocked_step_general")
+                              "blocked_step_general", "blocked_step_force",
+                              "blocked_step_general_force",
+                              "blocked_step_force_a1",
+                              "blocked_step_general_force_a1")
     for name in _build.SOURCES:
         so = _build.library_path(name)
         assert so.parent == _build.build_dir()
         assert so.parent.parts[-2:] == ("build", "bflbm_tpu_torch")
         assert so.name.startswith(f"lib{name}.")
         assert _build.source_hash(name) in so.name
-    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 10
+    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 14
     assert _build.LIBRARIES["fused_step_general_force"] == (
         "fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1"))
     assert _build.LIBRARIES["fused_step_general_force_a1"] == (
@@ -208,6 +211,9 @@ def test_build_is_keyed_by_sources():
                           "-DBFLBM_A1=1"))
     assert _build.LIBRARIES["blocked_step_general"] == (
         "blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=1",))
+    assert _build.LIBRARIES["blocked_step_general_force_a1"] == (
+        "blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1",
+                            "-DBFLBM_A1=1"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 

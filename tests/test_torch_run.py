@@ -231,6 +231,7 @@ _ARGVS = [
     ["--preset", "interface-eq", "--plot-fmt", "amrex"],
     ["--preset", "droplet-eq", "--mesh", "2", "1", "1"],
     ["--preset", "mixture-fluct", "--block", "2", "--noise-dist", "u8"],
+    ["--preset", "droplet-fluct", "--block", "2"],
 ]
 
 
