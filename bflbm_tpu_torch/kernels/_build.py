@@ -170,7 +170,7 @@ def _build_unlocked() -> Dict[str, Path]:
 def ptxas_summary() -> List[str]:
     """One line per kernel instantiation of the current builds: its
     template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF,
-    A1, EXT>, blocked_kernel<NOISE, DIST, GENERAL, REF> of the library's
+    A1, EXT>, blocked_kernel<NOISE, DIST, GENERAL, REF, EXT> of the library's
     force and relaxation) with the
     ``-Xptxas -v`` registers and spills."""
     out = []
@@ -213,9 +213,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.bflbm_density_psi.argtypes = [i, p, p, p, p, i, f, p, i, p]
         lib.bflbm_density_psi.restype = i
     if hasattr(lib, "bflbm_blocked_step"):
-        lib.bflbm_blocked_step.argtypes = [i, p, p, p, p, p, i, i, i, p, i,
-                                           i, p, i, f, f, f, f, f, i, i, p,
-                                           f, f, f, f, i, f, i, p]
+        lib.bflbm_blocked_step.argtypes = [i, p, p, p, p, p, p, p, i, i, p,
+                                           i, f, f, f, f, f, i, i, p, f, f,
+                                           f, f, i, f, i, p]
         lib.bflbm_blocked_step.restype = i
         lib.bflbm_blocked_smem.argtypes = [i, i, i, i]
         lib.bflbm_blocked_smem.restype = ctypes.c_longlong

@@ -69,6 +69,26 @@
 // instantiation and device; the host picks the tile per (sd, T)
 // (kernels/fused_step.py blocked_tile) under the 232,448 bytes a block may
 // hold.
+//
+// EXT (a template flag, chosen at launch from the geometry as the one-step
+// kernels choose theirs, common.cuh is_ext): JAX's sharded sweep at block
+// T (bflbm_tpu/parallel/kernel.py:737-770, the ext_mode of the pallas_call
+// at :1142-1867 with the seed operand's origin at :1878-1880).  The arrays
+// are one block of a decomposed domain, extended by pads at least sd T
+// deep on its sharded axes, which one halo exchange fills before the
+// launch; on the other axes the block spans the domain.  The tiles cover
+// the block's interior (the launch's Region) from its first cell at the
+// pad offset, so phase 0's pulls and its psi stage reach into the pads on
+// a padded axis (the array coordinate of a grown region's cell is already
+// inside the arrays, where the periodic wrap leaves it alone) and wrap in
+// place on the others; the last phase writes only interior cells, into
+// the other buffer of the pair at the pad offset (JAX's owin).  A ring
+// cell of phase s < T - 1 may lie in the pads: its hash key is its global
+// coordinate ((array + origin - pad) mod the global extent, on every axis,
+// so the launch carries the global X beside the one-step kernels' GY, GZ),
+// and the USE_REF_STATE operand is read there, so its pads must hold the
+// neighbours' values too.  Whole-domain launches keep the instantiations
+// without EXT and their code.
 
 #ifndef BFLBM_GENERAL_RELAX
 #define BFLBM_GENERAL_RELAX 0
@@ -115,13 +135,18 @@ constexpr int PSI_RING = kA1 ? 4 : 3;
 constexpr int LAP_RING = 3;
 
 struct BArgs {
-  Args a;                  // fin, gin, ref, fout, gout, X, Y, Z, rx, nc, fc
+  Args a;                  // fin, gin, ref, fout, gout, X, Y, Z, rx, nc, fc;
+                           // under EXT also r (the interior) and GY, GZ,
+                           // with ox = oy = oz = 0: the keys passed to the
+                           // cell arithmetic are already global
   uint32_t words[KMAX];    // the noise word of each step
   uint32_t step0;          // the first step's label
   int T;                   // steps
   int bx, by, bz;          // the tile: x-planes, y and z cells
   int use_sc;              // psi is the Shan-Chen pseudopotential
   float n0;                // its reference density
+  int gx0, gy0, gz0;       // EXT: global coordinates of array cell (0, 0, 0)
+  int GX;                  // EXT: the global x extent
 };
 
 // v mod n for any v, n > 0.
@@ -203,19 +228,24 @@ _Pragma("unroll")                                                             \
     }                                                                         \
   }
 
-template <bool NOISE, int DIST, bool GENERAL, bool REF>
+template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     blocked_kernel(const BArgs p) {
-  constexpr bool FORCE = kForce, A1 = kA1, EXT = false;
+  constexpr bool FORCE = kForce, A1 = kA1;
   constexpr int LAG = 2 * SD;       // march steps between two phases
   constexpr int LEAD = 2 * SD - 2;  // march steps the psi stage runs ahead
   extern __shared__ float ring[];
   const Args& args = p.a;
   const int X = args.X, Y = args.Y, Z = args.Z, T = p.T;
   const size_t plane = static_cast<size_t>(X) * Y * Z;
-  const int x0 = blockIdx.x * p.bx;
-  const int y0 = blockIdx.y * p.by;
-  const int z0 = blockIdx.z * p.bz;
+  // the tile's first cell in the arrays, and the end of the region the
+  // last phase writes: the whole domain, or under EXT the interior
+  const int x0 = (EXT ? args.r.x0 : 0) + blockIdx.x * p.bx;
+  const int y0 = (EXT ? args.r.y0 : 0) + blockIdx.y * p.by;
+  const int z0 = (EXT ? args.r.z0 : 0) + blockIdx.z * p.bz;
+  const int xe = EXT ? args.r.x0 + args.r.nx : X;
+  const int ye = EXT ? args.r.y0 + args.r.ny : Y;
+  const int ze = EXT ? args.r.z0 + args.r.nz : Z;
   const int nt = p.bx + LAG * (T - 1) + LEAD;   // march steps
   for (int t = 0; t < nt; ++t) {
     const float* prev = nullptr;       // phase s - 1's population ring
@@ -327,7 +357,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
       // (collide) plane x0 - ps + k
       const int x = x0 - ps + k;       // unwrapped
-      if (k >= 0 && k < nx && !(last && x >= X)) {
+      if (k >= 0 && k < nx && !(last && x >= xe)) {
         const int xw = wrap_any(x, X);
         // phase s - 1's planes x - 1, x, x + 1
         const float* below = nullptr;
@@ -356,8 +386,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         for (int c = threadIdx.x; c < ncell; c += blockDim.x) {
           const int j = c / nz, l = c - j * nz;
           const int y = y0 - ps + j, z = z0 - ps + l;
-          if (last && (y >= Y || z >= Z)) continue;
+          if (last && (y >= ye || z >= ze)) continue;
           const int yw = wrap_any(y, Y), zw = wrap_any(z, Z);
+          // the hash key: the cell's global coordinates
+          int kx = xw, ky = yw, kz = zw;
+          if (EXT) {
+            kx = wrap_any(xw + p.gx0, p.GX);
+            ky = wrap_any(yw + p.gy0, static_cast<int>(args.GY));
+            kz = wrap_any(zw + p.gz0, static_cast<int>(args.GZ));
+          }
           float rho = 0.0f, phi = 0.0f;
           float jf[3] = {0.0f, 0.0f, 0.0f};
           float jg[3] = {0.0f, 0.0f, 0.0f};
@@ -413,7 +450,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             oplane = static_cast<size_t>(ncell);
             oidx = static_cast<size_t>(c);
           }
-          BFLBM_COLLIDE_CELL_WITH(args, word, step, xw, yw, zw, fo, go,
+          BFLBM_COLLIDE_CELL_WITH(args, word, step, kx, ky, kz, fo, go,
                                   oplane, oidx, ImmTables,
                                   BLOCKED_FORCES);
         }
@@ -430,11 +467,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 // `smem` first when that is above 48 KB and above what was set on this
 // device before (a launch above the limit is refused, and only
 // cudaGetLastError reports it).
-template <bool NOISE, int DIST, bool GENERAL, bool REF>
+template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT>
 int launch(int device, dim3 grid, int threads, size_t smem, cudaStream_t s,
            const BArgs& b) {
   static size_t allowed[MAX_DEVICES] = {};
-  auto kern = blocked_kernel<NOISE, DIST, GENERAL, REF>;
+  auto kern = blocked_kernel<NOISE, DIST, GENERAL, REF, EXT>;
   if (smem > 48 * 1024 && smem > allowed[device]) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -446,35 +483,35 @@ int launch(int device, dim3 grid, int threads, size_t smem, cudaStream_t s,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DIST, bool GENERAL>
+template <int DIST, bool GENERAL, bool EXT>
 int launch_noise(int device, dim3 grid, int threads, size_t smem,
                  cudaStream_t s, const BArgs& b) {
   if (b.a.ref != nullptr)
-    return launch<true, DIST, GENERAL, true>(device, grid, threads, smem, s,
-                                             b);
-  return launch<true, DIST, GENERAL, false>(device, grid, threads, smem, s,
-                                            b);
+    return launch<true, DIST, GENERAL, true, EXT>(device, grid, threads, smem,
+                                                  s, b);
+  return launch<true, DIST, GENERAL, false, EXT>(device, grid, threads, smem,
+                                                 s, b);
 }
 
-template <bool GENERAL>
+template <bool GENERAL, bool EXT>
 int launch_mode(int noise_on, int dist, int device, dim3 grid, int threads,
                 size_t smem, cudaStream_t s, const BArgs& b) {
   if (!noise_on)
-    return launch<false, DIST_U8, GENERAL, false>(device, grid, threads, smem,
-                                                  s, b);
+    return launch<false, DIST_U8, GENERAL, false, EXT>(device, grid, threads,
+                                                       smem, s, b);
   switch (dist) {
     case DIST_U8:
-      return launch_noise<DIST_U8, GENERAL>(device, grid, threads, smem, s,
-                                            b);
+      return launch_noise<DIST_U8, GENERAL, EXT>(device, grid, threads, smem,
+                                                 s, b);
     case DIST_CLT4:
-      return launch_noise<DIST_CLT4, GENERAL>(device, grid, threads, smem, s,
-                                              b);
+      return launch_noise<DIST_CLT4, GENERAL, EXT>(device, grid, threads,
+                                                   smem, s, b);
     case DIST_CLT2:
-      return launch_noise<DIST_CLT2, GENERAL>(device, grid, threads, smem, s,
-                                              b);
+      return launch_noise<DIST_CLT2, GENERAL, EXT>(device, grid, threads,
+                                                   smem, s, b);
     case DIST_BM:
-      return launch_noise<DIST_BM, GENERAL>(device, grid, threads, smem, s,
-                                            b);
+      return launch_noise<DIST_BM, GENERAL, EXT>(device, grid, threads, smem,
+                                                 s, b);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -506,10 +543,16 @@ extern "C" long long bflbm_blocked_smem(int sd, int T, int by, int bz) {
   return floats * static_cast<long long>(sizeof(float));
 }
 
-// T K steps on device pointers (19, X, Y, Z) float32, z contiguous, whole
-// periodic domain: fin, gin -> fout, gout (which must not alias them), at
-// the stencil depth sd of this library's build (1; 2 with BFLBM_FORCE; 3
-// with BFLBM_A1).
+// T K steps on device pointers (19, X, Y, Z) float32, z contiguous: fin,
+// gin -> fout, gout (which must not alias them), at the stencil depth sd of
+// this library's build (1; 2 with BFLBM_FORCE; 3 with BFLBM_A1), over the
+// region of geom: host array {X, Y, Z, x0, y0, z0, nx, ny, nz, ox, oy, oz,
+// GY, GZ, GX} (the array extents, common.cuh Region, the global coordinates
+// of array cell (0, 0, 0) and the global extents).  The whole periodic
+// domain is the region (0, 0, 0, X, Y, Z) with origin 0 and global extents
+// (X, Y, Z); anything else is a halo-extended block (the EXT mode above),
+// whose region is its interior, its pads at least sd T deep on the padded
+// axes and the region spanning the others.
 // words: host array of the T int32 noise words, the step of word s being
 // step0 + s.  tile: host array {bx, by, bz}, the output tile (x-planes, y
 // and z cells); threads: the block's threads, a multiple of 32 up to 384.
@@ -525,8 +568,8 @@ extern "C" long long bflbm_blocked_smem(int sd, int T, int by, int bz) {
 // cudaGetLastError() after the launch.
 extern "C" int bflbm_blocked_step(int device, const float* fin,
                                   const float* gin, const float* ref,
-                                  float* fout, float* gout, int X, int Y,
-                                  int Z, const int* words, int T, int step0,
+                                  float* fout, float* gout, const int* geom,
+                                  const int* words, int T, int step0,
                                   const int* tile, int threads, float eps,
                                   float half_lam_f, float half_lam_g,
                                   float lam_f, float lam_g, int noise_on,
@@ -535,9 +578,13 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
                                   float n0, int sd, void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
+  const int X = geom[0], Y = geom[1], Z = geom[2];
+  const Region r = region_of(geom);
   if (sd != SD || T < 1 || T > KMAX || tile[0] < 1 || tile[1] < 1 ||
       tile[2] < 1 || threads < 32 || threads > MAX_THREADS ||
-      threads % 32 != 0 || X < 1 || Y < 1 || Z < 1 || device < 0 || device >= MAX_DEVICES)
+      threads % 32 != 0 || X < 1 || Y < 1 || Z < 1 || r.nx < 1 ||
+      r.ny < 1 || r.nz < 1 || geom[12] < 1 || geom[13] < 1 ||
+      geom[14] < 1 || device < 0 || device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = bflbm_blocked_smem(sd, T, tile[1], tile[2]);
   int optin = 0;
@@ -571,12 +618,26 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
   b.bx = tile[0];
   b.by = tile[1];
   b.bz = tile[2];
-  const dim3 grid((X + b.bx - 1) / b.bx, (Y + b.by - 1) / b.by,
-                  (Z + b.bz - 1) / b.bz);
+  b.a.r = r;
+  b.a.GY = static_cast<uint32_t>(geom[12]);
+  b.a.GZ = static_cast<uint32_t>(geom[13]);
+  b.gx0 = geom[9];
+  b.gy0 = geom[10];
+  b.gz0 = geom[11];
+  b.GX = geom[14];
+  const dim3 grid((r.nx + b.bx - 1) / b.bx, (r.ny + b.by - 1) / b.by,
+                  (r.nz + b.bz - 1) / b.bz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr bool kGeneral = BFLBM_GENERAL_RELAX != 0;
-  return launch_mode<kGeneral>(noise_on, dist, device, grid, threads,
-                               static_cast<size_t>(smem), s, b);
+  // the hash keys of a whole-domain launch are the array's own
+  const bool ext = is_ext(X, Y, Z, r) || b.gx0 != 0 || b.gy0 != 0 ||
+                   b.gz0 != 0 || b.GX != X || geom[12] != Y ||
+                   geom[13] != Z;
+  if (ext)
+    return launch_mode<kGeneral, true>(noise_on, dist, device, grid, threads,
+                                       static_cast<size_t>(smem), s, b);
+  return launch_mode<kGeneral, false>(noise_on, dist, device, grid, threads,
+                                      static_cast<size_t>(smem), s, b);
 }
 
 extern "C" const char* bflbm_error_string(int code) {

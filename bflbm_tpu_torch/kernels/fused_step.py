@@ -31,8 +31,10 @@ intermediate steps kept in shared memory and, with a force, psi and its
 laplacian recomputed inside every step from its own input, with no
 pre-pass (plain version
 :func:`bflbm_tpu_torch.ops.blocked.blocked_sweep_reference`, tile for
-tile); :func:`make_ksteps` takes ``block=T`` and :func:`auto_block` picks
-T from the card's measurements.
+tile), on the whole domain or, with ``ext=``, on a halo-extended block
+whose pads are sd T deep (the kernel's EXT mode, JAX's sharded sweep at
+block T); :func:`make_ksteps` takes ``block=T`` and :func:`auto_block`
+picks T from the card's measurements.
 
 Each of the one-step wrappers also takes ``ext=``, an
 :class:`~bflbm_tpu_torch.ops.blocked.Ext` (K7's ext mode): the arrays are
@@ -369,11 +371,12 @@ def _geom(t: torch.Tensor, ext: Optional[Ext], cut: Optional[int],
           need: int = 1, window: Optional[Box] = None):
     """The launch geometry (extents, ``csrc/common.cuh`` Region, hash keys)
     of arrays shaped like t: {X, Y, Z, x0, y0, z0, nx, ny, nz, ox, oy, oz,
-    GY, GZ}.  The region starts `cut` cells inside the pads (None: the
+    GY, GZ, GX}.  The region starts `cut` cells inside the pads (None: the
     interior), or is `window`, which must lie inside that region;
-    (ox, oy, oz) are the global coordinates of array cell (0, 0, 0).
-    Raises when the pads are shallower than `need`, the cells the launch
-    reaches."""
+    (ox, oy, oz) are the global coordinates of array cell (0, 0, 0) and
+    (GY, GZ, GX) the global extents (the one-step kernels read the first
+    14 entries).  Raises when the pads are shallower than `need`, the
+    cells the launch reaches."""
     shape = tuple(int(s) for s in t.shape[1:])
     if ext is None:
         ext = Ext((0, 0, 0), (0, 0, 0), shape)
@@ -394,9 +397,10 @@ def _geom(t: torch.Tensor, ext: Optional[Ext], cut: Optional[int],
         raise ValueError(f"the region's X and Y must be <= 65535 (grid "
                          f"limits), got {tuple(region[:2])}")
     origin = [o - p for o, p in zip(ext.origin, ext.pad)]
+    domain = tuple(int(d) for d in ext.domain)
     geom = shape + tuple(start) + tuple(region) + tuple(origin) \
-        + tuple(int(d) for d in ext.domain[1:])
-    return (ctypes.c_int * 14)(*geom)
+        + domain[1:] + domain[:1]
+    return (ctypes.c_int * 15)(*geom)
 
 
 def _check_box_args(f: torch.Tensor, ext: Optional[Ext],
@@ -784,9 +788,10 @@ _BLOCKED_MAX_THREADS = 384
 # T = 2 (193,472), T = 3 needs 303,776 on 4 x 4.
 _BLOCKED_SECTIONS = {(1, 2): (8, 32), (1, 3): (8, 16), (1, 4): (8, 8),
                      (2, 2): (8, 16), (2, 3): (4, 8), (3, 2): (4, 16)}
-# Where the configurations the blocked sweep does not run are queued.
-K4_MESH_ITEM = ("ROADMAP Queue 2: the decomposed path at block T, for every "
-                "stencil depth")
+# Where the decomposed sweeps the blocked kernel does not run yet are
+# queued: the overlap split and the y strips at block T > 1.
+K4_MESH_ITEM = ("ROADMAP Queue 2: the overlap split and the y strips at "
+                "block T > 1")
 
 
 def blocked_tile(T: int, shape, sd: int = 1) -> Tuple[int, int, int]:
@@ -858,7 +863,8 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
                            params: LBMParams, T: int,
                            out: Optional[Pair] = None, *,
                            noise_dist: str = "clt4",
-                           ref: Optional[torch.Tensor] = None) -> Pair:
+                           ref: Optional[torch.Tensor] = None,
+                           ext: Optional[Ext] = None) -> Pair:
     """T K steps of the post-collide pair (f, g) in one sweep (K4): step
     s draws word ``words[s]`` at step label ``step0 + s``; returns the
     pair at label step0 + T (written into `out` when given; it must not
@@ -868,25 +874,41 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     force (alpha0 or alpha1 != 0) every phase recomputes psi (and its
     laplacian) from its own streamed input: neither pre-pass is launched.
 
+    ext: every array (ref included) is a halo-extended block in one
+    padded layout (:class:`~bflbm_tpu_torch.ops.blocked.Ext`) whose pads,
+    at least sd T deep (:func:`sd_depth`), the halo exchange has filled:
+    the sweep runs on the block's interior, its grown phases reading the
+    pads, and writes the interior of `out`, leaving its pads as they
+    were (unset in an `out` allocated here).
+
     CPU tensors run :func:`bflbm_tpu_torch.ops.blocked.
     blocked_sweep_reference` on the kernel's tiles.  CUDA tensors launch
-    ``csrc/blocked_step.cu`` once on the current stream, or raise:
-    ValueError or TypeError for what the kernel does not take (a T past
-    its shared memory among it, :func:`check_block`), RuntimeError for a
-    failed build or launch.  Neither runs the steps one by one."""
+    ``csrc/blocked_step.cu`` once on the current stream (its EXT mode
+    with ext), or raise: ValueError or TypeError for what the kernel does
+    not take (a T past its shared memory, :func:`check_block`, or pads
+    shallower than sd T among it), RuntimeError for a failed build or
+    launch.  Neither runs the steps one by one."""
     global blocked_launches
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
     check_noise_dist(noise_dist)
     check_block(params, T)
     T, sd = int(T), sd_depth(params)
-    tile = blocked_tile(T, f.shape, sd)
     words = [int(w) for w in words]
     if len(words) != T:
         raise ValueError(f"need {T} words, got {len(words)}")
+    interior = (tuple(int(n) for n in f.shape[1:]) if ext is None
+                else ext.interior(f.shape))
+    tile = blocked_tile(T, interior, sd)
     if f.device.type == "cpu":
         fo, go = blocked.blocked_sweep_reference(f, g, words, step0, params,
-                                                 T, tile, noise_dist, ref)
+                                                 T, tile, noise_dist, ref,
+                                                 ext)
+        if ext is not None:
+            return (_write_region(None if out is None else out[0], fo, f, Q,
+                                  ext, None),
+                    _write_region(None if out is None else out[1], go, g, Q,
+                                  ext, None))
         if out is None:
             return fo, go
         out[0].copy_(fo)
@@ -906,6 +928,7 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
         _check_no_alias("ref", ref, tuple(out))
         if not params.noise_on:
             ref = None
+    geom = _geom(f, ext, None, need=sd * T)
     from . import _build
 
     lib = _build.load("blocked_step" + ("_general" if general_relax(params)
@@ -914,11 +937,10 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
                       + ("_a1" if sd == 3 else ""), f.device)
     coef = (ctypes.c_float * 33)(*_noise_coef(
         float(params.kBT), params.lam_f, params.lam_g, noise_dist))
-    X, Y, Z = (int(n) for n in f.shape[1:])
     rc = lib.bflbm_blocked_step(
         f.device.index, f.data_ptr(), g.data_ptr(),
         None if ref is None else ref.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), X, Y, Z,
+        out[0].data_ptr(), out[1].data_ptr(), geom,
         (ctypes.c_int * T)(*[_as_i32(w) for w in words]), T,
         _as_i32(step0), (ctypes.c_int * 3)(*tile),
         blocked_threads(T, tile, sd), params.div_eps, 0.5 * params.lam_f,
@@ -931,7 +953,8 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "blocked_step")
     blocked_launches += 1
-    mode_launches["blocked"] = mode_launches.get("blocked", 0) + 1
+    for tag in ["blocked"] + (["blocked ext"] if ext is not None else []):
+        mode_launches[tag] = mode_launches.get(tag, 0) + 1
     return out
 
 
@@ -954,14 +977,16 @@ AUTO_BLOCK.update({f"{depth} {mode}": 1 for depth in ("coupled", "alpha1")
 AUTO_BLOCK["coupled general"] = 2
 
 
-def auto_block(params: LBMParams, n: int, noise_dist: str = "clt4",
-               use_ref: bool = False) -> int:
+def auto_block(params: LBMParams, n: Optional[int],
+               noise_dist: str = "clt4", use_ref: bool = False) -> int:
     """The port's counterpart of JAX's ``_auto_block``: T for a run of n
     K steps, from :data:`AUTO_BLOCK` (general relaxation first, then the
     ref operand, then the generator, or "off" at kBT = 0; prefixed
     "coupled " at stencil depth 2 and "alpha1 " at 3); 1 for n < 2; at
-    most n."""
-    if n < 2:
+    most n.  n None: the table's entry, for a session whose block is
+    fixed before its advances (the decomposed one, whose pads are sd T
+    deep)."""
+    if n is not None and n < 2:
         return 1
     if general_relax(params):
         key = "general"
@@ -972,7 +997,8 @@ def auto_block(params: LBMParams, n: int, noise_dist: str = "clt4",
     else:
         key = noise_dist
     key = {1: "", 2: "coupled ", 3: "alpha1 "}[sd_depth(params)] + key
-    return max(1, min(AUTO_BLOCK[key], int(n)))
+    return max(1, AUTO_BLOCK[key] if n is None
+               else min(AUTO_BLOCK[key], int(n)))
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,8 @@ one.
 :class:`ShardedSession` runs the same steps on a decomposed domain: one
 block per device of a mesh (:mod:`bflbm_tpu_torch.parallel`), each kept
 in the padded layout of the kernels' ext mode between advances, with one
-halo exchange a step.
+halo exchange a step, or at block T one exchange and one blocked launch
+a block for T steps.
 
 :func:`make_session` is the entry point for a configuration: it returns
 a :class:`FusedSession`, or a :class:`ShardedSession` on a mesh of more
@@ -261,10 +262,11 @@ class FusedSession:
 
 
 class ShardedSession(FusedSession):
-    """Decomposed session (``bflbm_tpu/kernels/session.py:ShardedSession``
-    at block 1): each block of `mesh` on its device, resident in the
-    padded layout of the kernels' ext mode, with per step one halo
-    exchange and the kernels on every block
+    """Decomposed session (``bflbm_tpu/kernels/session.py:ShardedSession``):
+    each block of `mesh` on its device, resident in the padded layout of
+    the kernels' ext mode, with per step one halo exchange and the
+    kernels on every block, or at block T one exchange and one blocked
+    launch a block for T steps
     (:func:`bflbm_tpu_torch.parallel.kernel.make_kernel_ksteps`).
 
     enter runs the plain prelude and collide on the whole state, on the
@@ -285,31 +287,45 @@ class ShardedSession(FusedSession):
     splits every axis; y_exchange "strips" ships the y halo as strips
     that the kernels read and write, "auto" and "serial" keep the copy
     exchange (strips measured slower, ``parallel.kernel.layout``).  Every
-    sweep gives the same trajectory bitwise.  block: None or 1; the
-    blocks run one step a launch (a larger block raises ValueError)."""
+    sweep gives the same trajectory bitwise.
+
+    block: K steps a launch on every block (K4 on halo-extended blocks,
+    JAX's sharded sweep at block T), fixed at construction because the
+    resident pads are sd T deep (``fused_step.sd_depth``); an advance of
+    n runs n // T sweeps of one exchange and one blocked launch a block,
+    then n % T single steps, and the trajectory is FusedSession's at the
+    same block.  None takes the :data:`~bflbm_tpu_torch.kernels.
+    fused_step.AUTO_BLOCK` entry of the session's mode (1 for the
+    droplet's clt4; JAX's sharded session defaults to 2), or 1 with the
+    split or the strips, which run block 1 only: an explicit block > 1
+    with either raises ValueError (``fused_step.K4_MESH_ITEM``), as does
+    a sharded local extent shallower than sd T."""
 
     def __init__(self, mesh: mesh_lib.Mesh, params: LBMParams,
                  shape: Tuple[int, int, int], *, noise_dist: str = "clt4",
                  mass_restore_int: int = 1000, ref_fields=None,
                  overlap="auto", y_exchange: str = "auto",
                  block: Optional[int] = None):
-        if block not in (None, 1):
-            raise ValueError(
-                f"block = {block!r}: the decomposed session runs block 1 "
-                f"({fused_step.K4_MESH_ITEM})")
+        fused_step.check_noise_dist(noise_dist)
+        kernel_par.check_sweep(overlap, y_exchange)
+        if block is None:
+            block = (1 if overlap in (True, "force") or y_exchange == "strips"
+                     else fused_step.auto_block(params, None, noise_dist,
+                                                ref_fields is not None))
         super().__init__(params, shape, noise_dist=noise_dist,
                          mass_restore_int=mass_restore_int,
-                         ref_fields=ref_fields, block=1)
-        if not kernel_par.supports(mesh, self.shape, params):
+                         ref_fields=ref_fields, block=block)
+        sd = fused_step.sd_depth(params)
+        if not kernel_par.supports(mesh, self.shape, params, self.block):
             raise ValueError(
-                f"mesh {mesh.shape} cannot hold domain {self.shape}: every "
-                "axis must divide and each sharded block extent must be at "
-                f"least {fused_step.sd_depth(params)}")
+                f"mesh {mesh.shape} cannot hold domain {self.shape} at block "
+                f"{self.block}: every axis must divide and each sharded block "
+                f"extent must be at least sd * T = {sd * self.block}")
         self.mesh = mesh
         self.overlap = overlap
         self.y_exchange = y_exchange
         self.layout = kernel_par.layout(mesh, self.shape, params, overlap,
-                                        y_exchange)
+                                        y_exchange, self.block)
         self.pad = self.layout.pad
         self._home = None
 
@@ -325,7 +341,7 @@ class ShardedSession(FusedSession):
         return kernel_par.make_kernel_ksteps(
             self.mesh, self.params, n, self._mass_restore_arg(),
             noise_dist=self.noise_dist, overlap=self.overlap,
-            y_exchange=self.y_exchange)
+            y_exchange=self.y_exchange, block=self.block)
 
     def _whole_f(self, pc: mesh_lib.ShardedState) -> torch.Tensor:
         return mesh_lib.gather_field([b[0] for b in pc.blocks], self.mesh,
@@ -358,12 +374,13 @@ def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
     ``bflbm_tpu.kernels.session.make_session``): a :class:`ShardedSession`
     on a mesh of more than one block, with the sweep options overlap and
     y_exchange, else the single-device :class:`FusedSession`, which has
-    no exchange to split, with `block` steps a launch (None: auto).  The
-    kernels run every configuration, alpha1 included, at every block
-    whose tiles fit in shared memory.  Raises ValueError for an unknown
-    generator name or sweep option, a mesh that cannot hold the domain,
-    or a block the port does not run (above 1 on a mesh, or past shared
-    memory)."""
+    no exchange to split; either with `block` steps a launch (None:
+    auto).  The kernels run every configuration, alpha1 included, at
+    every block whose tiles fit in shared memory, on one device or on a
+    mesh.  Raises ValueError for an unknown generator name or sweep
+    option, a mesh that cannot hold the domain at the block, or a block
+    the port does not run (past shared memory, or above 1 with the
+    overlap split or the y strips)."""
     if mesh is not None and mesh.size > 1:
         return ShardedSession(mesh, params, shape, noise_dist=noise_dist,
                               mass_restore_int=mass_restore_int,

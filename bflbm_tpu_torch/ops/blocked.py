@@ -19,7 +19,8 @@ coordinates (the block's origin and the global domain), as the JAX
 kernel's seed operand keys it.
 
 The same pieces give the plain version of K4, T steps per sweep on tiles
-whose phases shrink by the stencil depth (:func:`blocked_sweep_reference`).
+whose phases shrink by the stencil depth (:func:`blocked_sweep_reference`),
+on the periodic domain or on a block whose pads are sd T deep.
 """
 
 from __future__ import annotations
@@ -287,7 +288,8 @@ def blocked_sweep_reference(f: torch.Tensor, g: torch.Tensor,
                             words: Sequence[int], step0: int,
                             params: LBMParams, T: int,
                             tile: Sequence[int], noise_dist: str = "clt4",
-                            ref: Optional[torch.Tensor] = None
+                            ref: Optional[torch.Tensor] = None,
+                            ext: Optional[Ext] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """T K steps of the post-collide pair (f, g) on the periodic domain,
     computed as the K4 kernel (``csrc/blocked_step.cu``) computes them:
@@ -301,27 +303,45 @@ def blocked_sweep_reference(f: torch.Tensor, g: torch.Tensor,
     USE_REF_STATE amplitude fields, or None.  Every stencil depth: with a
     force (sd = 2, 3) each phase recomputes its psi (and laplacian) from
     its own streamed input on the sd - 1 ring, as the JAX kernel's
-    ``_k_compute`` does inside each of its phases."""
+    ``_k_compute`` does inside each of its phases.
+
+    ext: f, g (and ref) are one halo-extended block of a decomposed
+    domain whose pads, at least sd T deep on its sharded axes, hold its
+    neighbours' cells (the kernel's EXT launch, JAX's sharded sweep at
+    block T).  The tiles then cover the block's interior; the grown
+    regions read the pads on a padded axis and wrap in place on the
+    others; the noise is keyed by the wrapped global coordinates; only
+    interior cells are written, and the result is the interior."""
     sd = sd_depth(params)
     if T < 1 or len(words) != T:
         raise ValueError(f"T = {T} steps need T >= 1 and T words, got "
                          f"{len(words)}")
-    shape = tuple(int(n) for n in f.shape[1:])
-    fo, go = torch.empty_like(f), torch.empty_like(g)
+    arrays = tuple(int(n) for n in f.shape[1:])
+    if ext is None:
+        ext = Ext((0, 0, 0), (0, 0, 0), arrays)
+    _check_depth(ext, sd * T, f"a sweep of {T} steps")
+    shape = ext.interior(arrays)
+    off = ext.pad
+
+    def cut(box, by):
+        """`box` of the interior grown by `by`, in array coordinates."""
+        return tuple((a + o - by, b + o + by) for (a, b), o in zip(box, off))
+
+    fo = torch.empty(f.shape[:1] + shape, dtype=f.dtype, device=f.device)
+    go = torch.empty_like(fo)
     for box in tile_boxes(shape, tile):
-        halo = tuple((a - sd * T, b + sd * T) for a, b in box)
+        halo = cut(box, sd * T)
         cf, cg = periodic_box(f, halo), periodic_box(g, halo)
         for s in range(T):
             p = sd * (T - 1 - s)
             region = tuple((a - p, b + p) for a, b in box)
-            ext = Ext((sd,) * 3, tuple(a for a, _ in region), shape)
-            r = (None if ref is None
-                 else periodic_box(ref, tuple((a - sd, b + sd)
-                                              for a, b in region)))
+            e = Ext((sd,) * 3, tuple(o + a for o, (a, _) in
+                                     zip(ext.origin, region)), ext.domain)
+            r = None if ref is None else periodic_box(ref, cut(region, sd))
             cf, cg = step_on_block(cf, cg, int(words[s]), int(step0) + s,
-                                   params, ext, noise_dist, r)
+                                   params, e, noise_dist, r)
         keep = tuple((a, min(b, n)) for (a, b), n in zip(box, shape))
-        cut = tuple((0, b - a) for a, b in keep)
-        box_view(fo, keep).copy_(box_view(cf, cut))
-        box_view(go, keep).copy_(box_view(cg, cut))
+        inner = tuple((0, b - a) for a, b in keep)
+        box_view(fo, keep).copy_(box_view(cf, inner))
+        box_view(go, keep).copy_(box_view(cg, inner))
     return fo, go

@@ -35,10 +35,17 @@ After every block's kernels, the cadenced exact-mass restore, with the
 sums over every block's interior in float64; the next exchange refreshes
 the pads (and, under strips, the restore shifts the strips too).
 
+At block T > 1 (K4 on the blocks, JAX's sharded sweep at block T,
+``bflbm_tpu/parallel/kernel.py:737-770``; serial only) the pads are sd T
+deep and a sweep is one exchange and one blocked launch a block
+(``kernels.fused_step.blocked_stream_collide(..., ext=)``) for T steps;
+the n % T steps left of an advance run as one-step launches inside the
+same layout (JAX's "T=1 remainder phase inside the blocked phase's
+layout"), and the restore follows the sweep that crossed its step.
+
 The noise is keyed by global coordinates, and every cell runs the
 arithmetic of the whole-domain launch, so the trajectory is
-``FusedSession``'s for every mesh and every sweep.  This is block 1 (one
-exchange and one K a physical step); temporal blocking (K4) is queued.
+``FusedSession``'s for every mesh and every sweep at the same block.
 """
 
 from __future__ import annotations
@@ -62,10 +69,12 @@ OVERLAPS = ("auto", False, True, "force")
 Y_EXCHANGES = ("auto", "strips", "serial")
 
 
-def supports(mesh: mesh_lib.Mesh, shape, params: LBMParams) -> bool:
+def supports(mesh: mesh_lib.Mesh, shape, params: LBMParams,
+             block: int = 1) -> bool:
     """The mesh divides the domain and each sharded local extent holds the
-    sd planes a neighbour's pads take from it."""
-    return mesh.supports(shape, blocked.sd_depth(params))
+    sd T planes (sd: ``ops.blocked.sd_depth``, T the block) a
+    neighbour's pads take from it."""
+    return mesh.supports(shape, blocked.sd_depth(params) * int(block))
 
 
 def pad_state(state, mesh: mesh_lib.Mesh, pad: Sequence[int]):
@@ -99,7 +108,8 @@ def check_sweep(overlap, y_exchange: str) -> None:
 
 
 def layout(mesh: mesh_lib.Mesh, shape, params: LBMParams,
-           overlap="auto", y_exchange: str = "auto") -> Layout:
+           overlap="auto", y_exchange: str = "auto",
+           block: int = 1) -> Layout:
     """The sweep for these options (JAX's ``_split_flags`` and
     ``_make_advance``).
 
@@ -113,15 +123,29 @@ def layout(mesh: mesh_lib.Mesh, shape, params: LBMParams,
     y_exchange: "auto" and "serial" are the copy exchange (JAX's "dus");
     "strips" takes the strips on any mesh with z unsharded (on a 1-block
     y axis the periodic self-wrap: the layout then carries y pads).  The
-    split always takes the copy exchange.  Raises ValueError for unknown
-    options, for "strips" on a z-sharded mesh (the JAX path never shards
-    z) or on a y extent shallower than sd."""
+    split always takes the copy exchange.
+
+    block: the T of the sweeps; above 1 the serial sweep with pads sd T
+    deep on the sharded axes.  Raises ValueError for unknown options, for
+    "strips" on a z-sharded mesh (the JAX path never shards z) or on a y
+    extent shallower than sd, for the split or the strips at block > 1
+    (:data:`~bflbm_tpu_torch.kernels.fused_step.K4_MESH_ITEM`).  A sharded
+    local extent shallower than the pads is refused by :func:`supports`
+    and by the exchange (``halo.halo_plan``)."""
     check_sweep(overlap, y_exchange)
     if y_exchange == "strips" and mesh.shape[2] > 1:
         raise ValueError("y_exchange='strips' needs z unsharded: the JAX "
                          "path never shards z")
     sd = blocked.sd_depth(params)
     loc = mesh.local_shape(shape)
+    T = int(block)
+    if T > 1:
+        if overlap in (True, "force") or y_exchange == "strips":
+            raise ValueError(
+                f"overlap={overlap!r}, y_exchange={y_exchange!r} at block "
+                f"{T}: the decomposed path runs block T > 1 with the serial "
+                f"exchange only ({fused_step.K4_MESH_ITEM})")
+        return Layout((False, False, False), False, mesh.pads(sd * T))
     if overlap == "force":
         want = (True, True, True)
     elif overlap is True:
@@ -302,7 +326,7 @@ def mass_restore_blocks(ss: mesh_lib.ShardedState, m0f, m0g,
 def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
                        mass_restore=None, *, noise_dist: str = "clt4",
                        overlap="auto", y_exchange: str = "auto",
-                       spans: Optional[list] = None):
+                       spans: Optional[list] = None, block: int = 1):
     """fn(ss, words=None, ref=None) -> ss: n K steps of a decomposed
     post-collide state in the resident padded layout of the sweep
     (:func:`layout`'s pads: :func:`pad_state` with ``pad=``), one
@@ -310,16 +334,27 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
     buffers per block and reusing one psi (and lap) scratch per block
     for the chunk.  overlap, y_exchange: the sweep (:func:`layout`).
 
+    block = T > 1 (:func:`~bflbm_tpu_torch.kernels.fused_step.
+    check_block`; the layout's pads are sd T deep): n // T' sweeps, T' =
+    min(T, n), each one exchange and one blocked launch a block
+    (``fused_step.blocked_stream_collide(..., ext=)``), then n % T'
+    single steps as above in the same layout; the mass restore follows
+    the sweep or step that crossed its interval.
+
     The input's block buffers become the second buffers, so `ss` is
     consumed.  words: the n per-step noise words (default: drawn from
     ss.gen).  ref: per block the padded (2, ...) USE_REF_STATE amplitude
-    fields, held fixed for the n steps, or None.  mass_restore: optional
-    (interval, m0f, m0g).  spans: on CUDA, a list into which every step
-    appends its CUDA events (:func:`span_ms`; the events cost a few
-    microseconds of host time a step), or None.
+    fields, held fixed for the n steps, or None; before a blocked sweep
+    their pads are filled from the neighbours' interiors in place, once
+    for the advance (JAX's ``prep_ref_sm``): the sweeps' ring cells read
+    them there.  mass_restore: optional (interval, m0f, m0g).  spans: on
+    CUDA, a list into which every exchange appends its CUDA events
+    (:func:`span_ms`; the events cost a few microseconds of host time a
+    step), or None.
 
     On the CPU every window runs in program order, with no streams."""
     fused_step.check_noise_dist(noise_dist)
+    fused_step.check_block(params, block)
 
     def run_k(ss: mesh_lib.ShardedState,
               words: Optional[Sequence[int]] = None,
@@ -330,18 +365,20 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
         if len(words) != n:
             raise ValueError(f"need {n} words, got {len(words)}")
         shape = ss.shape
-        lay = layout(mesh, shape, params, overlap, y_exchange)
+        lay = layout(mesh, shape, params, overlap, y_exchange, block)
         if tuple(ss.pad) != lay.pad:
             raise ValueError(f"state pads {ss.pad} are not this "
                              f"configuration's {lay.pad}")
         if not n:
             return ss
+        T = min(int(block), n)
+        n_blocked = n // T if T > 1 else 0
         exts = halo.block_exts(mesh, shape, ss.pad)
         cur = list(ss.blocks)
         spare = [torch.empty_like(b) for b in cur]
         cuda = cur[0].device.type == "cuda"
         scratch = [(None, None)] * mesh.size
-        if fused_step.is_coupled(params) and cuda:
+        if fused_step.is_coupled(params) and cuda and n > n_blocked * T:
             scratch = [
                 (torch.empty((2,) + tuple(b.shape[2:]), dtype=b.dtype,
                              device=b.device),
@@ -349,6 +386,8 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
                              device=b.device)
                  if fused_step.has_alpha1(params) else None) for b in cur]
         refs = [None] * mesh.size if ref is None else ref
+        if ref is not None and n_blocked:
+            halo.exchange_halo(refs, mesh, ss.pad)
         sent = received = [None] * mesh.size
         if lay.strips:
             sent = strip_buffers(cur, ss.pad)
@@ -379,7 +418,30 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
                 ext=exts[b], window=window, strips=received[b],
                 strips_out=sent[b])
 
-        for w in words:
+        def restore() -> None:
+            if mass_restore is not None:
+                interval, m0f, m0g = mass_restore
+                if step // interval > prev // interval:
+                    mass_restore_blocks(ss.replace(blocks=cur), m0f, m0g,
+                                        ncells, [t for t in sent
+                                                 if t is not None])
+
+        for k in range(n_blocked):
+            marks.begin()
+            marks.mark("x0")
+            halo.run_plan(plans[0])
+            marks.mark("x1")
+            for b in range(mesh.size):
+                fused_step.blocked_stream_collide(
+                    cur[b][0], cur[b][1], words[k * T:(k + 1) * T], step,
+                    params, T, out=(spare[b][0], spare[b][1]),
+                    noise_dist=noise_dist, ref=refs[b], ext=exts[b])
+            marks.mark("end")
+            cur, spare = spare, cur
+            plans.reverse()
+            prev, step = step, step + T
+            restore()
+        for w in words[n_blocked * T:]:
             marks.begin()
             if split:
                 marks.mark("start")
@@ -405,13 +467,8 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
             marks.mark("end")
             cur, spare = spare, cur
             plans.reverse()
-            step += 1
-            if mass_restore is not None:
-                interval, m0f, m0g = mass_restore
-                if step // interval > (step - 1) // interval:
-                    mass_restore_blocks(ss.replace(blocks=cur), m0f, m0g,
-                                        ncells, [t for t in sent
-                                                 if t is not None])
+            prev, step = step, step + 1
+            restore()
         return ss.replace(blocks=cur, step=step)
 
     return run_k

@@ -18,6 +18,7 @@ Usage:
         --ref-state out/eq/equilibrium.npz --out out/fluct
     python -m bflbm_tpu_torch.run --preset droplet-eq --mesh 2 1 1
     python -m bflbm_tpu_torch.run --preset mixture-fluct --block 2
+    python -m bflbm_tpu_torch.run --preset droplet-eq --mesh 2 1 1 --block 2
 
 ``--mesh X Y Z`` decomposes the domain over a mesh of blocks, one per
 card (:class:`~bflbm_tpu_torch.kernels.session.ShardedSession`); on a
@@ -25,7 +26,8 @@ node with fewer cards the cards repeat.  Views, frames, observables and
 checkpoints are taken from the gathered state, so a run writes the same
 files with or without a mesh.  ``--block T`` runs T K steps per kernel
 launch (K4, every configuration: the droplet presets too; default
-auto).
+auto), on one card or, with ``--mesh``, on every block (pads sd T deep,
+one exchange every T steps).
 
 Noise: every step draws one word from the state's generator and the
 coordinate-keyed hash stream (clt4 unless ``--noise-dist`` says
@@ -107,7 +109,8 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
     decomposed sweep (``kernels.session.ShardedSession``; no CLI flag, as
     in JAX's CLI), e.g. ``run(cfg, mesh=(2, 2, 1), overlap=True)``.
     block: K steps a launch (K4; None: ``fused_step.auto_block``), as
-    ``--block``.
+    ``--block``; with a mesh on every block (``ShardedSession(block=)``:
+    the serial sweep only, and fixed for the run).
     """
     t_start = time.perf_counter()
     tm = {"advance": 0.0, "views": 0.0, "host_obs": 0.0, "io": 0.0}

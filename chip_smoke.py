@@ -126,7 +126,29 @@ Phases (each raises on failure; the script then exits non-zero):
    session at the auto block, T = 2 and 3 (launches, masses, COM drift,
    volume ratio, MLUPS, step 901 against phase 5's) and phase 8's alpha1
    session at T = 2; (d) the droplet campaign at 64^3 through ``run.main
-   --block 2`` and ``run(cfg, block=2)`` with USE_REF_STATE.
+   --block 2`` and ``run(cfg, block=2)`` with USE_REF_STATE; and the
+   ref case of ROADMAP Queue 3 (random amplitudes 1 + 0.1 U on the 256^3
+   rho_lo = 0 droplet) printed with the guards its worst cell reads;
+13. K4 on the decomposed path (``blocked_step.cu`` in its EXT mode, pads
+   sd T deep, one exchange a sweep), the blocks on one card: (a) one ext
+   K4 launch a block at sd = 1 (T = 2, 3), 2 (T = 2, 3) and 3 (T = 2) in
+   every mode on meshes (2, 1, 1), (1, 2, 2) and (2, 2, 1) at 32^3 and
+   at 20 x 12 x 40, against the plain ext sweep (max |delta| <= 2e-5),
+   T one-step ext launches with an exchange before each and the
+   whole-domain K4 launch on the block (bitwise, printed); (b) at 256^3
+   on (2, 1, 1), T = 2, the same checks and the ext K4 launches and the
+   exchange timed per sweep beside the whole-domain K4 and block 1's
+   ext A + B (coupled clt4 and general tau; ext K uncoupled, noise off);
+   (c) phase 5's droplet through ``ShardedSession(block=2)`` on (2, 1, 1)
+   and (2, 2, 1), 1 + 1100 steps, against phase 12's
+   ``FusedSession(block=2)`` at steps 901 (bitwise printed) and 1101,
+   with launches a block, MLUPS and the exchange's ms a step, and the
+   uncoupled mixture with the noise off on (2, 1, 1) at T = 2 and 1;
+   (d) the 64^3 droplet campaign through ``run.main --mesh 2 1 1 --block
+   2`` and ``run(cfg, mesh=(2, 1, 1), block=2)`` with USE_REF_STATE, its
+   frames read back against the same campaign without a mesh.
+
+Phases 9 and 10 pass ``block=1``: they check the one-step launches.
 
 Each phase prints its wall time.  Phase 0 prints the card's name and
 power limit on a line of its own, as ``nvidia-smi`` gives them; the line
@@ -281,6 +303,21 @@ def _session_vs_chain(params, f, g, noise_dist, tag):
     return err
 
 
+def _masses(s):
+    """The total masses (f, g) in float64 of a state, or of a decomposed
+    one's block interiors."""
+    import torch
+
+    if hasattr(s, "blocks"):
+        from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+        return tuple(sum(float(mesh_lib.interior(b[k], s.pad)
+                               .sum(dtype=torch.float64)) for b in s.blocks)
+                     for k in (0, 1))
+    return (float(s.f.sum(dtype=torch.float64)),
+            float(s.g.sum(dtype=torch.float64)))
+
+
 def _run_session(sess, state, tag, keep=None):
     """enter + NCHUNKS x advance(CHUNK) + exit_view with the launch
     counts set to 0 just before, checking the step, finiteness and the
@@ -291,12 +328,11 @@ def _run_session(sess, state, tag, keep=None):
 
     from bflbm_tpu_torch.kernels import fused_step
 
-    m0f = float(state.f.sum(dtype=torch.float64))
-    m0g = float(state.g.sum(dtype=torch.float64))
+    m0f, m0g = _masses(state)
 
     def rel_mass(s):
-        return (abs(float(s.f.sum(dtype=torch.float64)) - m0f) / m0f,
-                abs(float(s.g.sum(dtype=torch.float64)) - m0g) / m0g)
+        mf, mg = _masses(s)
+        return abs(mf - m0f) / m0f, abs(mg - m0g) / m0g
 
     torch.cuda.synchronize()
     fused_step.reset_launch_counts()
@@ -1011,16 +1047,16 @@ EXT_MODES = (
 EXT_WORD, EXT_STEP = 97531, 864
 
 
-def _padded_blocks(f, g, mesh, params):
+def _padded_blocks(f, g, mesh, params, block=1):
     """(f, g) decomposed over `mesh` in the padded layout of the
-    configuration's stencil depth, pads exchanged; returns (state, the
-    blocks' Ext)."""
+    configuration's stencil depth sd (sd T at block T), pads exchanged;
+    returns (state, the blocks' Ext)."""
     from bflbm_tpu_torch.kernels import fused_step
     from bflbm_tpu_torch.parallel import halo
     from bflbm_tpu_torch.parallel import mesh as mesh_lib
     from bflbm_tpu_torch.state import init_state
 
-    pad = mesh.pads(fused_step.sd_depth(params))
+    pad = mesh.pads(fused_step.sd_depth(params) * block)
     ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
     halo.exchange_halo(ss.blocks, mesh, pad)
     return ss, halo.block_exts(mesh, tuple(f.shape[1:]), pad)
@@ -1283,7 +1319,7 @@ def _sharded_sessions(dcfg, dev, cells, phase5_views, phase5_mlups):
         mesh = mesh_lib.make_mesh(ms)
         state = model.make_initial_state(dcfg, device=dev)
         sess = make_session(dcfg.params, SHAPE, noise_dist="clt4", mesh=mesh,
-                            y_exchange="serial")
+                            y_exchange="serial", block=1)
         _check(isinstance(sess, ShardedSession), f"{type(sess)}")
         torch.cuda.synchronize()
         fused_step.reset_launch_counts()
@@ -1357,7 +1393,7 @@ def _sharded_driver(tmp):
         out = os.path.join(tmp, tag)
         fused_step.reset_launch_counts()
         t0 = time.perf_counter()
-        state = run_mod.run(cfg.replace(out_dir=out), mesh=mesh)
+        state = run_mod.run(cfg.replace(out_dir=out), mesh=mesh, block=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = (fused_step.density_launches, fused_step.laplacian_launches,
@@ -1627,7 +1663,7 @@ def _sweep_sessions_small(dev):
                       ("split", dict(overlap=True)),
                       ("strips", dict(y_exchange="strips"))):
         sess = ShardedSession(mesh, params, SMALL, mass_restore_int=3,
-                              **opts)
+                              block=1, **opts)
         pc = sess.enter(init_state(f.clone(), g.clone(), 0), words[0])
         pc = sess.advance(pc, 2, words[1:3])
         got[tag] = sess.exit(sess.advance(pc, 3, words[3:]))
@@ -1746,7 +1782,7 @@ def _span_split(mesh_shape, params, opts, pc_whole, words):
     spans = []
     run_k = kernel_par.make_kernel_ksteps(mesh, params, SPAN_STEPS,
                                           noise_dist="clt4", spans=spans,
-                                          **opts)
+                                          block=1, **opts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ss = run_k(ss, words)
@@ -1780,7 +1816,7 @@ def _sweep_sessions_256(dcfg, dev, cells, serial):
         key = (ms, "split" if opts.get("overlap") else "strips")
         mesh = mesh_lib.make_mesh(ms)
         sess = make_session(dcfg.params, SHAPE, noise_dist="clt4", mesh=mesh,
-                            **opts)
+                            block=1, **opts)
         _check(any(sess.layout.split) == (key[1] == "split")
                and sess.layout.strips == (key[1] == "strips"),
                f"{key}: layout {sess.layout}")
@@ -2214,13 +2250,66 @@ def _k4f_256(dev, errs, cells):
     return plain_ms, table
 
 
+def _k4f_ref_amplitudes(dev):
+    """12a, ROADMAP Queue 3's ref case, printed (no gate: it is recorded
+    as a divergence of the guarded divisions): the 256^3 droplet one step
+    in (rho_lo = 0) with random ref amplitudes 1 + 0.1 U.  One-step
+    kernel against the plain step, step by step; the K4 launch at T = 2
+    against the two one-step launches; at the cell of the largest
+    difference, the streamed densities (rho, phi) that the second step's
+    guards |x| > eps read, on either side."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import moments, stream
+
+    f, g = _k4f_state("coupled", dev)
+    p = _k4f_params("coupled", dict(kBT=KBT))
+    ref = _k4_ref(SHAPE, dev, 73)
+    words = [104729 * (k + 1) - 2 ** 30 for k in range(2)]
+    k1 = fused_step.fused_stream_collide(f, g, words[0], 77, p, ref=ref)
+    p1 = fused_step.k_step_reference(f, g, words[0], 77, p, "clt4", ref)
+    e1 = max(_maxdiff(k1[0], p1[0]), _maxdiff(k1[1], p1[1]))
+    k2 = fused_step.fused_stream_collide(*k1, words[1], 78, p, ref=ref)
+    p2 = fused_step.k_step_reference(*p1, words[1], 78, p, "clt4", ref)
+    d = torch.maximum((k2[0] - p2[0]).abs().amax(0),
+                      (k2[1] - p2[1]).abs().amax(0))
+    cell = tuple(int(i) for i in torch.unravel_index(torch.argmax(d),
+                                                     SHAPE))
+    # the streamed densities the second step's guards read there
+    dens = {side: tuple(float(moments.density(stream.stream(t))[cell])
+                        for t in pair)
+            for side, pair in (("kernel", k1), ("plain", p1))}
+    e2 = max(_maxdiff(k2[0], p2[0]), _maxdiff(k2[1], p2[1]))
+    del p1, p2
+    torch.cuda.empty_cache()
+    fo, go = fused_step.blocked_stream_collide(f, g, words, 77, p, 2,
+                                               ref=ref)
+    bit = bool(torch.equal(fo, k2[0]) and torch.equal(go, k2[1]))
+    eps = p.div_eps
+    flips = [name for i, name in enumerate(("rho", "phi"))
+             if (abs(dens["kernel"][i]) > eps)
+             != (abs(dens["plain"][i]) > eps)]
+    print(f"[phase 12] ref case, random amplitudes 1 + 0.1 U on the 256^3 "
+          f"rho_lo = 0 droplet: max|K - plain| step 1 {e1:.3e}, step 2 "
+          f"{e2:.3e} (K4 T = 2 bitwise the two K launches: {bit}); at the "
+          f"worst cell {cell} the second step's streamed (rho, phi) are "
+          f"{dens['kernel']!r} (kernel) / {dens['plain']!r} (plain), eps "
+          f"{eps!r}: guards that differ {flips or 'none'} (printed, not "
+          "gated: ROADMAP Queue 3)", flush=True)
+    del f, g, k1, k2, fo, go, ref
+    torch.cuda.empty_cache()
+
+
 def _k4f_sessions(dev, cells, phase5_901, phase5_mlups):
     """12c: phase 5's 256^3 droplet session (clt4) at the auto block, at
     T = 2 and at T = 3, and phase 8's alpha1 session at T = 2: launches
     (K4 sweeps, and A, L and K only in the single steps), masses after
     the restore, the droplet's centre of mass and volume ratio, MLUPS;
     the coupled ones at step 901 (before any restore) against phase 5's
-    block-1 session.  Returns {(depth, T): (MLUPS, K4 launches)}."""
+    block-1 session.  Returns {(depth, T): (MLUPS, K4 launches)} and the
+    coupled block-2 session's views at steps 901 and 1101 (on the host),
+    which phase 13 holds its decomposed sessions against."""
     import torch
 
     from bflbm_tpu_torch import config
@@ -2229,7 +2318,7 @@ def _k4f_sessions(dev, cells, phase5_901, phase5_mlups):
     from bflbm_tpu_torch.models import binary_fluid as model
     from bflbm_tpu_torch.observables import stats
 
-    res = {}
+    res, views = {}, {}
     for depth, block in (("coupled", None), ("coupled", 2), ("coupled", 3),
                          ("alpha1", 2)):
         cfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
@@ -2275,48 +2364,75 @@ def _k4f_sessions(dev, cells, phase5_901, phase5_mlups):
             _check(VOL_RANGE[0] <= vol <= VOL_RANGE[1],
                    f"{tag}: volume ratio {vol}")
         res[(depth, block)] = (mlups, nb)
+        if (depth, block) == ("coupled", 2):
+            views = {901: (keep[901].f.cpu(), keep[901].g.cpu()),
+                     1101: (view.f.cpu(), view.g.cpu())}
         del view, rho, keep, sess
         torch.cuda.empty_cache()
-    return res
+    return res, views
 
 
-def _k4f_driver(tmp):
-    """12d: the droplet campaign at 64^3 through the driver at block 2:
-    droplet-eq through ``run.main --block 2`` (400 steps), then the
-    USE_REF_STATE droplet-fluct continuation through ``run(cfg,
-    block=2)`` (600 steps): K4 launches, A only in single steps, masses
-    after the restore at step 1000, the droplet's drift."""
+def _droplet_campaign(tmp, tag, mesh):
+    """The droplet campaign at 64^3 through the driver at block 2:
+    droplet-eq through ``run.main --block 2`` (400 steps, frames every
+    200), then the USE_REF_STATE droplet-fluct continuation through
+    ``run(cfg, block=2)`` (700 steps, frames every 175), on `mesh`
+    (``--mesh`` and ``run(cfg, mesh=)``) or on one card.  Returns (the
+    final state, the launch counts of each run, the frames read back,
+    the continuation's config, the equilibration's directory)."""
     import os
 
-    import numpy as np
     import torch
 
     from bflbm_tpu_torch import config
     from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.io import fields as fields_io
     from bflbm_tpu_torch.kernels import fused_step
 
-    eq = os.path.join(tmp, "k4f_eq")
-    shape = (64, 64, 64)
-    t0 = time.perf_counter()
+    def counts():
+        return dict(k4=fused_step.blocked_launches,
+                    k4_ext=fused_step.mode_launches.get("blocked ext", 0),
+                    k=fused_step.launches, a=fused_step.density_launches)
+
+    eq = os.path.join(tmp, f"{tag}_eq")
     fused_step.reset_launch_counts()
     run_mod.main(["--preset", "droplet-eq", "--shape", "64", "64", "64",
                   "--nsteps", "400", "--plot-int", "200", "--print-int",
-                  "100", "--block", "2", "--out", eq])
-    eq_counts = (fused_step.blocked_launches, fused_step.launches,
-                 fused_step.density_launches)
-    ckpt = os.path.join(eq, "checkpoint0000400")
-    m0 = _npz_masses(ckpt + ".npz")
+                  "100", "--block", "2", "--out", eq]
+                 + (["--mesh"] + [str(m) for m in mesh] if mesh else []))
+    eq_counts = counts()
     cfg = config.preset("droplet-fluct").replace(
-        shape=shape, checkpoint_path=ckpt, step_continue=400, nsteps=700,
+        shape=(64, 64, 64), checkpoint_path=os.path.join(
+            eq, "checkpoint0000400"), step_continue=400, nsteps=700,
         use_ref_state=True, ref_state_path=os.path.join(eq,
                                                         "equilibrium.npz"),
-        plot_int=0, print_int=100, droplet_int=100,
-        out_dir=os.path.join(tmp, "k4f_fluct"))
+        plot_int=175, print_int=100, droplet_int=100,
+        out_dir=os.path.join(tmp, f"{tag}_fluct"))
     fused_step.reset_launch_counts()
-    state = run_mod.run(cfg, block=2)
+    state = run_mod.run(cfg, mesh=mesh, block=2)
     torch.cuda.synchronize()
-    nb, nk, na = (fused_step.blocked_launches, fused_step.launches,
-                  fused_step.density_launches)
+    frames = {f"{kind}/{name}": fields_io.read_frame(os.path.join(d, name))
+              for kind, d in (("eq", eq), ("fluct", cfg.out_dir))
+              for name in sorted(os.listdir(d)) if name.startswith("plt")}
+    return state, (eq_counts, counts()), frames, cfg, eq
+
+
+def _k4f_driver(tmp):
+    """12d: the droplet campaign at 64^3 through the driver at block 2
+    (:func:`_droplet_campaign` on one card): K4 launches, A only in
+    single steps, masses after the restore at step 1000, the droplet's
+    drift.  Returns the campaign's frames (phase 13d holds the same
+    campaign on a mesh against them)."""
+    import os
+
+    import numpy as np
+
+    from bflbm_tpu_torch import run as run_mod
+
+    t0 = time.perf_counter()
+    state, (eq_c, fl_c), frames, cfg, eq = _droplet_campaign(tmp, "k4f",
+                                                             None)
+    m0 = _npz_masses(os.path.join(eq, "checkpoint0000400.npz"))
     st = dict(run_mod.last_run_stats)
     recs = _metrics(os.path.join(cfg.out_dir, "metrics.jsonl"))
     prints = [r for r in recs if "mass_f" in r]
@@ -2327,23 +2443,382 @@ def _k4f_driver(tmp):
     com = np.asarray([r["droplet_com"] for r in drops])
     drift = float(np.linalg.norm(com[-1] - com[0]))
     print(f"[phase 12] droplet-eq (main --block 2, 64^3, 400 steps): "
-          f"launches K4 {eq_counts[0]}, K {eq_counts[1]}, A {eq_counts[2]}; "
+          f"launches K4 {eq_c['k4']}, K {eq_c['k']}, A {eq_c['a']}; "
           f"droplet-fluct (run(cfg, block=2), ref + clt4, 700 steps) in "
           f"{time.perf_counter() - t0:.2f} s with the equilibration: step "
-          f"{state.step}; launches K4 {nb}, K {nk}, A {na}; steps rerun "
-          f"after a crossing {int(st['ref_retry_steps'])}; relative mass "
-          f"defect after the restore {defect:.3e} (tol {MASS_RTOL}); "
-          f"droplet COM drift {drift:.4e} cells (tol {COM_TOL}); "
-          f"ref_roll_violations {prints[-1]['ref_roll_violations']}",
-          flush=True)
+          f"{state.step}; launches K4 {fl_c['k4']}, K {fl_c['k']}, A "
+          f"{fl_c['a']}; steps rerun after a crossing "
+          f"{int(st['ref_retry_steps'])}; relative mass defect after the "
+          f"restore {defect:.3e} (tol {MASS_RTOL}); droplet COM drift "
+          f"{drift:.4e} cells (tol {COM_TOL}); ref_roll_violations "
+          f"{prints[-1]['ref_roll_violations']}", flush=True)
     _check(state.step == 1100, f"final step {state.step} != 1100")
-    _check(eq_counts[0] > 0 and eq_counts[1] == eq_counts[2]
-           and nb > 0 and nk == na, "K4 not on the driver's path, or A "
-                                    "launched inside a sweep")
+    _check(eq_c["k4"] > 0 and eq_c["k"] == eq_c["a"] and fl_c["k4"] > 0
+           and fl_c["k"] == fl_c["a"], "K4 not on the driver's path, or A "
+                                       "launched inside a sweep")
     _check_finite(state.f, state.g)
     _check(defect <= MASS_RTOL, f"mass defect {defect}")
     _check(drift <= COM_TOL, f"droplet drifted {drift} cells")
-    return nb + eq_counts[0]
+    return frames
+
+
+# -- phase 13: K4 on the decomposed path (blocks at block T) -----------------
+
+# (stencil depth, T) of every block the port takes, and each depth's force
+K4X_CASES = ((1, 2), (1, 3), (2, 2), (2, 3), (3, 2))
+K4X_FORCE = {1: {}, 2: K4F_FORCE["coupled"], 3: ALPHA1}
+# the ext K4 launches of a sweep (T = 2) on every block do the work of
+# the whole-domain launch on the blocks' interiors, each cell once: the
+# coupled rows of phase 12, and uncoupled with the noise off K1a's
+# operations less its noise (~300) twice
+KERNELS.update(k4x_clt4=KERNELS["k4_coupled_2_clt4"],
+               k4x_off=dict(bytes=KERNELS["k1a"]["bytes"],
+                            ops=2 * (KERNELS["k1a"]["ops"] - 300)))
+
+
+def _k4x_params(sd, kw):
+    from bflbm_tpu_torch.config import LBMParams
+
+    return LBMParams(**dict(K4X_FORCE[sd], **kw))
+
+
+def _one_step_sweep(blocks, refs, exts, mesh, words, step0, params, dist):
+    """T steps of one exchange and one one-step ext launch (A, L, K) a
+    block, on copies of the padded blocks: what a blocked sweep replaces."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.parallel import halo
+
+    cur = [b.clone() for b in blocks]
+    for s, w in enumerate(words):
+        halo.exchange_halo(cur, mesh, exts[0].pad)
+        nxt = [torch.empty_like(b) for b in cur]
+        for b, o, ext, r in zip(cur, nxt, exts, refs):
+            fused_step.fused_stream_collide(b[0], b[1], w, step0 + s, params,
+                                            out=(o[0], o[1]),
+                                            noise_dist=dist, ref=r, ext=ext)
+        cur = nxt
+    return cur
+
+
+def _k4x_vs_plain(f, g, params, dist, ref, T, mesh, whole=None):
+    """One ext K4 launch a block of (f, g) over `mesh` (pads sd T deep,
+    exchanged once, the ref operand's too) against the plain ext sweep on
+    the block (one tile: the interior), against T one-step ext launches
+    with an exchange before each, and against the whole-domain K4 launch
+    (`whole`, launched here when None) on the block's cells.  Each launch
+    must be one blocked launch and nothing else.  Returns (max |delta| to
+    plain, max |delta| to the one-step launches, bitwise to the one-step
+    launches, bitwise to the whole-domain launch, plain seconds)."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import blocked
+
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    words = [104729 * (k + 1) - 2 ** 30 for k in range(T)]
+    ss, exts = _padded_blocks(f, g, mesh, params, T)
+    blocks, refs = ss.blocks, [None] * mesh.size
+    if ref is not None:   # its pads filled too: the ring cells read them
+        refs = mesh_lib.shard_field(ref, mesh, ss.pad)
+        halo.exchange_halo(refs, mesh, ss.pad)
+    if whole is None:
+        whole = fused_step.blocked_stream_collide(f, g, words, 77, params, T,
+                                                  noise_dist=dist, ref=ref)
+    k1 = _one_step_sweep(blocks, refs, exts, mesh, words, 77, params, dist)
+    e_plain = e_k1 = plain_s = 0.0
+    bit_k1 = bit_whole = True
+    for b, (blk, ext, r) in enumerate(zip(blocks, exts, refs)):
+        before = (fused_step.blocked_launches, fused_step.launches,
+                  fused_step.density_launches,
+                  fused_step.mode_launches.get("blocked ext", 0))
+        fo, go = fused_step.blocked_stream_collide(
+            blk[0], blk[1], words, 77, params, T, noise_dist=dist, ref=r,
+            ext=ext)
+        torch.cuda.synchronize()
+        after = (fused_step.blocked_launches, fused_step.launches,
+                 fused_step.density_launches,
+                 fused_step.mode_launches.get("blocked ext", 0))
+        _check(after == (before[0] + 1, before[1], before[2],
+                         before[3] + 1),
+               f"ext K4 launches went {before} -> {after}")
+        got = (ext.region(fo), ext.region(go))
+        _check_finite(*got)
+        t0 = time.perf_counter()
+        fr, gr = blocked.blocked_sweep_reference(
+            blk[0], blk[1], words, 77, params, T, ext.interior(blk.shape),
+            dist, r, ext)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        e_plain = max(e_plain, _maxdiff(got[0], fr), _maxdiff(got[1], gr))
+        del fr, gr
+        want = (ext.region(k1[b][0]), ext.region(k1[b][1]))
+        e_k1 = max(e_k1, _maxdiff(got[0], want[0]),
+                   _maxdiff(got[1], want[1]))
+        bit_k1 &= bool(torch.equal(got[0], want[0])
+                       and torch.equal(got[1], want[1]))
+        cells = (slice(None),) + _cells(ext, blk.shape)
+        bit_whole &= bool(torch.equal(got[0], whole[0][cells])
+                          and torch.equal(got[1], whole[1][cells]))
+        del fo, go, got, want
+    return e_plain, e_k1, bit_k1, bit_whole, plain_s
+
+
+def _k4x_small(dev, errs):
+    """13a: one ext K4 launch a block at every (sd, T) in every mode on
+    meshes (2, 1, 1), (1, 2, 2) and (2, 2, 1), at 32^3 and at 20 x 12 x
+    40 (no tile divides it), against plain (<= TOL) and against T
+    one-step ext launches and the whole-domain K4 launch (bitwise,
+    printed).  The ref operand is the droplet's own densities, rolled."""
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    n = b_k1 = b_whole = 0
+    for shape in (SMALL, K4_ODD):
+        for sd, T in K4X_CASES:
+            f, g = _perturbed_droplet(shape, _k4x_params(sd, {}), 91, dev,
+                                      radius=0.3)
+            ref = _ref_operand(f, g, (1, 2, -2))
+            row = []
+            for tag, kw, dist, with_ref in K4_MODES:
+                e = 0.0
+                for ms in EXT_MESHES:
+                    ep, ek, bk, bw, _ = _k4x_vs_plain(
+                        f, g, _k4x_params(sd, kw), dist,
+                        ref if with_ref else None, T,
+                        mesh_lib.make_mesh(ms, dev))
+                    _check(max(ep, ek) <= TOL,
+                           f"{shape} sd={sd} T={T} {tag} mesh {ms}: ext K4 "
+                           f"disagrees: {ep}, {ek}")
+                    e = max(e, ep, ek)
+                    n += 1
+                    b_k1 += bk
+                    b_whole += bw
+                errs.append(e)
+                row.append(f"{tag} {e:.2e}")
+            print(f"[phase 13] {shape} sd={sd} T={T}, meshes {EXT_MESHES}: "
+                  f"max|ext K4 - plain, T one-step ext| by mode: "
+                  + ", ".join(row), flush=True)
+    print(f"[phase 13] 13a: {n} (mesh, mode) cases of one ext K4 launch a "
+          f"block; bitwise T one-step ext launches {b_k1}, bitwise the "
+          f"whole-domain K4 on the block {b_whole} (tol {TOL})", flush=True)
+    return n, b_k1, b_whole
+
+
+def _k4x_256(dev, cells, errs):
+    """13b: the 256^3 droplet one step in on mesh (2, 1, 1) (two 128 x 256
+    x 256 blocks, x pads sd T = 4 deep), T = 2: the ext K4 launches held
+    against plain (one whole-interior tile), the one-step ext launches and
+    the whole-domain K4 (clt4 and general tau), then timed per sweep
+    beside the exchange, the whole-domain K4 and block 1's ext A + B for
+    the same two steps; and the uncoupled mixture with the noise off (sd
+    = 1: x pads 2 deep) the same way beside block 1's ext K.  Returns
+    {mode: {key: ms a sweep}}."""
+    import torch
+
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh((2, 1, 1), dev)
+    out = {}
+    f, g = _k4f_state("coupled", dev)
+    for tag, kw in (("clt4", dict(kBT=KBT)),
+                    ("general", dict(kBT=KBT, tau_f=0.7, tau_g=0.6)),
+                    ("off", None)):
+        if kw is None:   # the uncoupled mixture, noise off
+            del f, g
+            torch.cuda.empty_cache()
+            p = LBMParams(kBT=0.0)
+            f, g = model.perturbed_populations(SHAPE, 7, device=dev)
+        else:
+            p = _k4x_params(2, kw)
+        sd = fused_step.sd_depth(p)
+        ep, ek, bk, bw, plain_s = _k4x_vs_plain(f, g, p, "clt4", None, 2,
+                                                mesh)
+        torch.cuda.empty_cache()
+        _check(max(ep, ek) <= TOL, f"256^3 {tag}: ext K4 disagrees: {ep}, "
+                                   f"{ek}")
+        errs.append(max(ep, ek))
+        ss, exts = _padded_blocks(f, g, mesh, p, 2)
+        blocks = ss.blocks
+        spare = [torch.empty_like(b) for b in blocks]
+        plan = halo.halo_plan(blocks, mesh, exts[0].pad)
+        n = max(5, NREP // 2)
+
+        def ext_k4():
+            for i in range(n):
+                for b, o, ext in zip(blocks, spare, exts):
+                    fused_step.blocked_stream_collide(
+                        b[0], b[1], [1, 2], i, p, 2, out=(o[0], o[1]),
+                        noise_dist="clt4", ext=ext)
+
+        def exchange():
+            for _ in range(n):
+                halo.run_plan(plan)
+
+        wout = (torch.empty_like(f), torch.empty_like(g))
+
+        def whole_k4():
+            for i in range(n):
+                fused_step.blocked_stream_collide(f, g, [1, 2], i, p, 2,
+                                                  out=wout,
+                                                  noise_dist="clt4")
+
+        row = {"ext_k4": _time_ms(ext_k4, cells, n),
+               "exchange": _time_ms(exchange, cells, n),
+               "whole_k4": _time_ms(whole_k4, cells, n),
+               "plain_ms": plain_s * 1e3}
+        del ss, blocks, spare, plan, wout
+        torch.cuda.empty_cache()
+        # block 1: sd-deep pads, two steps of ext A + B (K) a block
+        ss, exts = _padded_blocks(f, g, mesh, p)
+        blocks = ss.blocks
+        spare = [torch.empty_like(b) for b in blocks]
+        psi = [torch.empty((2,) + tuple(b.shape[2:]), device=dev)
+               for b in blocks] if sd > 1 else [None] * 2
+
+        def ext_pair():
+            for i in range(n):
+                for _ in range(2):
+                    for b, o, ext, q in zip(blocks, spare, exts, psi):
+                        fused_step.fused_stream_collide(
+                            b[0], b[1], 1, i, p, out=(o[0], o[1]),
+                            noise_dist="clt4", psi=q, ext=ext)
+
+        row["ext_block1"] = _time_ms(ext_pair, cells, n)
+        del ss, blocks, spare, psi
+        torch.cuda.empty_cache()
+        out[tag] = row
+        steps = "ext A + B" if sd > 1 else "ext K"
+        print(f"[phase 13] 256^3 on mesh (2, 1, 1), T = 2, {tag}: ms a sweep "
+              f"(two steps): ext K4 (both blocks) {row['ext_k4']:.4f}, "
+              f"exchange (x pads {sd * 2} deep) {row['exchange']:.4f}, "
+              f"whole-domain K4 {row['whole_k4']:.4f}; block 1's {steps} "
+              f"(two steps, both blocks) {row['ext_block1']:.4f}; plain ext "
+              f"sweep {row['plain_ms']:.2f}; max|ext K4 - plain, one-step| "
+              f"{max(ep, ek):.3e}, bitwise one-step {bk}, whole-domain "
+              f"{bw}", flush=True)
+    del f, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k4x_sessions(dev, cells, k4f_views):
+    """13c: phase 5's 256^3 droplet (clt4) through ShardedSession(block=2)
+    on (2, 1, 1) and (2, 2, 1), 1 + 1100 steps with the restore at step
+    1000 (after the sweep to step 1001), against phase 12's
+    FusedSession(block=2) at steps 901 (bitwise printed) and 1101 (within
+    TOL); launches a block, MLUPS and the exchange's ms a step.  Then the
+    uncoupled mixture with the noise off on (2, 1, 1) at T = 2 and T = 1.
+    Returns {(mesh, tag): (MLUPS, blocked launches)}."""
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import ShardedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    res = {}
+    n_k = CHUNK * NCHUNKS
+    cfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+        kBT=KBT, **K4F_FORCE["coupled"])
+    mix = LBMParams(kBT=0.0)
+    for ms, tag, block in (((2, 1, 1), "droplet", 2),
+                           ((2, 2, 1), "droplet", 2),
+                           ((2, 1, 1), "mixture off", 2),
+                           ((2, 1, 1), "mixture off", 1)):
+        mesh = mesh_lib.make_mesh(ms)
+        if tag == "droplet":
+            sess = ShardedSession(mesh, cfg.params, SHAPE,
+                                  noise_dist="clt4", block=block)
+            state = model.make_initial_state(cfg, device=dev)
+        else:
+            sess = ShardedSession(mesh, mix, SHAPE, noise_dist="u8",
+                                  block=block)
+            state = model.init_mixture(SHAPE, mix, device=dev)
+        keep = {901: None}
+        name = f"phase 13 session {tag} mesh {ms} block={block}"
+        view, counts, t_adv, _ = _run_session(sess, state, name, keep)
+        del state
+        nb = fused_step.mode_launches.get("blocked ext", 0)
+        want = (mesh.size * NCHUNKS * (CHUNK // block) if block > 1 else 0,
+                0 if block > 1 else mesh.size * n_k)
+        _check((nb, counts[0]) == want,
+               f"{name}: launches ext K4 {nb}, K {counts[0]} != {want}")
+        mlups = cells * n_k / t_adv / 1e6
+        vs = ""
+        if tag == "droplet":
+            cmp = {}
+            for step, v in ((901, keep[901]), (1101, view)):
+                w = k4f_views[step]
+                cmp[step] = (max(_maxdiff(v.f.cpu(), w[0]),
+                                 _maxdiff(v.g.cpu(), w[1])),
+                             bool(torch.equal(v.f.cpu(), w[0])
+                                  and torch.equal(v.g.cpu(), w[1])))
+            vs = (f"; vs phase 12's FusedSession(block=2): step 901 "
+                  f"max|delta| {cmp[901][0]:.3e} (bitwise {cmp[901][1]}), "
+                  f"step 1101 {cmp[1101][0]:.3e} (bitwise {cmp[1101][1]}) "
+                  f"(tol {TOL})")
+            _check(max(cmp[901][0], cmp[1101][0]) <= TOL,
+                   f"{name} disagrees with FusedSession(block=2): {cmp}")
+        ss = _padded_blocks(view.f, view.g, mesh, sess.params, block)[0]
+        plan = halo.halo_plan(ss.blocks, mesh, ss.pad)
+        ex_ms = _time_ms(lambda: [halo.run_plan(plan) for _ in range(NREP)],
+                         cells, NREP)
+        del ss, plan
+        print(f"[{name}] pads {sess.pad}; launches a block: ext K4 "
+              f"{nb // mesh.size}, K {counts[0] // mesh.size}, A "
+              f"{counts[1] // mesh.size}; {mlups:.1f} MLUPS; exchange "
+              f"{ex_ms:.4f} ms ({ex_ms / block:.4f} ms a step){vs}",
+              flush=True)
+        res[(ms, tag, block)] = (mlups, nb)
+        del view, keep, sess
+        torch.cuda.empty_cache()
+    return res
+
+
+def _k4x_driver(tmp, single):
+    """13d: phase 12d's droplet campaign at 64^3 on mesh (2, 1, 1)
+    (:func:`_droplet_campaign`: ``run.main --mesh 2 1 1 --block 2``,
+    then ``run(cfg, mesh=(2, 1, 1), block=2)`` with USE_REF_STATE), every
+    frame read back against phase 12d's (`single`, the same campaign on
+    one card).  Returns the ext K4 launches of both runs."""
+    import numpy as np
+
+    from bflbm_tpu_torch.ops import hydro as hydro_ops
+
+    t0 = time.perf_counter()
+    state, (eq_c, fl_c), frames, _, _ = _droplet_campaign(tmp, "k4x",
+                                                          (2, 1, 1))
+    _check(state.step == 1100, f"final step {state.step}")
+    _check_finite(state.f, state.g)
+    names = sorted(single)
+    _check(names == sorted(frames) and len(names) >= 6,
+           f"frames {sorted(frames)} / {names}")
+    err = max(float(np.abs(frames[n][k] - single[n][k]).max())
+              for n in names for k in hydro_ops.HYDRO_NAMES)
+    same = all(np.array_equal(frames[n][k], single[n][k])
+               for n in names for k in hydro_ops.HYDRO_NAMES)
+    print(f"[phase 13] droplet campaign 64^3 at block 2 on mesh (2, 1, 1): "
+          f"main --mesh 2 1 1 --block 2 (400 steps) then run(cfg, mesh=(2, "
+          f"1, 1), block=2) with USE_REF_STATE (700 steps) in "
+          f"{time.perf_counter() - t0:.2f} s: launches eq {eq_c}, fluct "
+          f"{fl_c}; {len(names)} frames read back vs phase 12d's run "
+          f"without a mesh: max|delta| over the 22 fields {err:.3e} (tol "
+          f"{TOL}), bitwise {same}", flush=True)
+    _check(eq_c["k4_ext"] > 0 and fl_c["k4_ext"] > 0
+           and eq_c["k"] == eq_c["a"] and fl_c["k"] == fl_c["a"],
+           "ext K4 not on the driver's path, or A launched inside a sweep")
+    _check(err <= TOL, f"mesh frames disagree: {err}")
+    return eq_c["k4_ext"] + fl_c["k4_ext"]
 
 
 def main() -> int:
@@ -2711,15 +3186,33 @@ def main() -> int:
     _k4f_small(dev, k4f_errs)
     torch.cuda.empty_cache()
     k4f_plain_ms, k4f_ms = _k4f_256(dev, k4f_errs, cells)
-    k4f_sessions = _k4f_sessions(dev, cells, phase5_901, phase5_mlups)
+    _k4f_ref_amplitudes(dev)
+    k4f_sessions, k4f_views = _k4f_sessions(dev, cells, phase5_901,
+                                            phase5_mlups)
     del phase5_901
     tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        _k4f_driver(tmp)
+        k4f_frames = _k4f_driver(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_done(12)
+
+    # -- phase 13: K4 on the decomposed path ---------------------------------
+    k4x_errs = []
+    _k4x_small(dev, k4x_errs)
+    torch.cuda.empty_cache()
+    k4x_ms = _k4x_256(dev, cells, k4x_errs)
+    k4x_sessions = _k4x_sessions(dev, cells, k4f_views)
+    del k4f_views
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    try:
+        _k4x_driver(tmp, k4f_frames)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_done(13)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
@@ -2823,6 +3316,23 @@ def main() -> int:
             "ms": k4f_ms[depth]["clt4"][t],
             "plain_ms": k4f_plain_ms[(depth, t)], "bound_ms": bound,
             "bound_by": by, "library_ms": None})
+    for tag, mode, key, launches in (
+            ("clt4", "coupled (sd = 2), clt4", "k4x_clt4",
+             k4x_sessions[((2, 1, 1), "droplet", 2)][1]),
+            ("off", "uncoupled (sd = 1), noise off", "k4x_off",
+             k4x_sessions[((2, 1, 1), "mixture off", 2)][1])):
+        bound, by = _bound_ms(key, cells)
+        record.append({
+            "name": f"blocked_kernel (K4 EXT, T = 2, {mode})",
+            "route": "cuda", "source": SRC + "blocked_step.cu",
+            "replaces": TPU_KERNEL,
+            "mode": "K4 on halo-extended blocks: ext_mode at block = 2 "
+                    "(:1142-1867, seed origin :1878-1880; parallel/"
+                    "kernel.py:737-770), pads sd * T; 256^3 on mesh "
+                    "(2,1,1), both blocks, a launch of 2 steps",
+            "launches": launches, "max_abs_err": max(k4x_errs),
+            "ms": k4x_ms[tag]["ext_k4"], "plain_ms": k4x_ms[tag]["plain_ms"],
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -377,15 +377,16 @@ def test_coupled_and_alpha1_take_block(kw, monkeypatch):
     assert torch.equal(fo, want[0]) and torch.equal(go, want[1])
 
 
-def test_mesh_refuses_block():
+def test_mesh_takes_block():
+    """The decomposed session takes the block: its pads are sd T deep on
+    the sharded axis (tests/test_torch_blocked_mesh.py runs it)."""
     mesh = tmesh_lib.make_mesh((2, 1, 1), "cpu")
     p = TParams(kBT=1e-5)
-    with pytest.raises(ValueError, match="decomposed path at block T"):
-        make_session(p, (16, 16, 16), mesh=mesh, block=2)
-    with pytest.raises(ValueError, match="decomposed path at block T"):
-        ShardedSession(mesh, p, (16, 16, 16), block=4)
-    assert isinstance(make_session(p, (16, 16, 16), mesh=mesh, block=1),
-                      ShardedSession)
+    for sess, T in ((make_session(p, (16, 16, 16), mesh=mesh, block=2), 2),
+                    (ShardedSession(mesh, p, (16, 16, 16), block=4), 4),
+                    (make_session(p, (16, 16, 16), mesh=mesh, block=1), 1)):
+        assert isinstance(sess, ShardedSession)
+        assert sess.block == T and sess.pad == (T, 0, 0)
 
 
 @pytest.mark.parametrize("T", [0, -1, 2.0, 9])

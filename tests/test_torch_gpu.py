@@ -836,9 +836,16 @@ def test_blocked_kernel_refusals(cuda):
     with pytest.raises(ValueError, match="303776 bytes"):
         fused_step.blocked_stream_collide(
             f, g, [1] * 3, 0, dataclasses.replace(coupled, alpha1=0.5), 3)
-    with pytest.raises(ValueError, match="decomposed path at block T"):
-        ShardedSession(mesh_lib.make_mesh((2, 1, 1), cuda), coupled,
-                       (16, 16, 16), block=2)
+    # the decomposed path runs block 2 (pads sd T = 4 deep); the overlap
+    # split at block 2 is queued
+    mesh = mesh_lib.make_mesh((2, 1, 1), cuda)
+    sess = ShardedSession(mesh, coupled, (16, 16, 16), block=2)
+    assert sess.pad == (4, 0, 0)
+    pc = sess.enter(init_state(*_droplet_pops((16, 16, 16), coupled, 38,
+                                              cuda), 0))
+    assert sess.advance(pc, 2).step == 3
+    with pytest.raises(ValueError, match="split and the y strips at block"):
+        ShardedSession(mesh, coupled, (16, 16, 16), block=2, overlap=True)
 
 
 # K4 with a force: (stencil depth tag, T) -> the force's LBMParams keywords
@@ -917,3 +924,137 @@ def test_blocked_coupled_session_matches_cpu(cuda, alpha1):
     cpu = go("cpu")
     assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
         <= ATOL
+
+
+# K4 on halo-extended blocks: (stencil depth, T) -> the force's keywords
+_K4_EXT_CASES = {
+    (1, 2): {}, (1, 3): {},
+    (2, 2): dict(_DROP, alpha0=1.5), (2, 3): dict(_DROP, alpha0=1.5),
+    (3, 2): dict(_DROP, alpha0=1.2, alpha1=0.5),
+}
+
+
+def _one_step_mesh(blocks, mesh, pad, exts, words, step0, params, dist,
+                   refs):
+    """T steps of one-step ext launches with an exchange before each, on
+    copies of the padded blocks (each (2, Q, ...))."""
+    cur = [b.clone() for b in blocks]
+    for s, w in enumerate(words):
+        halo.exchange_halo(cur, mesh, pad)
+        nxt = []
+        for b, ext, r in zip(cur, exts, refs):
+            out = torch.empty_like(b)
+            fused_step.fused_stream_collide(b[0], b[1], w, step0 + s, params,
+                                            out=(out[0], out[1]),
+                                            noise_dist=dist, ref=r, ext=ext)
+            nxt.append(out)
+        cur = nxt
+    return cur
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_K4_EXT_CASES))
+@pytest.mark.parametrize("mode", sorted(_K4_MODES))
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 1), (1, 2, 2)])
+def test_blocked_ext_kernel_matches_plain(cuda, case, mode, mesh_shape):
+    """One K4 launch of T steps on every block of a 16 x 12 x 20 droplet
+    (pads sd T deep, exchanged once; the ref operand's pads filled too)
+    against the plain ext sweep on the block, against T one-step ext
+    launches with an exchange before each, and against the whole-domain
+    K4 launch on the block's cells."""
+    from bflbm_tpu_torch.ops import blocked
+
+    sd, T = case
+    kw, dist, with_ref = _K4_MODES[mode]
+    params = LBMParams(**dict(_K4_EXT_CASES[case], **kw))
+    shape = (16, 12, 20)
+    f, g = _droplet_pops(shape, params, 39, cuda)
+    ref = (1.0 + 0.1 * torch.rand((2,) + shape, generator=torch.Generator()
+                                  .manual_seed(40))).to(cuda) \
+        if with_ref else None
+    words = [7919 * k - 3 for k in range(T)]
+    mesh = mesh_lib.make_mesh(mesh_shape, cuda)
+    pad = mesh.pads(sd * T)
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+    halo.exchange_halo(ss.blocks, mesh, pad)
+    exts = halo.block_exts(mesh, shape, pad)
+    refs = [None] * mesh.size
+    if with_ref:
+        refs = mesh_lib.shard_field(ref, mesh, pad)
+        halo.exchange_halo(refs, mesh, pad)
+    whole = fused_step.blocked_stream_collide(f, g, words, 40, params, T,
+                                              noise_dist=dist, ref=ref)
+    k1 = _one_step_mesh(ss.blocks, mesh, pad, exts, words, 40, params, dist,
+                        refs)
+    for b, (blk, ext, r) in enumerate(zip(ss.blocks, exts, refs)):
+        fused_step.reset_launch_counts()
+        fo, go = fused_step.blocked_stream_collide(
+            blk[0], blk[1], words, 40, params, T, noise_dist=dist, ref=r,
+            ext=ext)
+        torch.cuda.synchronize()
+        assert (fused_step.blocked_launches, fused_step.launches,
+                fused_step.mode_launches.get("blocked ext")) == (1, 0, 1)
+        fr, gr = blocked.blocked_sweep_reference(
+            blk[0], blk[1], words, 40, params, T,
+            fused_step.blocked_tile(T, ext.interior(blk.shape), sd), dist,
+            r, ext)
+        got = (ext.region(fo), ext.region(go))
+        assert max(_maxdiff(got[0], fr), _maxdiff(got[1], gr)) <= ATOL
+        assert max(_maxdiff(got[0], ext.region(k1[b][0])),
+                   _maxdiff(got[1], ext.region(k1[b][1]))) <= ATOL
+        cells = (slice(None),) + tuple(
+            slice(o, o + n) for o, n in zip(ext.origin,
+                                            ext.interior(blk.shape)))
+        assert max(_maxdiff(got[0], whole[0][cells]),
+                   _maxdiff(got[1], whole[1][cells])) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 1)])
+def test_blocked_sharded_session_matches_cpu_and_fused(cuda, mesh_shape):
+    """ShardedSession(block=2) of the droplet on the card (1 + 7 steps,
+    restore every 4: three sweeps and a single step) against the same
+    session on the CPU and against FusedSession(block=2) on the card."""
+    params = LBMParams(**dict(_DROP, alpha0=1.5, kBT=1e-5))
+    shape = (16, 16, 32)
+    f, g = _droplet_pops(shape, params, 41, "cpu")
+    words = [13 * k + 2 for k in range(8)]
+
+    def go(dev, mesh):
+        sess = (ShardedSession(mesh, params, shape, mass_restore_int=4,
+                               block=2) if mesh is not None else
+                FusedSession(params, shape, mass_restore_int=4, block=2))
+        pc = sess.enter(init_state(f.to(dev), g.to(dev), 0), words[0])
+        return sess.exit(sess.advance(pc, 7, words[1:]))
+
+    fused_step.reset_launch_counts()
+    got = go(cuda, mesh_lib.make_mesh(mesh_shape, cuda))
+    n = int(torch.tensor(mesh_shape).prod())
+    assert (fused_step.blocked_launches, fused_step.launches,
+            fused_step.mode_launches.get("blocked ext")) == (3 * n, n, 3 * n)
+    cpu = go("cpu", mesh_lib.make_mesh(mesh_shape, "cpu"))
+    fused = go(cuda, None)
+    for other in (cpu, fused):
+        assert max(_maxdiff(got.f.cpu(), other.f.cpu()),
+                   _maxdiff(got.g.cpu(), other.g.cpu())) <= ATOL
+
+
+@pytest.mark.gpu
+def test_ref_kernel_on_zero_density_droplet(cuda):
+    """The one-step kernel with random ref amplitudes 1 + 0.1 U on the
+    rho_lo = 0 droplet one step in, at 32^3, against the plain step (the
+    case of the ref fault at 256^3 in ROADMAP Queue 3), two steps."""
+    params = LBMParams(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0,
+                       kBT=1e-5)
+    shape = (32, 32, 32)
+    base = model.init_droplet(shape, params, radius=0.3, device=cuda)
+    pc = FusedSession(params, shape, block=1).enter(base, 12345)
+    ref = (1.0 + 0.1 * torch.rand((2,) + shape, generator=torch.Generator()
+                                  .manual_seed(42))).to(cuda)
+    a = b = (pc.f, pc.g)
+    for s in range(2):
+        a = fused_step.fused_stream_collide(*a, 1000 + s, 77 + s, params,
+                                            ref=ref)
+        b = fused_step.k_step_reference(*b, 1000 + s, 77 + s, params,
+                                        "clt4", ref)
+        assert max(_maxdiff(a[0], b[0]), _maxdiff(a[1], b[1])) <= ATOL

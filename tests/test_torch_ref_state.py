@@ -78,6 +78,36 @@ def test_ref_k_matches_pallas_interpret(alpha0):
     assert float((a[0] - b[0]).abs().max()) > 100 * ATOL
 
 
+def test_ref_k_on_zero_density_droplet_matches_pallas_interpret():
+    """ROADMAP Queue 3's ref case: the rho_lo = 0 droplet one step in,
+    with ref amplitudes 1 + 0.1 U from a numpy seed, at 16^3.  Two plain
+    K steps with the ref operand against two steps of the Pallas kernel
+    with ``ref`` in interpret mode, whose divisions are guarded
+    reciprocal products (``safe_inv``, fused_step.py:948-949) where the
+    plain step divides: atol 2e-5."""
+    shape = (16, 16, 16)
+    kw = dict(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0, kBT=1e-5)
+    params = TParams(**kw)
+    base = tmodel.init_droplet(shape, params, radius=0.3, device="cpu")
+    pc = FusedSession(params, shape, block=1).enter(base, 12345)
+    ref = (1.0 + 0.1 * np.random.default_rng(5).random((2,) + shape)
+           ).astype(np.float32)
+    jf, jg = jnp.asarray(to_np(pc.f)), jnp.asarray(to_np(pc.g))
+    tf_, tg = pc.f, pc.g
+    for s, word in enumerate((104729 - 2 ** 30, 209458 - 2 ** 30)):
+        with pltpu.force_tpu_interpret_mode():
+            jf, jg = jfs._fused_step_call(
+                JParams(**kw), shape, (16, 16), True,
+                jnp.array([word, 77 + s], jnp.int32), jf, jg, block=1,
+                noise_impl="hash", noise_dist="clt4", ref=jnp.asarray(ref))
+        tf_, tg = tfs.k_step_reference(tf_, tg, word, 77 + s, params,
+                                       "clt4", to_torch(ref))
+    assert float(to_np(tf_).sum(0).min()) < 1e-4   # cells of ~zero density
+    np.testing.assert_allclose(to_np(tf_), np.asarray(jf), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(to_np(tg), np.asarray(jg), rtol=0, atol=ATOL)
+
+
 def _mixture_ks(params, n, ref=None, shape=(16, 16, 16)):
     st = tmodel.init_mixture(shape, params, device="cpu")
     return tfs.make_ksteps(params, n)(st, list(range(7, 7 + n)),
