@@ -170,8 +170,8 @@ def _build_unlocked() -> Dict[str, Path]:
 def ptxas_summary() -> List[str]:
     """One line per kernel instantiation of the current builds: its
     template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF,
-    A1, EXT>, blocked_kernel<NOISE, DIST, GENERAL, REF, EXT> of the library's
-    force and relaxation) with the
+    A1, EXT>, blocked_kernel<NOISE, DIST, GENERAL, REF, EXT, STRIPS> of the
+    library's force and relaxation) with the
     ``-Xptxas -v`` registers and spills."""
     out = []
     for name in SOURCES:
@@ -215,7 +215,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "bflbm_blocked_step"):
         lib.bflbm_blocked_step.argtypes = [i, p, p, p, p, p, p, p, i, i, p,
                                            i, f, f, f, f, f, i, i, p, f, f,
-                                           f, f, i, f, i, p]
+                                           f, f, i, f, i, p, p, i, p]
         lib.bflbm_blocked_step.restype = i
         lib.bflbm_blocked_smem.argtypes = [i, i, i, i]
         lib.bflbm_blocked_smem.restype = ctypes.c_longlong

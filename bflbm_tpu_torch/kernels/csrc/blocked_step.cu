@@ -89,6 +89,35 @@
 // and the USE_REF_STATE operand is read there, so its pads must hold the
 // neighbours' values too.  Whole-domain launches keep the instantiations
 // without EXT and their code.
+//
+// JAX's other sharded sweeps at block T (bflbm_tpu/parallel/kernel.py:
+// 466-481, 541-569, 646-729) ride on EXT, as they do in csrc/fused_step.cu
+// at block 1:
+//   - a window, a run-time option: the region may be any box of the
+//     interior (the overlap split's interior window, the interior shrunk by
+//     sd T on each split axis, and its seam bands).  The tiles cover the
+//     region from its first cell; under EXT every phase computes only the
+//     cells of its tile's region that lie within p_s of the launch's region
+//     (a tile past the region's end skips the rest), so phase 0 reads
+//     device memory only within sd T of the region: the interior window
+//     reads no pad, and may run while the exchange writes them;
+//   - y strips (common.cuh YStrips, `rows` = sd T), the template flag
+//     STRIPS of the EXT instantiations (as a run-time option, its code in
+//     every EXT instantiation made the serial ext launches 3-4% slower,
+//     chip_smoke.py phase 13 on NVIDIA H100 80GB HBM3, 700 W): phase 0
+//     reads every population whose source row lies in the y halo from the
+//     received strips, the y pads are never read (the psi and laplacian
+//     rings are computed from those reads), and the last phase writes its
+//     first and last `rows` interior rows a second time into the strips it
+//     sends, its 38 outputs read back in one batch before any store.  The
+//     ref operand is still read from its own pads.  Every phase-0 cell of
+//     a strip-fed launch finds its three source rows (in the arrays or in
+//     the strips, StripRows) once, then issues its 38 loads together as a
+//     serial launch does: a branch per population on the rows next to the
+//     halo held every plane's barrier, and a selected address per
+//     population was slower too; with StripRows the strip-fed launches of
+//     a sweep take 1.09x the serial ones (chip_smoke.py phase 14b, 256^3
+//     on (2, 2, 1), on the card above).
 
 #ifndef BFLBM_GENERAL_RELAX
 #define BFLBM_GENERAL_RELAX 0
@@ -169,6 +198,74 @@ __host__ __device__ __forceinline__ long long phase_floats(int ny, int nz,
   return n;
 }
 
+// Where phase 0 of a strip-fed launch pulls from, for a cell in row y:
+// per source row y - cy (cy = -1, 0, 1), that row's first element of each
+// species in the arrays or, where the row lies in the y halo, in the
+// received strips.  Built once a cell, so that a population's load costs
+// what a load from the arrays does.
+struct StripRows {
+  const float* f[3];
+  const float* g[3];
+  bool strip[3];
+
+  __device__ __forceinline__ StripRows(const Args& a, int y) {
+    const size_t sp = strip_plane(a.ys, a.X, a.Z);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int src = y + 1 - d;   // the source row of cy = d - 1
+      int side = 0, row = 0;
+      strip[d] = strip_row(a.ys, src, side, row);
+      const size_t so = static_cast<size_t>(side) * 2 * Q * sp +
+                        static_cast<size_t>(row) * a.Z;
+      const size_t ao = static_cast<size_t>(src) * a.Z;
+      f[d] = strip[d] ? a.ys.in + so : a.fin + ao;
+      g[d] = strip[d] ? a.ys.in + so + Q * sp : a.gin + ao;
+    }
+  }
+
+  // Population i of both species pulled from (x, y - cy, z), x and z
+  // wrapped into the arrays.
+  __device__ __forceinline__ void load(const Args& a, int i, int cy, int x,
+                                       int z, size_t plane, float& fi,
+                                       float& gi) const {
+    const int d = cy + 1;
+    const size_t o =
+        static_cast<size_t>(i) *
+            (strip[d] ? strip_plane(a.ys, a.X, a.Z) : plane) +
+        static_cast<size_t>(x) * (strip[d] ? a.ys.rows * a.Z : a.Y * a.Z) +
+        z;
+    fi = __ldg(f[d] + o);
+    gi = __ldg(g[d] + o);
+  }
+};
+
+// A cell of the last phase in the first or last `rows` interior rows of a
+// strip-fed launch: its outputs, which this thread has just stored at idx
+// (a thread sees its own stores), written a second time into the strips it
+// sends.  The 38 reads are issued before any store, so that they wait for
+// the stores to land once, not once each.
+__device__ __forceinline__ void cell_to_strips(const YStrips& ys,
+                                               const float* fout,
+                                               const float* gout,
+                                               size_t plane, size_t idx,
+                                               int x, int y, int z, int X,
+                                               int Z) {
+  float v[2 * Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    v[q] = fout[q * plane + idx];
+    v[Q + q] = gout[q * plane + idx];
+  }
+  const size_t sp = strip_plane(ys, X, Z);
+  for (int side = 0; side < 2; ++side) {
+    const int r = side == 0 ? y - ys.y_lo : y - (ys.y_hi - ys.rows);
+    if (r < 0 || r >= ys.rows) continue;
+    float* dst = ys.out + strip_offset(ys, side, 0, 0, x, r, z, X, Z);
+#pragma unroll
+    for (int q = 0; q < 2 * Q; ++q) dst[q * sp] = v[q];
+  }
+}
+
 // psi (with the Shan-Chen pseudopotential when use_sc) of a streamed
 // density: csrc/density_psi.cu psi_of.
 __device__ __forceinline__ float psi_of(float n, int use_sc, float n0) {
@@ -228,9 +325,11 @@ _Pragma("unroll")                                                             \
     }                                                                         \
   }
 
-template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT>
+template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT,
+          bool STRIPS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
     blocked_kernel(const BArgs p) {
+  static_assert(EXT || !STRIPS, "y strips feed a halo-extended block");
   constexpr bool FORCE = kForce, A1 = kA1;
   constexpr int LAG = 2 * SD;       // march steps between two phases
   constexpr int LEAD = 2 * SD - 2;  // march steps the psi stage runs ahead
@@ -239,7 +338,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int X = args.X, Y = args.Y, Z = args.Z, T = p.T;
   const size_t plane = static_cast<size_t>(X) * Y * Z;
   // the tile's first cell in the arrays, and the end of the region the
-  // last phase writes: the whole domain, or under EXT the interior
+  // last phase writes: the whole domain, or under EXT the launch's region
+  // (the interior or a window of it), past which every phase s computes
+  // only the ps cells its successors read
   const int x0 = (EXT ? args.r.x0 : 0) + blockIdx.x * p.bx;
   const int y0 = (EXT ? args.r.y0 : 0) + blockIdx.y * p.by;
   const int z0 = (EXT ? args.r.z0 : 0) + blockIdx.z * p.bz;
@@ -277,7 +378,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       if (FORCE) {
         // (psi) plane x0 - ps + kp of psi, on the region grown by SD - 1
         const int kp = k + SD - 1;
-        if (kp >= 1 - SD && kp < nx + SD - 1) {
+        if (kp >= 1 - SD && kp < nx + SD - 1 &&
+            !(EXT && x0 - ps + kp >= xe + ps + SD - 1)) {
           const int x = x0 - ps + kp;
           const int xw = wrap_any(x, X);
           float* out = psi_ring + wrap_any(x - x0, PSI_RING) * (2 * pn);
@@ -291,19 +393,39 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           }
           for (int c = threadIdx.x; c < pn; c += blockDim.x) {
             const int j = c / pnz, l = c - j * pnz;
+            if (EXT && (y0 - ps - (SD - 1) + j >= ye + ps + SD - 1 ||
+                        z0 - ps - (SD - 1) + l >= ze + ps + SD - 1))
+              continue;
             float rho = 0.0f, phi = 0.0f;
             if (s == 0) {
               const int yw = wrap_any(y0 - ps - (SD - 1) + j, Y);
               const int zw = wrap_any(z0 - ps - (SD - 1) + l, Z);
+              if (STRIPS) {
+                // strip-fed: every load first, then the sums
+                const StripRows rows(args, yw);
+                float fv[Q], gv[Q];
 #pragma unroll
-              for (int i = 0; i < Q; ++i) {
-                const size_t src =
-                    i * plane + cell_offset(wrap(xw - ImmTables::c(i, 0), X),
-                                            wrap(yw - ImmTables::c(i, 1), Y),
-                                            wrap(zw - ImmTables::c(i, 2), Z),
-                                            Y, Z);
-                rho += __ldg(args.fin + src);
-                phi += __ldg(args.gin + src);
+                for (int i = 0; i < Q; ++i)
+                  rows.load(args, i, ImmTables::c(i, 1),
+                            wrap(xw - ImmTables::c(i, 0), X),
+                            wrap(zw - ImmTables::c(i, 2), Z), plane, fv[i],
+                            gv[i]);
+#pragma unroll
+                for (int i = 0; i < Q; ++i) {
+                  rho += fv[i];
+                  phi += gv[i];
+                }
+              } else {
+#pragma unroll
+                for (int i = 0; i < Q; ++i) {
+                  const size_t src =
+                      i * plane +
+                      cell_offset(wrap(xw - ImmTables::c(i, 0), X),
+                                  wrap(yw - ImmTables::c(i, 1), Y),
+                                  wrap(zw - ImmTables::c(i, 2), Z), Y, Z);
+                  rho += __ldg(args.fin + src);
+                  phi += __ldg(args.gin + src);
+                }
               }
             } else {
 #pragma unroll
@@ -326,11 +448,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           // (lap) plane x0 - ps + kl of the laplacian, on the region grown
           // by 1: laplacian_psi.cu's sum over the psi ring
           const int kl = k + 1;
-          if (kl >= -1 && kl < nx + 1) {
+          if (kl >= -1 && kl < nx + 1 &&
+              !(EXT && x0 - ps + kl >= xe + ps + 1)) {
             const int x = x0 - ps + kl;
             float* out = lap_ring + wrap_any(x - x0, LAP_RING) * (2 * ln);
             for (int c = threadIdx.x; c < ln; c += blockDim.x) {
               const int j = c / lnz, l = c - j * lnz;
+              if (EXT && (y0 - ps - 1 + j >= ye + ps + 1 ||
+                          z0 - ps - 1 + l >= ze + ps + 1))
+                continue;
               const int pc = (j + SD - 2) * pnz + (l + SD - 2);
               float acc[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -357,7 +483,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
       // (collide) plane x0 - ps + k
       const int x = x0 - ps + k;       // unwrapped
-      if (k >= 0 && k < nx && !(last && x >= xe)) {
+      if (k >= 0 && k < nx && !(EXT ? x >= xe + ps : (last && x >= xe))) {
         const int xw = wrap_any(x, X);
         // phase s - 1's planes x - 1, x, x + 1
         const float* below = nullptr;
@@ -386,7 +512,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         for (int c = threadIdx.x; c < ncell; c += blockDim.x) {
           const int j = c / nz, l = c - j * nz;
           const int y = y0 - ps + j, z = z0 - ps + l;
-          if (last && (y >= ye || z >= ze)) continue;
+          if (EXT ? (y >= ye + ps || z >= ze + ps)
+                  : (last && (y >= ye || z >= ze)))
+            continue;
           const int yw = wrap_any(y, Y), zw = wrap_any(z, Z);
           // the hash key: the cell's global coordinates
           int kx = xw, ky = yw, kz = zw;
@@ -403,7 +531,23 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #pragma unroll
             for (int q = 4; q < Q; ++q) mf[q] = mg[q] = 0.0f;
           }
-          if (s == 0) {
+          if (s == 0 && STRIPS) {
+            // strip-fed: every load first (from the strips where its row
+            // lies in the y halo), then the sums
+            const StripRows rows(args, yw);
+            float fv[Q], gv[Q];
+#pragma unroll
+            for (int i = 0; i < Q; ++i)
+              rows.load(args, i, ImmTables::c(i, 1),
+                        wrap(xw - ImmTables::c(i, 0), X),
+                        wrap(zw - ImmTables::c(i, 2), Z), plane, fv[i],
+                        gv[i]);
+#pragma unroll
+            for (int i = 0; i < Q; ++i)
+              pull_add<GENERAL, ImmTables>(
+                  i, ImmTables::c(i, 0), ImmTables::c(i, 1),
+                  ImmTables::c(i, 2), fv[i], gv[i], rho, phi, jf, jg, mf, mg);
+          } else if (s == 0) {
             // pull from device memory, periodic
 #pragma unroll
             for (int i = 0; i < Q; ++i) {
@@ -453,6 +597,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           BFLBM_COLLIDE_CELL_WITH(args, word, step, kx, ky, kz, fo, go,
                                   oplane, oidx, ImmTables,
                                   BLOCKED_FORCES);
+          if (STRIPS && last && args.ys.out != nullptr &&
+              (yw < args.ys.y_lo + args.ys.rows ||
+               yw >= args.ys.y_hi - args.ys.rows))
+            cell_to_strips(args.ys, args.fout, args.gout, plane, idx, xw, yw,
+                           zw, X, Z);
         }
       }
       // phase s + 1 reads what phase s wrote, and the next march step's
@@ -467,11 +616,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 // `smem` first when that is above 48 KB and above what was set on this
 // device before (a launch above the limit is refused, and only
 // cudaGetLastError reports it).
-template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT>
+template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT,
+          bool STRIPS>
 int launch(int device, dim3 grid, int threads, size_t smem, cudaStream_t s,
            const BArgs& b) {
   static size_t allowed[MAX_DEVICES] = {};
-  auto kern = blocked_kernel<NOISE, DIST, GENERAL, REF, EXT>;
+  auto kern = blocked_kernel<NOISE, DIST, GENERAL, REF, EXT, STRIPS>;
   if (smem > 48 * 1024 && smem > allowed[device]) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -483,35 +633,37 @@ int launch(int device, dim3 grid, int threads, size_t smem, cudaStream_t s,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DIST, bool GENERAL, bool EXT>
+template <int DIST, bool GENERAL, bool EXT, bool STRIPS>
 int launch_noise(int device, dim3 grid, int threads, size_t smem,
                  cudaStream_t s, const BArgs& b) {
   if (b.a.ref != nullptr)
-    return launch<true, DIST, GENERAL, true, EXT>(device, grid, threads, smem,
-                                                  s, b);
-  return launch<true, DIST, GENERAL, false, EXT>(device, grid, threads, smem,
-                                                 s, b);
+    return launch<true, DIST, GENERAL, true, EXT, STRIPS>(device, grid,
+                                                          threads, smem, s, b);
+  return launch<true, DIST, GENERAL, false, EXT, STRIPS>(device, grid,
+                                                         threads, smem, s, b);
 }
 
-template <bool GENERAL, bool EXT>
+template <bool GENERAL, bool EXT, bool STRIPS>
 int launch_mode(int noise_on, int dist, int device, dim3 grid, int threads,
                 size_t smem, cudaStream_t s, const BArgs& b) {
   if (!noise_on)
-    return launch<false, DIST_U8, GENERAL, false, EXT>(device, grid, threads,
-                                                       smem, s, b);
+    return launch<false, DIST_U8, GENERAL, false, EXT, STRIPS>(
+        device, grid, threads, smem, s, b);
   switch (dist) {
     case DIST_U8:
-      return launch_noise<DIST_U8, GENERAL, EXT>(device, grid, threads, smem,
-                                                 s, b);
+      return launch_noise<DIST_U8, GENERAL, EXT, STRIPS>(device, grid,
+                                                         threads, smem, s, b);
     case DIST_CLT4:
-      return launch_noise<DIST_CLT4, GENERAL, EXT>(device, grid, threads,
-                                                   smem, s, b);
+      return launch_noise<DIST_CLT4, GENERAL, EXT, STRIPS>(device, grid,
+                                                           threads, smem, s,
+                                                           b);
     case DIST_CLT2:
-      return launch_noise<DIST_CLT2, GENERAL, EXT>(device, grid, threads,
-                                                   smem, s, b);
+      return launch_noise<DIST_CLT2, GENERAL, EXT, STRIPS>(device, grid,
+                                                           threads, smem, s,
+                                                           b);
     case DIST_BM:
-      return launch_noise<DIST_BM, GENERAL, EXT>(device, grid, threads, smem,
-                                                 s, b);
+      return launch_noise<DIST_BM, GENERAL, EXT, STRIPS>(device, grid,
+                                                         threads, smem, s, b);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -551,8 +703,8 @@ extern "C" long long bflbm_blocked_smem(int sd, int T, int by, int bz) {
 // of array cell (0, 0, 0) and the global extents).  The whole periodic
 // domain is the region (0, 0, 0, X, Y, Z) with origin 0 and global extents
 // (X, Y, Z); anything else is a halo-extended block (the EXT mode above),
-// whose region is its interior, its pads at least sd T deep on the padded
-// axes and the region spanning the others.
+// whose region is its interior or a window of it, its pads at least sd T
+// deep on the padded axes and the region spanning the others.
 // words: host array of the T int32 noise words, the step of word s being
 // step0 + s.  tile: host array {bx, by, bz}, the output tile (x-planes, y
 // and z cells); threads: the block's threads, a multiple of 32 up to 384.
@@ -562,9 +714,12 @@ extern "C" long long bflbm_blocked_smem(int sd, int T, int by, int bz) {
 // lam_f, lam_g: 1 / (tau + 1/2), read by the general-relaxation build.
 // force_k = -cs^2 alpha0; a1 = cs^2 alpha1; s_f, s_g the Guo prefactors;
 // use_sc, n0: psi is the pseudopotential with reference density n0 (read
-// by the force builds).  Returns cudaErrorInvalidValue for arguments it
-// does not take (another sd, T outside 1..8, a tile or thread count out of
-// range, more shared memory than a block of the device may hold), else
+// by the force builds).  strips_in, strips_out: the received y strips and
+// the strips the last phase writes (common.cuh YStrips, depth strip_rows,
+// the y pads' depth), or null.  Returns cudaErrorInvalidValue for
+// arguments it does not take (another sd, T outside 1..8, a tile or thread
+// count out of range, strips shallower than 1 row or covering the arrays'
+// y, more shared memory than a block of the device may hold), else
 // cudaGetLastError() after the launch.
 extern "C" int bflbm_blocked_step(int device, const float* fin,
                                   const float* gin, const float* ref,
@@ -575,7 +730,9 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
                                   float lam_f, float lam_g, int noise_on,
                                   int dist, const float* coef, float force_k,
                                   float a1, float s_f, float s_g, int use_sc,
-                                  float n0, int sd, void* stream) {
+                                  float n0, int sd, const float* strips_in,
+                                  float* strips_out, int strip_rows,
+                                  void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   const int X = geom[0], Y = geom[1], Z = geom[2];
@@ -585,6 +742,9 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
       threads % 32 != 0 || X < 1 || Y < 1 || Z < 1 || r.nx < 1 ||
       r.ny < 1 || r.nz < 1 || geom[12] < 1 || geom[13] < 1 ||
       geom[14] < 1 || device < 0 || device >= MAX_DEVICES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool strips = strips_in != nullptr || strips_out != nullptr;
+  if (strips && (strip_rows < 1 || 2 * strip_rows >= Y))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = bflbm_blocked_smem(sd, T, tile[1], tile[2]);
   int optin = 0;
@@ -625,6 +785,7 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
   b.gy0 = geom[10];
   b.gz0 = geom[11];
   b.GX = geom[14];
+  b.a.ys = ystrips_of(strips_in, strips_out, strip_rows, Y);
   const dim3 grid((r.nx + b.bx - 1) / b.bx, (r.ny + b.by - 1) / b.by,
                   (r.nz + b.bz - 1) / b.bz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -632,12 +793,18 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
   // the hash keys of a whole-domain launch are the array's own
   const bool ext = is_ext(X, Y, Z, r) || b.gx0 != 0 || b.gy0 != 0 ||
                    b.gz0 != 0 || b.GX != X || geom[12] != Y ||
-                   geom[13] != Z;
+                   geom[13] != Z || strips;
+  if (strips)
+    return launch_mode<kGeneral, true, true>(noise_on, dist, device, grid,
+                                             threads,
+                                             static_cast<size_t>(smem), s, b);
   if (ext)
-    return launch_mode<kGeneral, true>(noise_on, dist, device, grid, threads,
-                                       static_cast<size_t>(smem), s, b);
-  return launch_mode<kGeneral, false>(noise_on, dist, device, grid, threads,
-                                      static_cast<size_t>(smem), s, b);
+    return launch_mode<kGeneral, true, false>(noise_on, dist, device, grid,
+                                              threads,
+                                              static_cast<size_t>(smem), s, b);
+  return launch_mode<kGeneral, false, false>(noise_on, dist, device, grid,
+                                             threads,
+                                             static_cast<size_t>(smem), s, b);
 }
 
 extern "C" const char* bflbm_error_string(int code) {

@@ -30,11 +30,13 @@ blocking) of ``csrc/blocked_step.cu`` in every configuration, the
 intermediate steps kept in shared memory and, with a force, psi and its
 laplacian recomputed inside every step from its own input, with no
 pre-pass (plain version
-:func:`bflbm_tpu_torch.ops.blocked.blocked_sweep_reference`, tile for
-tile), on the whole domain or, with ``ext=``, on a halo-extended block
+:func:`bflbm_tpu_torch.ops.blocked.blocked_sweep_reference`, on any
+tiling), on the whole domain or, with ``ext=``, on a halo-extended block
 whose pads are sd T deep (the kernel's EXT mode, JAX's sharded sweep at
-block T); :func:`make_ksteps` takes ``block=T`` and :func:`auto_block`
-picks T from the card's measurements.
+block T), there also on a window of the interior (the overlap split) or
+fed by y strips (the strips exchange); :func:`make_ksteps` takes
+``block=T`` and :func:`auto_block` picks T from the card's
+measurements.
 
 Each of the one-step wrappers also takes ``ext=``, an
 :class:`~bflbm_tpu_torch.ops.blocked.Ext` (K7's ext mode): the arrays are
@@ -286,7 +288,8 @@ def laplacian_psi_reference(psi: torch.Tensor,
 # block, the overlap split), "ystrips" (K7's ystrips: the y halo from the
 # received strips) and, for launches with noise, the generator's name.
 # blocked_launches counts the launches of the blocked sweep
-# (blocked_stream_collide, T steps each; also mode_launches["blocked"]).
+# (blocked_stream_collide, T steps each; also mode_launches["blocked"], and
+# by mode "blocked ext", "blocked window" and "blocked ystrips").
 launches = 0
 density_launches = 0
 laplacian_launches = 0
@@ -788,10 +791,6 @@ _BLOCKED_MAX_THREADS = 384
 # T = 2 (193,472), T = 3 needs 303,776 on 4 x 4.
 _BLOCKED_SECTIONS = {(1, 2): (8, 32), (1, 3): (8, 16), (1, 4): (8, 8),
                      (2, 2): (8, 16), (2, 3): (4, 8), (3, 2): (4, 16)}
-# Where the decomposed sweeps the blocked kernel does not run yet are
-# queued: the overlap split and the y strips at block T > 1.
-K4_MESH_ITEM = ("ROADMAP Queue 2: the overlap split and the y strips at "
-                "block T > 1")
 
 
 def blocked_tile(T: int, shape, sd: int = 1) -> Tuple[int, int, int]:
@@ -804,6 +803,25 @@ def blocked_tile(T: int, shape, sd: int = 1) -> Tuple[int, int, int]:
     default = (8, 32) if T == 1 else ((8, 8) if sd == 1 else (4, 4))
     by, bz = _BLOCKED_SECTIONS.get((sd, T), default)
     return (int(tuple(shape)[-3]), by, bz)
+
+
+# x planes a tile of a band across y or z marches (JAX's pick_band)
+BAND_PLANES = 16
+
+
+def launch_tile(T: int, region, sd: int = 1) -> Tuple[int, int, int]:
+    """The tile of a T-step launch on a region of (nx, ny, nz) cells:
+    :func:`blocked_tile`'s, its (y, z) section no wider than the region,
+    so that a thin seam band of the overlap split (sd T cells across) is
+    one tile across; a region thinner than the section in y or z (a seam
+    band across y or z) marches x in chunks of :data:`BAND_PLANES`
+    planes, so that its launch still has a tile for most SMs (JAX's
+    ``pick_band``, ``bflbm_tpu/parallel/kernel.py:505-516``: x tiles of 16
+    for its y bands, the interior's tiles for its x bands)."""
+    nx, ny, nz = (int(n) for n in tuple(region)[-3:])
+    _, by, bz = blocked_tile(T, (nx, ny, nz), sd)
+    bx = nx if (ny >= by and nz >= bz) else min(nx, BAND_PLANES)
+    return (bx, min(by, ny), min(bz, nz))
 
 
 def _phase_regions(T: int, tile, sd: int):
@@ -864,13 +882,16 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
                            out: Optional[Pair] = None, *,
                            noise_dist: str = "clt4",
                            ref: Optional[torch.Tensor] = None,
-                           ext: Optional[Ext] = None) -> Pair:
+                           ext: Optional[Ext] = None,
+                           window: Optional[Box] = None,
+                           strips: Optional[torch.Tensor] = None,
+                           strips_out: Optional[torch.Tensor] = None) -> Pair:
     """T K steps of the post-collide pair (f, g) in one sweep (K4): step
     s draws word ``words[s]`` at step label ``step0 + s``; returns the
     pair at label step0 + T (written into `out` when given; it must not
     alias f or g).  ref: the (2, X, Y, Z) USE_REF_STATE amplitude fields,
     held for the T steps, or None.  The kernel's output tiles are
-    :func:`blocked_tile`'s at the configuration's stencil depth.  With a
+    :func:`launch_tile`'s at the configuration's stencil depth.  With a
     force (alpha0 or alpha1 != 0) every phase recomputes psi (and its
     laplacian) from its own streamed input: neither pre-pass is launched.
 
@@ -881,13 +902,24 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     pads, and writes the interior of `out`, leaving its pads as they
     were (unset in an `out` allocated here).
 
+    window (the overlap split at block T): a box of the block inside its
+    interior; the sweep's tiles cover it, it reads the arrays only within
+    sd T of it, and it writes only its cells of `out`.  strips, strips_out
+    (the y strips at block T): the y halo is read from the received
+    strips ((2, 2, Q, X, rows, Z), rows the y pads' depth, sd T or more)
+    and never from the y pads, and the sweep writes its first and last
+    `rows` interior rows into strips_out too; ref is read from its own
+    pads.  Neither goes with a window.
+
     CPU tensors run :func:`bflbm_tpu_torch.ops.blocked.
-    blocked_sweep_reference` on the kernel's tiles.  CUDA tensors launch
+    blocked_sweep_reference` on one tile, the launch's region (it gives
+    the cells of the kernel's tiles bitwise).  CUDA tensors launch
     ``csrc/blocked_step.cu`` once on the current stream (its EXT mode
     with ext), or raise: ValueError or TypeError for what the kernel does
-    not take (a T past its shared memory, :func:`check_block`, or pads
-    shallower than sd T among it), RuntimeError for a failed build or
-    launch.  Neither runs the steps one by one."""
+    not take (a T past its shared memory, :func:`check_block`, pads
+    shallower than sd T, a window outside the interior or with strips
+    among it), RuntimeError for a failed build or launch.  Neither runs
+    the steps one by one."""
     global blocked_launches
     if g.device != f.device:
         raise ValueError(f"g is on {g.device}, f on {f.device}")
@@ -897,18 +929,26 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     words = [int(w) for w in words]
     if len(words) != T:
         raise ValueError(f"need {T} words, got {len(words)}")
-    interior = (tuple(int(n) for n in f.shape[1:]) if ext is None
-                else ext.interior(f.shape))
-    tile = blocked_tile(T, interior, sd)
+    if window is not None and (strips is not None or strips_out is not None):
+        raise ValueError("a window launch takes no y strips")
+    _check_box_args(f, ext, window, (strips, strips_out))
+    geom = _geom(f, ext, None, need=sd * T, window=window)
+    region = tuple(geom[6:9])
     if f.device.type == "cpu":
+        # one tile, the launch's region: every tiling computes a cell from
+        # the same inputs, bitwise
         fo, go = blocked.blocked_sweep_reference(f, g, words, step0, params,
-                                                 T, tile, noise_dist, ref,
-                                                 ext)
+                                                 T, region, noise_dist, ref,
+                                                 ext, window, strips)
+        if strips_out is not None:
+            _write_strips(strips_out, fo, go, ext, f.shape)
         if ext is not None:
-            return (_write_region(None if out is None else out[0], fo, f, Q,
-                                  ext, None),
-                    _write_region(None if out is None else out[1], go, g, Q,
-                                  ext, None))
+            box = window if window is not None else ext.bounds(f.shape)
+            outs = (out if out is not None else
+                    (torch.zeros_like(f), torch.zeros_like(g)))
+            for o, v in zip(outs, (fo, go)):
+                blocked.box_view(o, box).copy_(v)
+            return outs
         if out is None:
             return fo, go
         out[0].copy_(fo)
@@ -928,7 +968,13 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
         _check_no_alias("ref", ref, tuple(out))
         if not params.noise_on:
             ref = None
-    geom = _geom(f, ext, None, need=sd * T)
+    if strips_out is not None:
+        _check_no_alias("strips_out", strips_out,
+                        (f, g) + tuple(t for t in (strips, ref)
+                                       if t is not None))
+    rows = next((int(t.shape[-2]) for t in (strips, strips_out)
+                 if t is not None), 0)
+    tile = launch_tile(T, region, sd)
     from . import _build
 
     lib = _build.load("blocked_step" + ("_general" if general_relax(params)
@@ -950,10 +996,14 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_f)),
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_g)),
         int(params.use_sc_pseudo), float(params.sc_ref_density), sd,
+        None if strips is None else strips.data_ptr(),
+        None if strips_out is None else strips_out.data_ptr(), rows,
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "blocked_step")
     blocked_launches += 1
-    for tag in ["blocked"] + (["blocked ext"] if ext is not None else []):
+    for tag in (["blocked"] + (["blocked ext"] if ext is not None else [])
+                + (["blocked window"] if window is not None else [])
+                + (["blocked ystrips"] if strips is not None else [])):
         mode_launches[tag] = mode_launches.get(tag, 0) + 1
     return out
 

@@ -30,8 +30,8 @@ one.
 :class:`ShardedSession` runs the same steps on a decomposed domain: one
 block per device of a mesh (:mod:`bflbm_tpu_torch.parallel`), each kept
 in the padded layout of the kernels' ext mode between advances, with one
-halo exchange a step, or at block T one exchange and one blocked launch
-a block for T steps.
+halo exchange a step, or at block T one exchange and the blocked launches
+of a sweep for T steps.
 
 :func:`make_session` is the entry point for a configuration: it returns
 a :class:`FusedSession`, or a :class:`ShardedSession` on a mesh of more
@@ -290,16 +290,16 @@ class ShardedSession(FusedSession):
     sweep gives the same trajectory bitwise.
 
     block: K steps a launch on every block (K4 on halo-extended blocks,
-    JAX's sharded sweep at block T), fixed at construction because the
+    JAX's sharded sweeps at block T), fixed at construction because the
     resident pads are sd T deep (``fused_step.sd_depth``); an advance of
-    n runs n // T sweeps of one exchange and one blocked launch a block,
-    then n % T single steps, and the trajectory is FusedSession's at the
-    same block.  None takes the :data:`~bflbm_tpu_torch.kernels.
+    n runs n // T sweeps of one exchange and the blocked launches of the
+    sweep (one a block; under the split one on each block's interior
+    window and one a seam band; under the strips strip-fed), then n % T
+    single steps, and the trajectory is FusedSession's at the same block
+    in every sweep.  None takes the :data:`~bflbm_tpu_torch.kernels.
     fused_step.AUTO_BLOCK` entry of the session's mode (1 for the
-    droplet's clt4; JAX's sharded session defaults to 2), or 1 with the
-    split or the strips, which run block 1 only: an explicit block > 1
-    with either raises ValueError (``fused_step.K4_MESH_ITEM``), as does
-    a sharded local extent shallower than sd T."""
+    droplet's clt4; JAX's sharded session defaults to 2).  A sharded
+    local extent shallower than sd T raises ValueError."""
 
     def __init__(self, mesh: mesh_lib.Mesh, params: LBMParams,
                  shape: Tuple[int, int, int], *, noise_dist: str = "clt4",
@@ -309,9 +309,8 @@ class ShardedSession(FusedSession):
         fused_step.check_noise_dist(noise_dist)
         kernel_par.check_sweep(overlap, y_exchange)
         if block is None:
-            block = (1 if overlap in (True, "force") or y_exchange == "strips"
-                     else fused_step.auto_block(params, None, noise_dist,
-                                                ref_fields is not None))
+            block = fused_step.auto_block(params, None, noise_dist,
+                                          ref_fields is not None)
         super().__init__(params, shape, noise_dist=noise_dist,
                          mass_restore_int=mass_restore_int,
                          ref_fields=ref_fields, block=block)
@@ -379,8 +378,7 @@ def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
     every block whose tiles fit in shared memory, on one device or on a
     mesh.  Raises ValueError for an unknown generator name or sweep
     option, a mesh that cannot hold the domain at the block, or a block
-    the port does not run (past shared memory, or above 1 with the
-    overlap split or the y strips)."""
+    past shared memory."""
     if mesh is not None and mesh.size > 1:
         return ShardedSession(mesh, params, shape, noise_dist=noise_dist,
                               mass_restore_int=mass_restore_int,

@@ -20,7 +20,8 @@ kernel's seed operand keys it.
 
 The same pieces give the plain version of K4, T steps per sweep on tiles
 whose phases shrink by the stencil depth (:func:`blocked_sweep_reference`),
-on the periodic domain or on a block whose pads are sd T deep.
+on the periodic domain or on a block whose pads are sd T deep, there also
+on a window of the interior or fed by received y strips.
 """
 
 from __future__ import annotations
@@ -289,7 +290,9 @@ def blocked_sweep_reference(f: torch.Tensor, g: torch.Tensor,
                             params: LBMParams, T: int,
                             tile: Sequence[int], noise_dist: str = "clt4",
                             ref: Optional[torch.Tensor] = None,
-                            ext: Optional[Ext] = None
+                            ext: Optional[Ext] = None,
+                            window: Optional[Box] = None,
+                            strips: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """T K steps of the post-collide pair (f, g) on the periodic domain,
     computed as the K4 kernel (``csrc/blocked_step.cu``) computes them:
@@ -311,20 +314,41 @@ def blocked_sweep_reference(f: torch.Tensor, g: torch.Tensor,
     block T).  The tiles then cover the block's interior; the grown
     regions read the pads on a padded axis and wrap in place on the
     others; the noise is keyed by the wrapped global coordinates; only
-    interior cells are written, and the result is the interior."""
+    interior cells are written, and the result is the interior.
+
+    window (the overlap split's windows, with ext): a box of the block's
+    arrays inside its interior; the tiles cover the window from its first
+    cell and the result is the window's cells (the kernel's windowed
+    launch).  strips (the strips exchange, with ext): the block's received
+    y strips, (2 sides, 2 species, Q, X, rows, Z) with rows the y pads'
+    depth, read in place of the y pads (:func:`mount_strips`); ref is
+    still read from its own pads."""
     sd = sd_depth(params)
     if T < 1 or len(words) != T:
         raise ValueError(f"T = {T} steps need T >= 1 and T words, got "
                          f"{len(words)}")
     arrays = tuple(int(n) for n in f.shape[1:])
     if ext is None:
+        if window is not None or strips is not None:
+            raise ValueError("a window or y strips need ext=, a "
+                             "halo-extended block")
         ext = Ext((0, 0, 0), (0, 0, 0), arrays)
     _check_depth(ext, sd * T, f"a sweep of {T} steps")
-    shape = ext.interior(arrays)
-    off = ext.pad
+    region = ext.bounds(arrays)
+    if window is not None:
+        if not inside(window, region):
+            raise ValueError(f"window {tuple(window)} is not a non-empty box "
+                             f"inside the interior {region}")
+        region = tuple((int(a), int(b)) for a, b in window)
+    if strips is not None:
+        f, g = mount_strips(f, strips, 0), mount_strips(g, strips, 1)
+    shape = tuple(b - a for a, b in region)
+    off = tuple(a for a, _ in region)
+    # the global coordinates of the region's first cell
+    origin = tuple(o + a - p for o, a, p in zip(ext.origin, off, ext.pad))
 
     def cut(box, by):
-        """`box` of the interior grown by `by`, in array coordinates."""
+        """`box` of the region grown by `by`, in array coordinates."""
         return tuple((a + o - by, b + o + by) for (a, b), o in zip(box, off))
 
     fo = torch.empty(f.shape[:1] + shape, dtype=f.dtype, device=f.device)
@@ -334,10 +358,10 @@ def blocked_sweep_reference(f: torch.Tensor, g: torch.Tensor,
         cf, cg = periodic_box(f, halo), periodic_box(g, halo)
         for s in range(T):
             p = sd * (T - 1 - s)
-            region = tuple((a - p, b + p) for a, b in box)
+            grown = tuple((a - p, b + p) for a, b in box)
             e = Ext((sd,) * 3, tuple(o + a for o, (a, _) in
-                                     zip(ext.origin, region)), ext.domain)
-            r = None if ref is None else periodic_box(ref, cut(region, sd))
+                                     zip(origin, grown)), ext.domain)
+            r = None if ref is None else periodic_box(ref, cut(grown, sd))
             cf, cg = step_on_block(cf, cg, int(words[s]), int(step0) + s,
                                    params, e, noise_dist, r)
         keep = tuple((a, min(b, n)) for (a, b), n in zip(box, shape))

@@ -35,13 +35,19 @@ After every block's kernels, the cadenced exact-mass restore, with the
 sums over every block's interior in float64; the next exchange refreshes
 the pads (and, under strips, the restore shifts the strips too).
 
-At block T > 1 (K4 on the blocks, JAX's sharded sweep at block T,
-``bflbm_tpu/parallel/kernel.py:737-770``; serial only) the pads are sd T
-deep and a sweep is one exchange and one blocked launch a block
-(``kernels.fused_step.blocked_stream_collide(..., ext=)``) for T steps;
-the n % T steps left of an advance run as one-step launches inside the
-same layout (JAX's "T=1 remainder phase inside the blocked phase's
-layout"), and the restore follows the sweep that crossed its step.
+At block T > 1 (K4 on the blocks, JAX's sharded sweeps at block T,
+``bflbm_tpu/parallel/kernel.py:466-481, 541-569, 646-770``) the pads are
+sd T deep and a sweep runs T steps with one exchange, in each of the
+three sweeps (``kernels.fused_step.blocked_stream_collide(..., ext=)``):
+serial, one blocked launch a block after the exchange; strips, the x
+exchange and the strips (sd T rows deep), then one strip-fed blocked
+launch a block; split, the exchange on the side stream under one blocked
+launch a block on the interior window (the interior shrunk by sd T on
+each split axis, whose reads touch no pad), then one a seam band.  The
+n % T steps left of an advance run as one-step launches inside the same
+layout (JAX's "T=1 remainder phase inside the blocked phase's layout":
+the split's windows then at depth sd, the strips read and written sd T
+rows deep), and the restore follows the sweep that crossed its step.
 
 The noise is keyed by global coordinates, and every cell runs the
 arithmetic of the whole-domain launch, so the trajectory is
@@ -117,42 +123,35 @@ def layout(mesh: mesh_lib.Mesh, shape, params: LBMParams,
     split cost more than it hid on one host); True splits every sharded
     axis; "force" every axis, giving the unsharded ones pads too, so that
     one card runs the call structure of a larger mesh.  An axis splits
-    when its local extent less sd on each side is not empty; if a
-    requested axis cannot, nothing splits.
+    when its local extent less sd T on each side is not empty (block
+    below); if a requested axis cannot, nothing splits.
 
     y_exchange: "auto" and "serial" are the copy exchange (JAX's "dus");
     "strips" takes the strips on any mesh with z unsharded (on a 1-block
     y axis the periodic self-wrap: the layout then carries y pads).  The
     split always takes the copy exchange.
 
-    block: the T of the sweeps; above 1 the serial sweep with pads sd T
-    deep on the sharded axes.  Raises ValueError for unknown options, for
-    "strips" on a z-sharded mesh (the JAX path never shards z) or on a y
-    extent shallower than sd, for the split or the strips at block > 1
-    (:data:`~bflbm_tpu_torch.kernels.fused_step.K4_MESH_ITEM`).  A sharded
-    local extent shallower than the pads is refused by :func:`supports`
-    and by the exchange (``halo.halo_plan``)."""
+    block: the T of the sweeps, whose reach sd T (sd: the stencil depth)
+    is the depth of every pad and strip and the width of the split's seam
+    bands: an axis splits when its local extent less sd T on each side is
+    not empty, the strips need local y extents of at least sd T.  Raises
+    ValueError for unknown options, for "strips" on a z-sharded mesh (the
+    JAX path never shards z) or on a y extent shallower than sd T.  A
+    sharded local extent shallower than the pads is refused by
+    :func:`supports` and by the exchange (``halo.halo_plan``)."""
     check_sweep(overlap, y_exchange)
     if y_exchange == "strips" and mesh.shape[2] > 1:
         raise ValueError("y_exchange='strips' needs z unsharded: the JAX "
                          "path never shards z")
-    sd = blocked.sd_depth(params)
+    depth = blocked.sd_depth(params) * int(block)
     loc = mesh.local_shape(shape)
-    T = int(block)
-    if T > 1:
-        if overlap in (True, "force") or y_exchange == "strips":
-            raise ValueError(
-                f"overlap={overlap!r}, y_exchange={y_exchange!r} at block "
-                f"{T}: the decomposed path runs block T > 1 with the serial "
-                f"exchange only ({fused_step.K4_MESH_ITEM})")
-        return Layout((False, False, False), False, mesh.pads(sd * T))
     if overlap == "force":
         want = (True, True, True)
     elif overlap is True:
         want = mesh.sharded
     else:
         want = (False, False, False)
-    split = (want if all(n - 2 * sd >= 1 for w, n in zip(want, loc) if w)
+    split = (want if all(n - 2 * depth >= 1 for w, n in zip(want, loc) if w)
              else (False, False, False))
     # JAX's "auto" takes the strips on a y-sharded mesh with z unsharded;
     # here it keeps the copies: on one H100 (NVIDIA H100 80GB HBM3, 700 W;
@@ -161,10 +160,10 @@ def layout(mesh: mesh_lib.Mesh, shape, params: LBMParams,
     # (more, smaller copies, and the rows next to the y halo in a slower
     # loop), past the 2% that would keep JAX's choice.
     strips = not any(split) and y_exchange == "strips"
-    if strips and loc[1] < sd:
+    if strips and loc[1] < depth:
         raise ValueError(f"the y strips need local y extents of at least "
-                         f"{sd}, got {loc[1]}")
-    pad = tuple(sd if (on or cut or (d == 1 and strips)) else 0
+                         f"{depth}, got {loc[1]}")
+    pad = tuple(depth if (on or cut or (d == 1 and strips)) else 0
                 for d, (on, cut) in enumerate(zip(mesh.sharded, split)))
     return Layout(tuple(split), bool(strips), pad)
 
@@ -336,10 +335,13 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
 
     block = T > 1 (:func:`~bflbm_tpu_torch.kernels.fused_step.
     check_block`; the layout's pads are sd T deep): n // T' sweeps, T' =
-    min(T, n), each one exchange and one blocked launch a block
-    (``fused_step.blocked_stream_collide(..., ext=)``), then n % T'
-    single steps as above in the same layout; the mass restore follows
-    the sweep or step that crossed its interval.
+    min(T, n), each one exchange and the blocked launches
+    (``fused_step.blocked_stream_collide(..., ext=)``) of the sweep, one a
+    block (strip-fed under the strips; under the split one on the
+    interior window, shrunk by sd T', and one a seam band), then n % T'
+    single steps as above in the same layout (the split's windows at
+    depth sd); the mass restore follows the sweep or step that crossed
+    its interval.
 
     The input's block buffers become the second buffers, so `ss` is
     consumed.  words: the n per-step noise words (default: drawn from
@@ -399,9 +401,10 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
             plans = [halo.halo_plan(bufs, mesh, ss.pad)
                      for bufs in (cur, spare)]
         split = any(lay.split)
-        if split:
-            inner, bands = split_windows(lay, cur[0].shape,
-                                         blocked.sd_depth(params))
+        sd = blocked.sd_depth(params)
+        # the split's (interior window, seam bands) by the reach of a launch
+        windows = ({r: split_windows(lay, cur[0].shape, r)
+                    for r in {sd, sd * T}} if split else {})
         marks = _Spans(spans if cuda else None, cur[0].device)
         side = None
         if split and cuda:
@@ -418,6 +421,42 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
                 ext=exts[b], window=window, strips=received[b],
                 strips_out=sent[b])
 
+        def sweep(b, ws, window=None):
+            fused_step.blocked_stream_collide(
+                cur[b][0], cur[b][1], ws, step, params, T,
+                out=(spare[b][0], spare[b][1]), noise_dist=noise_dist,
+                ref=refs[b], ext=exts[b], window=window,
+                strips=received[b], strips_out=sent[b])
+
+        def exchange_and(launch, reach) -> None:
+            """One exchange and `launch(block, window)` on every block:
+            after the exchange, or under the split on the interior windows
+            (at this reach) while it runs, then on the seam bands."""
+            marks.begin()
+            if split:
+                inner, bands = windows[reach]
+                marks.mark("start")
+                if side is None:
+                    halo.run_plan(plans[0])
+                else:
+                    side.exchange(plans[0])
+                for b in range(mesh.size):
+                    launch(b, inner)
+                marks.mark("i1")
+                if side is not None:
+                    side.join()
+                marks.mark("b0")
+                for b in range(mesh.size):
+                    for band in bands:
+                        launch(b, band)
+            else:
+                marks.mark("x0")
+                halo.run_plan(plans[0])
+                marks.mark("x1")
+                for b in range(mesh.size):
+                    launch(b, None)
+            marks.mark("end")
+
         def restore() -> None:
             if mass_restore is not None:
                 interval, m0f, m0g = mass_restore
@@ -427,44 +466,14 @@ def make_kernel_ksteps(mesh: mesh_lib.Mesh, params: LBMParams, n: int,
                                                  if t is not None])
 
         for k in range(n_blocked):
-            marks.begin()
-            marks.mark("x0")
-            halo.run_plan(plans[0])
-            marks.mark("x1")
-            for b in range(mesh.size):
-                fused_step.blocked_stream_collide(
-                    cur[b][0], cur[b][1], words[k * T:(k + 1) * T], step,
-                    params, T, out=(spare[b][0], spare[b][1]),
-                    noise_dist=noise_dist, ref=refs[b], ext=exts[b])
-            marks.mark("end")
+            ws = words[k * T:(k + 1) * T]
+            exchange_and(lambda b, win: sweep(b, ws, win), sd * T)
             cur, spare = spare, cur
             plans.reverse()
             prev, step = step, step + T
             restore()
         for w in words[n_blocked * T:]:
-            marks.begin()
-            if split:
-                marks.mark("start")
-                if side is None:
-                    halo.run_plan(plans[0])
-                else:
-                    side.exchange(plans[0])
-                for b in range(mesh.size):
-                    kernels(b, w, inner)
-                marks.mark("i1")
-                if side is not None:
-                    side.join()
-                marks.mark("b0")
-                for b in range(mesh.size):
-                    for band in bands:
-                        kernels(b, w, band)
-            else:
-                marks.mark("x0")
-                halo.run_plan(plans[0])
-                marks.mark("x1")
-                for b in range(mesh.size):
-                    kernels(b, w)
-            marks.mark("end")
+            exchange_and(lambda b, win: kernels(b, w, win), sd)
             cur, spare = spare, cur
             plans.reverse()
             prev, step = step, step + 1

@@ -109,8 +109,8 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
     decomposed sweep (``kernels.session.ShardedSession``; no CLI flag, as
     in JAX's CLI), e.g. ``run(cfg, mesh=(2, 2, 1), overlap=True)``.
     block: K steps a launch (K4; None: ``fused_step.auto_block``), as
-    ``--block``; with a mesh on every block (``ShardedSession(block=)``:
-    the serial sweep only, and fixed for the run).
+    ``--block``; with a mesh on every block (``ShardedSession(block=)``,
+    fixed for the run, in every sweep: serial, the split or the strips).
     """
     t_start = time.perf_counter()
     tm = {"advance": 0.0, "views": 0.0, "host_obs": 0.0, "io": 0.0}

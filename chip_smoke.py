@@ -146,7 +146,25 @@ Phases (each raises on failure; the script then exits non-zero):
    uncoupled mixture with the noise off on (2, 1, 1) at T = 2 and 1;
    (d) the 64^3 droplet campaign through ``run.main --mesh 2 1 1 --block
    2`` and ``run(cfg, mesh=(2, 1, 1), block=2)`` with USE_REF_STATE, its
-   frames read back against the same campaign without a mesh.
+   frames read back against the same campaign without a mesh;
+14. K4 in the overlap split and the y strips (``blocked_step.cu``'s EXT
+   mode on a window of the interior, or fed by the received y strips):
+   (a) the K4 launches of one sweep at sd = 1 (T = 2, 3), 2 (T = 2, 3)
+   and 3 (T = 2) in the modes off, u8, ref and general tau, for the split
+   on (2, 2, 1) and (2, 1, 1), overlap="force" on (1, 1, 1) and the
+   strips on (2, 2, 1) and (2, 1, 1), at 32^3 and 20 x 12 x 40 (cases
+   without a split counted): the interior window on a block whose every
+   pad is NaN writes exactly its window, finite, and with the seam bands
+   the interior bitwise the serial ext K4 launch; the strip-fed launch
+   with NaN y pads bitwise the serial launch, the strips it writes bitwise
+   its edge rows; every launch within 2e-5 of plain; (b) at 256^3 on
+   (2, 2, 1) the windowed and strip-fed launches of a sweep timed beside
+   the serial ones, and phase 5's droplet through ShardedSession(block=2)
+   on (2, 2, 1) with overlap=True and with y_exchange="strips", and the
+   mixture with the noise off on (2, 1, 1) with overlap=True, 1 + 1100
+   steps, against phase 13c's serial T = 2 sessions at steps 901 (bitwise)
+   and 1101, with launches a block, MLUPS and each sweep's CUDA-event
+   split beside the serial sweep's.
 
 Phases 9 and 10 pass ``block=1``: they check the one-step launches.
 
@@ -1767,22 +1785,24 @@ def _kernel_ms_22(dcfg, dev, cells, errs):
     return t
 
 
-def _span_split(mesh_shape, params, opts, pc_whole, words):
+def _span_split(mesh_shape, params, opts, pc_whole, words, block=1,
+                dist="clt4"):
     """CUDA-event split of SPAN_STEPS decomposed steps of the post-collide
-    state pc_whole in the sweep of `opts` (ms a step: exchange, interior,
-    exposed, bands) and the host's enqueue time a step (µs)."""
+    state pc_whole in the sweep of `opts` at `block` (ms an exchange, a
+    step at block 1 and a sweep of `block` steps above: exchange,
+    interior, exposed, bands) and the host's enqueue time a step (µs)."""
     import torch
 
     from bflbm_tpu_torch.parallel import kernel as kernel_par
     from bflbm_tpu_torch.parallel import mesh as mesh_lib
 
     mesh = mesh_lib.make_mesh(mesh_shape, pc_whole.f.device)
-    lay = kernel_par.layout(mesh, SHAPE, params, **opts)
+    lay = kernel_par.layout(mesh, SHAPE, params, block=block, **opts)
     ss = kernel_par.pad_state(pc_whole, mesh, lay.pad)
     spans = []
     run_k = kernel_par.make_kernel_ksteps(mesh, params, SPAN_STEPS,
-                                          noise_dist="clt4", spans=spans,
-                                          block=1, **opts)
+                                          noise_dist=dist, spans=spans,
+                                          block=block, **opts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ss = run_k(ss, words)
@@ -2715,7 +2735,9 @@ def _k4x_sessions(dev, cells, k4f_views):
     FusedSession(block=2) at steps 901 (bitwise printed) and 1101 (within
     TOL); launches a block, MLUPS and the exchange's ms a step.  Then the
     uncoupled mixture with the noise off on (2, 1, 1) at T = 2 and T = 1.
-    Returns {(mesh, tag): (MLUPS, blocked launches)}."""
+    Returns {(mesh, tag): (MLUPS, blocked launches)} and, for phase 14b,
+    the views at steps 901 and 1101 (on the host) of the T = 2 droplet on
+    (2, 2, 1) and mixture on (2, 1, 1), keyed (mesh, tag)."""
     import torch
 
     from bflbm_tpu_torch import config
@@ -2726,7 +2748,7 @@ def _k4x_sessions(dev, cells, k4f_views):
     from bflbm_tpu_torch.parallel import halo
     from bflbm_tpu_torch.parallel import mesh as mesh_lib
 
-    res = {}
+    res, views = {}, {}
     n_k = CHUNK * NCHUNKS
     cfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
         kBT=KBT, **K4F_FORCE["coupled"])
@@ -2780,9 +2802,13 @@ def _k4x_sessions(dev, cells, k4f_views):
               f"{ex_ms:.4f} ms ({ex_ms / block:.4f} ms a step){vs}",
               flush=True)
         res[(ms, tag, block)] = (mlups, nb)
+        if block == 2 and (ms, tag) in (((2, 2, 1), "droplet"),
+                                        ((2, 1, 1), "mixture off")):
+            views[(ms, tag)] = {s: (v.f.cpu(), v.g.cpu()) for s, v in
+                                ((901, keep[901]), (1 + n_k, view))}
         del view, keep, sess
         torch.cuda.empty_cache()
-    return res
+    return res, views
 
 
 def _k4x_driver(tmp, single):
@@ -2819,6 +2845,434 @@ def _k4x_driver(tmp, single):
            "ext K4 not on the driver's path, or A launched inside a sweep")
     _check(err <= TOL, f"mesh frames disagree: {err}")
     return eq_c["k4_ext"] + fl_c["k4_ext"]
+
+
+# -- phase 14: K4 in the overlap split and the y strips ----------------------
+
+# the sweeps of 14a: (tag, mesh, ShardedSession options)
+K4S_SWEEPS = (("split", (2, 2, 1), dict(overlap=True)),
+              ("split", (2, 1, 1), dict(overlap=True)),
+              ("force", (1, 1, 1), dict(overlap="force")),
+              ("strips", (2, 2, 1), dict(y_exchange="strips")),
+              ("strips", (2, 1, 1), dict(y_exchange="strips")))
+K4S_MODES = tuple(m for m in K4_MODES
+                  if m[0] in ("off", "u8", "ref", "general"))
+# the windowed launches of a sweep cover each interior cell once, so they
+# do the work of the serial ext K4 launches (phase 13's k4x rows); the
+# strip-fed ones too, plus the bytes of the strips they write (_k4s_times)
+KERNELS.update(k4_window=KERNELS["k4x_clt4"], k4_ystrips=KERNELS["k4x_clt4"])
+
+
+def _nan_pads(t, pad, axes=(0, 1, 2)):
+    """A copy of a padded block tensor with NaN in the pads of `axes`."""
+    out = t.clone()
+    for d in axes:
+        if pad[d]:
+            ax = out.dim() - 3 + d
+            out.narrow(ax, 0, pad[d]).fill_(float("nan"))
+            out.narrow(ax, out.shape[ax] - pad[d], pad[d]).fill_(float("nan"))
+    return out
+
+
+def _k4s_layout(f, g, params, ref, T, mesh, opts):
+    """(f, g) and the ref operand decomposed over `mesh` in the layout of
+    the sweep `opts` at block T, pads exchanged (and, under the strips, the
+    strips of the exchanged blocks exchanged into NaN-filled received
+    strips); None when that sweep does not run there (no axis splits)."""
+    import torch
+
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+    from bflbm_tpu_torch.state import init_state
+
+    shape = tuple(f.shape[1:])
+    lay = kernel_par.layout(mesh, shape, params, block=T, **opts)
+    if not (any(lay.split) or lay.strips):
+        return None
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, lay.pad)
+    halo.exchange_halo(ss.blocks, mesh, lay.pad)
+    refs = [None] * mesh.size
+    if ref is not None:
+        refs = mesh_lib.shard_field(ref, mesh, lay.pad)
+        halo.exchange_halo(refs, mesh, lay.pad)
+    received = [None] * mesh.size
+    if lay.strips:
+        sent = kernel_par.strip_buffers(ss.blocks, lay.pad)
+        received = [torch.full_like(t, float("nan")) for t in sent]
+        halo.run_plan(halo.strip_plan(sent, received, mesh, lay.pad))
+    return (lay, ss.blocks, refs, received,
+            halo.block_exts(mesh, shape, lay.pad))
+
+
+def _k4s_vs_serial(f, g, params, dist, ref, T, mesh, opts, words):
+    """Phase 14a: the K4 launches of one sweep at block T on every block of
+    (f, g) over `mesh` in the sweep of `opts`.  Split: the interior window
+    (the interior shrunk by sd T on each split axis) on a copy of the
+    block whose pads, the ref operand's too, are NaN, into a NaN-filled
+    output: it must write exactly its window, finite; then the seam bands
+    on the exchanged block.  Strips: one launch on a copy whose y pads are
+    NaN, fed by the received strips, writing its edge rows into NaN-filled
+    strips.  Each launch must be one blocked launch of its mode.  Returns
+    None where the sweep does not run, else (launches, blocks bitwise the
+    serial ext K4 launch, blocks, max |delta| to the plain ext sweep (one
+    tile) of every launch's cells, strips written bitwise the edge rows),
+    the plain version of a strip-fed launch being the plain strip-fed
+    sweep."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+
+    got = _k4s_layout(f, g, params, ref, T, mesh, opts)
+    if got is None:
+        return None
+    lay, blocks, refs, received, exts = got
+    sd = fused_step.sd_depth(params)
+    if not lay.strips:
+        inner, bands = kernel_par.split_windows(lay, blocks[0].shape, sd * T)
+    n = n_bit = n_strips = 0
+    err = 0.0
+    tag = "blocked ystrips" if lay.strips else "blocked window"
+    for blk, ext, r, st in zip(blocks, exts, refs, received):
+        want = fused_step.blocked_stream_collide(
+            blk[0], blk[1], words, 77, params, T, noise_dist=dist, ref=r,
+            ext=ext)
+        out = (torch.full_like(blk[0], float("nan")),
+               torch.full_like(blk[1], float("nan")))
+        before = (fused_step.blocked_launches, fused_step.launches,
+                  fused_step.mode_launches.get(tag, 0))
+        if lay.strips:
+            src = _nan_pads(blk, lay.pad, (1,))
+            st_out = torch.full_like(st, float("nan"))
+            fused_step.blocked_stream_collide(
+                src[0], src[1], words, 77, params, T, out=out,
+                noise_dist=dist, ref=r, ext=ext, strips=st,
+                strips_out=st_out)
+            k = 1
+            px, py = lay.pad[0], lay.pad[1]
+            x1, y1 = blk.shape[2] - px, blk.shape[3] - py
+            n_strips += all(
+                torch.equal(st_out[0, s][:, px:x1], o[:, px:x1, py:2 * py])
+                and torch.equal(st_out[1, s][:, px:x1],
+                                o[:, px:x1, y1 - py:y1])
+                for s, o in enumerate(out))
+            plain = blocked.blocked_sweep_reference(
+                src[0], src[1], words, 77, params, T,
+                ext.interior(blk.shape), dist, r, ext, strips=st)
+        else:
+            src = _nan_pads(blk, lay.pad)
+            fused_step.blocked_stream_collide(
+                src[0], src[1], words, 77, params, T, out=out,
+                noise_dist=dist, ext=ext, window=inner,
+                ref=None if r is None else _nan_pads(r, lay.pad))
+            torch.cuda.synchronize()
+            for o in out:
+                v = blocked.box_view(o, inner)
+                _check(int(torch.isnan(o).sum()) == o.numel() - v.numel()
+                       and bool(torch.isfinite(v).all()),
+                       f"the interior window's launch wrote outside its "
+                       f"window {inner} or read a pad")
+            for band in bands:
+                fused_step.blocked_stream_collide(
+                    blk[0], blk[1], words, 77, params, T, out=out,
+                    noise_dist=dist, ref=r, ext=ext, window=band)
+            k = 1 + len(bands)
+            plain = blocked.blocked_sweep_reference(
+                blk[0], blk[1], words, 77, params, T,
+                ext.interior(blk.shape), dist, r, ext)
+        torch.cuda.synchronize()
+        after = (fused_step.blocked_launches, fused_step.launches,
+                 fused_step.mode_launches.get(tag, 0))
+        _check(after == (before[0] + k, before[1], before[2] + k),
+               f"{tag} launches went {before} -> {after}, expected {k}")
+        n += k
+        res = (ext.region(out[0]), ext.region(out[1]))
+        _check_finite(*res)
+        n_bit += bool(torch.equal(res[0], ext.region(want[0]))
+                      and torch.equal(res[1], ext.region(want[1])))
+        err = max(err, _maxdiff(res[0], plain[0]), _maxdiff(res[1], plain[1]))
+        del want, out, src, plain, res
+    return n, n_bit, len(blocks), err, (n_strips if lay.strips else None)
+
+
+def _k4s_small(dev, errs):
+    """14a: the K4 launches of a sweep of the split (meshes (2, 2, 1) and
+    (2, 1, 1), and overlap="force" on (1, 1, 1)) and of the strips
+    ((2, 2, 1), (2, 1, 1)) at every (sd, T) of phase 13, in the modes off,
+    u8, ref and general tau, at 32^3 and 20 x 12 x 40 (where the split
+    does not fit, the case is counted as skipped): bitwise the serial ext
+    K4 launch, within TOL of plain.  Returns (launches, bitwise blocks,
+    blocks, strips bitwise) by sweep kind."""
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    tot = {"window": [0, 0, 0, 0], "ystrips": [0, 0, 0, 0]}
+    skipped = set()
+    for shape in (SMALL, K4_ODD):
+        for sd, T in K4X_CASES:
+            f, g = _perturbed_droplet(shape, _k4x_params(sd, {}), 93, dev,
+                                      radius=0.3)
+            ref = _ref_operand(f, g, (1, 2, -2))
+            words = [104729 * (k + 3) - 2 ** 29 for k in range(T)]
+            row = []
+            for tag, kw, dist, with_ref in K4S_MODES:
+                e = 0.0
+                for sweep, ms, opts in K4S_SWEEPS:
+                    r = _k4s_vs_serial(f, g, _k4x_params(sd, kw), dist,
+                                       ref if with_ref else None, T,
+                                       mesh_lib.make_mesh(ms, dev), opts,
+                                       words)
+                    if r is None:
+                        skipped.add((shape, sd, T, ms))
+                        continue
+                    n, bit, nb, ep, st = r
+                    _check(ep <= TOL and bit == nb and st in (None, nb),
+                           f"{shape} sd={sd} T={T} {tag} {sweep} {ms}: "
+                           f"bitwise {bit} of {nb} blocks, strips {st}, "
+                           f"max|delta| to plain {ep}")
+                    t = tot["ystrips" if sweep == "strips" else "window"]
+                    t[0] += n
+                    t[1] += bit
+                    t[2] += nb
+                    t[3] += nb if st is not None else 0
+                    e = max(e, ep)
+                errs.append(e)
+                row.append(f"{tag} {e:.2e}")
+            print(f"[phase 14] {shape} sd={sd} T={T}: max|K4 (windows, "
+                  f"strips) - plain| by mode: " + ", ".join(row), flush=True)
+            del f, g, ref
+    w, s = tot["window"], tot["ystrips"]
+    print(f"[phase 14] 14a: {w[0]} window launches on {w[2]} blocks, "
+          f"{w[1]} blocks bitwise the serial ext K4 launch; {s[0]} strip-fed "
+          f"launches, {s[1]} of {s[2]} bitwise, strips written bitwise the "
+          f"edge rows {s[3]} of {s[2]}; max|delta| to plain {max(errs):.3e} "
+          f"(tol {TOL}); {len(skipped)} (shape, case, mesh) without a split "
+          f"(an axis of 2 sd T + 1 cells needed): "
+          + ", ".join(f"{sh} sd={a} T={b} {m}"
+                      for sh, a, b, m in sorted(skipped)), flush=True)
+    return tot
+
+
+def _k4s_times(dev, cells):
+    """14b: the K4 launches of a sweep (T = 2) of the phase-5 droplet one
+    step in on (2, 2, 1) at 256^3: the windows (interior window and four
+    seam bands on each of the four blocks), the strip-fed launches, and
+    the serial ext K4 launches.  The windowed and strip-fed launches of
+    one sweep at step 0 are held bitwise against the serial ones and
+    within TOL of the plain windowed and strip-fed sweeps (one tile a
+    window) at step 0 on the same blocks and words, every window's cells
+    and the strips written; then each is timed a sweep, beside the plain
+    sweep.  Returns {key: ms}, {kind}_err (max |delta| to plain) and the
+    strips' bytes."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh((2, 2, 1), dev)
+    f, g = _k4f_state("coupled", dev)
+    p = _k4x_params(2, dict(kBT=KBT))
+    words = [3, 4]
+    n = max(5, NREP // 2)
+    out = {}
+    for kind, opts in (("window", dict(overlap=True)),
+                       ("ystrips", dict(y_exchange="strips"))):
+        lay, blocks, _, received, exts = _k4s_layout(f, g, p, None, 2, mesh,
+                                                     opts)
+        outs = [(torch.empty_like(b[0]), torch.empty_like(b[1]))
+                for b in blocks]
+        serial = [fused_step.blocked_stream_collide(
+            b[0], b[1], words, 0, p, 2, noise_dist="clt4", ext=e)
+            for b, e in zip(blocks, exts)]
+        if kind == "window":
+            inner, bands = kernel_par.split_windows(lay, blocks[0].shape, 4)
+            wins = [inner] + bands
+
+            def run(reps=n):
+                for i in range(reps):
+                    for b, o, e in zip(blocks, outs, exts):
+                        for w in wins:
+                            fused_step.blocked_stream_collide(
+                                b[0], b[1], words, i, p, 2, out=o,
+                                noise_dist="clt4", ext=e, window=w)
+
+            def plain():
+                return [blocked.blocked_sweep_reference(
+                    b[0], b[1], words, 0, p, 2, [hi - lo for lo, hi in w],
+                    "clt4", None, e, window=w)
+                    for b, e in zip(blocks, exts) for w in wins]
+
+            def plain_err(got):
+                return max(_maxdiff(blocked.box_view(o[k], w), r[k])
+                           for (o, w), r in zip(
+                               ((o, w) for o in outs for w in wins), got)
+                           for k in (0, 1))
+        else:
+            st_out = [torch.empty_like(t) for t in received]
+
+            def run(reps=n):
+                for i in range(reps):
+                    for b, o, e, st, so in zip(blocks, outs, exts, received,
+                                               st_out):
+                        fused_step.blocked_stream_collide(
+                            b[0], b[1], words, i, p, 2, out=o,
+                            noise_dist="clt4", ext=e, strips=st,
+                            strips_out=so)
+
+            def plain():
+                return [blocked.blocked_sweep_reference(
+                    b[0], b[1], words, 0, p, 2, e.interior(b.shape), "clt4",
+                    None, e, strips=st)
+                    for b, e, st in zip(blocks, exts, received)]
+
+            def plain_err(got):
+                # the cells, and the strips written: the first and last
+                # sd T interior rows of the plain sweep
+                px, py = lay.pad[0], lay.pad[1]
+                err = 0.0
+                for o, e, so, r in zip(outs, exts, st_out, got):
+                    x1 = o[0].shape[1] - px
+                    for k in (0, 1):
+                        err = max(err, _maxdiff(e.region(o[k]), r[k]),
+                                  _maxdiff(so[0, k][:, px:x1],
+                                           r[k][:, :, :py]),
+                                  _maxdiff(so[1, k][:, px:x1],
+                                           r[k][:, :, -py:]))
+                return err
+            loc = mesh.local_shape(SHAPE)
+            out["strip_bytes"] = (mesh.size * 2 * 2 * 19 * loc[0]
+                                  * lay.pad[1] * loc[2] * 4)
+        # one sweep at step 0, held bitwise against the serial launches
+        run(1)
+        torch.cuda.synchronize()
+        bit = all(torch.equal(e.region(o[k]), e.region(s[k]))
+                  for o, s, e in zip(outs, serial, exts) for k in (0, 1))
+        _check(bit, f"256^3 {kind} K4 launches differ from the serial ones")
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        out[f"{kind}_plain"] = (time.perf_counter() - t0) * 1e3
+        err = out[f"{kind}_err"] = plain_err(want)
+        _check(err <= TOL, f"256^3 {kind} K4 launches: max|delta| to the "
+                           f"plain sweep {err} > {TOL}")
+        del want
+        torch.cuda.empty_cache()
+
+        def serial_run():
+            for i in range(n):
+                for b, o, e in zip(blocks, outs, exts):
+                    fused_step.blocked_stream_collide(
+                        b[0], b[1], words, i, p, 2, out=o,
+                        noise_dist="clt4", ext=e)
+
+        out[kind] = _time_ms(run, cells, n)
+        out[f"{kind}_serial"] = _time_ms(serial_run, cells, n)
+        what = ("windows (interior and 4 bands a block)" if kind == "window"
+                else "strip-fed launches")
+        print(f"[phase 14] 256^3 on (2, 2, 1), T = 2, coupled clt4, the "
+              f"{what} of a sweep: {out[kind]:.4f} ms (serial ext K4 on "
+              f"the same blocks {out[f'{kind}_serial']:.4f}), plain "
+              f"{out[f'{kind}_plain']:.2f} ms; bitwise the serial launches "
+              f"{bit}; max|delta| to plain at step 0 {err:.3e} (tol {TOL})",
+              flush=True)
+        del lay, blocks, received, exts, outs, serial
+        torch.cuda.empty_cache()
+    del f, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k4s_sessions(dev, cells, serial_views, serial_mlups):
+    """14b: phase 5's 256^3 droplet (clt4) through ShardedSession(block=2)
+    on (2, 2, 1) with overlap=True and with y_exchange="strips", and the
+    uncoupled mixture with the noise off on (2, 1, 1) with overlap=True,
+    1 + 1100 steps (the restore after the sweep to step 1001), against
+    phase 13c's serial T = 2 sessions at steps 901 (bitwise) and 1101
+    (within TOL); launches a block by mode, MLUPS, and each sweep's time
+    split by CUDA events into exchange, interior, exposed exchange and
+    bands beside the serial sweep's.  Returns {(mesh, tag, sweep): (MLUPS,
+    launches of the sweep's mode)}."""
+    import torch
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch.config import LBMParams
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.kernels.session import FusedSession, ShardedSession
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+
+    res = {}
+    n_k = CHUNK * NCHUNKS
+    cfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
+        kBT=KBT, **K4F_FORCE["coupled"])
+    mix = LBMParams(kBT=0.0)
+    for ms, tag, sweep, opts in (
+            ((2, 2, 1), "droplet", "split", dict(overlap=True)),
+            ((2, 2, 1), "droplet", "strips", dict(y_exchange="strips")),
+            ((2, 1, 1), "mixture off", "split", dict(overlap=True))):
+        mesh = mesh_lib.make_mesh(ms)
+        droplet = tag == "droplet"
+        params, dist = (cfg.params, "clt4") if droplet else (mix, "u8")
+        sess = ShardedSession(mesh, params, SHAPE, noise_dist=dist, block=2,
+                              **opts)
+        _check(sess.block == 2 and (sess.layout.strips
+                                    or any(sess.layout.split)),
+               f"{ms} {sweep}: layout {sess.layout}")
+
+        def initial():
+            return (model.make_initial_state(cfg, device=dev) if droplet
+                    else model.init_mixture(SHAPE, mix, device=dev))
+
+        keep = {901: None}
+        name = f"phase 14 session {tag} {sweep} mesh {ms} block=2"
+        view, counts, t_adv, _ = _run_session(sess, initial(), name, keep)
+        modes = dict(fused_step.mode_launches)
+        mode = "blocked ystrips" if sess.layout.strips else "blocked window"
+        per = 1 + 2 * sum(sess.layout.split)
+        want = mesh.size * NCHUNKS * (CHUNK // 2) * per
+        _check(modes.get(mode) == want and counts[0] == 0,
+               f"{name}: launches {modes}, K {counts[0]}; expected {mode} "
+               f"{want}, no K")
+        cmp = {}
+        for step, v in ((901, keep[901]), (1 + n_k, view)):
+            w = serial_views[(ms, tag)][step]
+            cmp[step] = (max(_maxdiff(v.f.cpu(), w[0]),
+                             _maxdiff(v.g.cpu(), w[1])),
+                         bool(torch.equal(v.f.cpu(), w[0])
+                              and torch.equal(v.g.cpu(), w[1])))
+        _check(cmp[901][1] and cmp[1 + n_k][0] <= TOL,
+               f"{name} disagrees with phase 13c's serial session: {cmp}")
+        mlups = cells * n_k / t_adv / 1e6
+        del view, keep
+        torch.cuda.empty_cache()
+        # the time split of a sweep (2 steps), the serial sweep's beside it
+        pc = FusedSession(params, SHAPE, noise_dist=dist, block=1).enter(
+            initial())
+        words = [104729 * k + 1 for k in range(SPAN_STEPS)]
+        sp = {k: _span_split(ms, params, o, pc, words, block=2, dist=dist)
+              for k, o in (("serial", dict(y_exchange="serial")),
+                           (sweep, opts))}
+        del pc
+        torch.cuda.empty_cache()
+        print(f"[{name}] layout {sess.layout}; launches a block: {mode} "
+              f"{modes.get(mode) // mesh.size} ({per} a sweep); {mlups:.1f} "
+              f"MLUPS (phase 13c's serial T = 2: "
+              f"{serial_mlups[(ms, tag)]:.1f}); vs phase 13c: step 901 "
+              f"max|delta| {cmp[901][0]:.3e} (bitwise {cmp[901][1]}), step "
+              f"{1 + n_k} {cmp[1 + n_k][0]:.3e} (bitwise {cmp[1 + n_k][1]}) "
+              f"(tol {TOL}); ms a sweep (CUDA events, "
+              f"{SPAN_STEPS // 2 - 2} sweeps): " + "; ".join(
+                  f"{k} exchange {v['exchange']:.4f}, interior "
+                  f"{v['interior']:.4f}, exposed {v['exposed']:.4f}, bands "
+                  f"{v['bands']:.4f}, host enqueue {v['host_us'] * 2:.1f} us"
+                  for k, v in sp.items()), flush=True)
+        res[(ms, tag, sweep)] = (mlups, modes.get(mode))
+        del sess
+        torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -3203,7 +3657,7 @@ def main() -> int:
     _k4x_small(dev, k4x_errs)
     torch.cuda.empty_cache()
     k4x_ms = _k4x_256(dev, cells, k4x_errs)
-    k4x_sessions = _k4x_sessions(dev, cells, k4f_views)
+    k4x_sessions, k4x_views = _k4x_sessions(dev, cells, k4f_views)
     del k4f_views
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
@@ -3213,6 +3667,19 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_done(13)
+
+    # -- phase 14: K4 in the overlap split and the y strips ------------------
+    k4s_errs = []
+    _k4s_small(dev, k4s_errs)
+    torch.cuda.empty_cache()
+    k4s_ms = _k4s_times(dev, cells)
+    k4s_sessions = _k4s_sessions(
+        dev, cells, k4x_views,
+        {(ms, tag): k4x_sessions[(ms, tag, 2)][0]
+         for ms, tag in k4x_views})
+    del k4x_views
+    torch.cuda.empty_cache()
+    phase_done(14)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
@@ -3333,6 +3800,28 @@ def main() -> int:
             "launches": launches, "max_abs_err": max(k4x_errs),
             "ms": k4x_ms[tag]["ext_k4"], "plain_ms": k4x_ms[tag]["plain_ms"],
             "bound_ms": bound, "bound_by": by, "library_ms": None})
+    for kind, sweep, what in (
+            ("window", "split", "the overlap split (win/odomain/owin/"
+             "out_alias at block = 2, parallel/kernel.py:466-481, 646-729):"
+             " the interior window and the four seam bands of each block"),
+            ("ystrips", "strips", "the y strips (ystrips at block = 2, "
+             "parallel/kernel.py:205-250, 541-569): fed by the received "
+             "strips sd T rows deep, writing its edge rows into strips")):
+        bound, by = _bound_ms(f"k4_{kind}", cells,
+                              k4s_ms["strip_bytes"] if kind == "ystrips"
+                              else 0)
+        record.append({
+            "name": f"blocked_kernel (K4 EXT {kind}, T = 2, coupled (sd = "
+                    f"2), clt4)",
+            "route": "cuda", "source": SRC + "blocked_step.cu",
+            "replaces": TPU_KERNEL,
+            "mode": f"K4 in {what}; 256^3 on mesh (2,2,1), a sweep of 2 "
+                    "steps on the four blocks",
+            "launches": k4s_sessions[((2, 2, 1), "droplet", sweep)][1],
+            "max_abs_err": max(k4s_errs + [k4s_ms[f"{kind}_err"]]),
+            "ms": k4s_ms[kind],
+            "plain_ms": k4s_ms[f"{kind}_plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -238,12 +238,14 @@ def test_make_session_passes_the_block():
     assert isinstance(sess, ShardedSession)
     assert (sess.block, sess.pad) == (2, (0, 6, 6))
     # block None: AUTO_BLOCK's entry for the mode (uncoupled, noise off:
-    # 2), and 1 with the split, which runs block 1 only
+    # 2), with the split and the strips too
     off = LBMParams(kBT=0.0)
     assert make_session(off, (12, 12, 12), mesh=_cpu_mesh((2, 1, 1))).block \
         == fused_step.AUTO_BLOCK["off"] == 2
-    assert make_session(off, (12, 12, 12), mesh=_cpu_mesh((2, 1, 1)),
-                        overlap=True).block == 1
+    for opts in (dict(overlap=True), dict(y_exchange="strips")):
+        sess = make_session(off, (12, 12, 12), mesh=_cpu_mesh((2, 1, 1)),
+                            **opts)
+        assert sess.block == 2 and sess.pad[0] == 2
     assert make_session(params, (12, 12, 12),
                         mesh=_cpu_mesh((2, 1, 1))).block == 1
 
@@ -289,12 +291,15 @@ def test_refusals():
         ShardedSession(mesh, coupled, (8, 8, 8), block=3)
     assert not kernel_par.supports(mesh, (8, 8, 8), coupled, 3)
     assert kernel_par.supports(mesh, (8, 8, 8), coupled, 2)
-    # the split and the strips at block > 1
-    for opts in (dict(overlap=True), dict(overlap="force"),
-                 dict(y_exchange="strips")):
-        with pytest.raises(ValueError, match=fused_step.K4_MESH_ITEM):
-            ShardedSession(_cpu_mesh((2, 2, 1)), coupled, (12, 12, 12),
-                           block=2, **opts)
+    # the split and the strips at block > 1 build (local 6 < 2 sd T + 1:
+    # no axis splits; the strips take y pads sd T deep)
+    for opts, strips in ((dict(overlap=True), False),
+                         (dict(overlap="force"), False),
+                         (dict(y_exchange="strips"), True)):
+        sess = ShardedSession(_cpu_mesh((2, 2, 1)), coupled, (12, 12, 12),
+                              block=2, **opts)
+        assert (sess.block, sess.pad) == (2, (4, 4, 0))
+        assert sess.layout.strips == strips and not any(sess.layout.split)
     # T past shared memory
     with pytest.raises(ValueError, match="297856 bytes"):
         ShardedSession(mesh, coupled, (16, 16, 16), block=4)

@@ -836,16 +836,32 @@ def test_blocked_kernel_refusals(cuda):
     with pytest.raises(ValueError, match="303776 bytes"):
         fused_step.blocked_stream_collide(
             f, g, [1] * 3, 0, dataclasses.replace(coupled, alpha1=0.5), 3)
-    # the decomposed path runs block 2 (pads sd T = 4 deep); the overlap
-    # split at block 2 is queued
+    # the decomposed path runs block 2 (pads sd T = 4 deep), the overlap
+    # split too (local x 10: the interior window 2 planes, the bands 4)
     mesh = mesh_lib.make_mesh((2, 1, 1), cuda)
     sess = ShardedSession(mesh, coupled, (16, 16, 16), block=2)
     assert sess.pad == (4, 0, 0)
     pc = sess.enter(init_state(*_droplet_pops((16, 16, 16), coupled, 38,
                                               cuda), 0))
     assert sess.advance(pc, 2).step == 3
-    with pytest.raises(ValueError, match="split and the y strips at block"):
-        ShardedSession(mesh, coupled, (16, 16, 16), block=2, overlap=True)
+    sess = ShardedSession(mesh, coupled, (20, 16, 16), block=2, overlap=True)
+    assert sess.layout.split == (True, False, False)
+    pc = sess.enter(init_state(*_droplet_pops((20, 16, 16), coupled, 38,
+                                              cuda), 0))
+    assert sess.advance(pc, 2).step == 3
+    # a window with y strips, a window outside the interior
+    f4, g4 = pc.blocks[0][0], pc.blocks[0][1]
+    with pytest.raises(ValueError, match="no y strips"):
+        fused_step.blocked_stream_collide(
+            f4, g4, [1, 2], 0, coupled, 2, ext=halo.block_exts(
+                mesh, (20, 16, 16), sess.pad)[0],
+            window=((4, 6), (0, 16), (0, 16)),
+            strips=torch.zeros((2, 2, 19, 18, 0, 16), device=cuda))
+    with pytest.raises(ValueError, match="inside"):
+        fused_step.blocked_stream_collide(
+            f4, g4, [1, 2], 0, coupled, 2, ext=halo.block_exts(
+                mesh, (20, 16, 16), sess.pad)[0],
+            window=((2, 6), (0, 16), (0, 16)))
 
 
 # K4 with a force: (stencil depth tag, T) -> the force's LBMParams keywords
@@ -1058,3 +1074,166 @@ def test_ref_kernel_on_zero_density_droplet(cuda):
         b = fused_step.k_step_reference(*b, 1000 + s, 77 + s, params,
                                         "clt4", ref)
         assert max(_maxdiff(a[0], b[0]), _maxdiff(a[1], b[1])) <= ATOL
+
+
+# K4 in the overlap split (windowed launches) and the y strips (strip-fed
+# launches): sweep -> (mesh, ShardedSession options)
+_K4_SWEEPS = {"split (2, 2, 1)": ((2, 2, 1), dict(overlap=True)),
+              "split (2, 1, 1)": ((2, 1, 1), dict(overlap=True)),
+              "force (1, 1, 1)": ((1, 1, 1), dict(overlap="force")),
+              "strips (2, 2, 1)": ((2, 2, 1), dict(y_exchange="strips")),
+              "strips (2, 1, 1)": ((2, 1, 1), dict(y_exchange="strips"))}
+
+
+def _nan_pads(t, pad, axes=(0, 1, 2)):
+    """A copy of a padded block tensor with NaN in the pads of `axes`."""
+    out = t.clone()
+    for d in axes:
+        if pad[d]:
+            ax = out.dim() - 3 + d
+            out.narrow(ax, 0, pad[d]).fill_(float("nan"))
+            out.narrow(ax, out.shape[ax] - pad[d], pad[d]).fill_(float("nan"))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_K4_EXT_CASES))
+@pytest.mark.parametrize("mode", ["off", "ref", "general"])
+@pytest.mark.parametrize("sweep", sorted(_K4_SWEEPS))
+def test_blocked_window_and_strip_launches(cuda, case, mode, sweep):
+    """K4 launches of the split and of the strips at block T on every block
+    of a 32^3 droplet: the interior window launched with every pad (the
+    ref operand's too) NaN writes exactly its window, finite, and with the
+    seam bands the interior bitwise the serial ext K4 launch; the
+    strip-fed launch with NaN y pads equals the serial launch bitwise and
+    writes its edge rows into its strips bitwise; the last block's
+    launches within ATOL of their plain versions."""
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+
+    sd, T = case
+    kw, dist, with_ref = _K4_MODES[mode]
+    params = LBMParams(**dict(_K4_EXT_CASES[case], **kw))
+    shape = (32, 32, 32)
+    f, g = _droplet_pops(shape, params, 43, cuda)
+    mesh_shape, opts = _K4_SWEEPS[sweep]
+    mesh = mesh_lib.make_mesh(mesh_shape, cuda)
+    lay = kernel_par.layout(mesh, shape, params, block=T, **opts)
+    assert any(lay.split) != lay.strips
+    pad = lay.pad
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+    halo.exchange_halo(ss.blocks, mesh, pad)
+    exts = halo.block_exts(mesh, shape, pad)
+    refs = [None] * mesh.size
+    if with_ref:
+        ref = (1.0 + 0.1 * torch.rand((2,) + shape, generator=torch
+                                      .Generator().manual_seed(44))).to(cuda)
+        refs = mesh_lib.shard_field(ref, mesh, pad)
+        halo.exchange_halo(refs, mesh, pad)
+    words = [7919 * k - 3 for k in range(T)]
+    received = [None] * mesh.size
+    if lay.strips:
+        sent = kernel_par.strip_buffers(ss.blocks, pad)
+        received = [torch.full_like(t, float("nan")) for t in sent]
+        halo.run_plan(halo.strip_plan(sent, received, mesh, pad))
+    else:
+        inner, bands = kernel_par.split_windows(lay, ss.blocks[0].shape,
+                                                sd * T)
+    for b, (blk, ext, r) in enumerate(zip(ss.blocks, exts, refs)):
+        want = fused_step.blocked_stream_collide(
+            blk[0], blk[1], words, 40, params, T, noise_dist=dist, ref=r,
+            ext=ext)
+        out = (torch.full_like(blk[0], float("nan")),
+               torch.full_like(blk[1], float("nan")))
+        fused_step.reset_launch_counts()
+        if lay.strips:
+            src = _nan_pads(blk, pad, (1,))
+            out_strips = torch.full_like(received[b], float("nan"))
+            fused_step.blocked_stream_collide(
+                src[0], src[1], words, 40, params, T, out=out,
+                noise_dist=dist, ref=r, ext=ext, strips=received[b],
+                strips_out=out_strips)
+            torch.cuda.synchronize()
+            assert fused_step.mode_launches.get("blocked ystrips") == 1
+            px, py = pad[0], pad[1]
+            for s, o in enumerate(out):
+                x1, y1 = o.shape[1] - px, o.shape[2] - py
+                assert torch.equal(out_strips[0, s][:, px:x1],
+                                   o[:, px:x1, py:2 * py])
+                assert torch.equal(out_strips[1, s][:, px:x1],
+                                   o[:, px:x1, y1 - py:y1])
+            plain_box, plain_kw = ext.bounds(blk.shape), dict(
+                strips=received[b])
+        else:
+            src = _nan_pads(blk, pad)
+            r_nan = None if r is None else _nan_pads(r, pad)
+            fused_step.blocked_stream_collide(
+                src[0], src[1], words, 40, params, T, out=out,
+                noise_dist=dist, ref=r_nan, ext=ext, window=inner)
+            torch.cuda.synchronize()
+            for o, w in zip(out, want):
+                got = blocked.box_view(o, inner)
+                assert bool(torch.isfinite(got).all())
+                assert torch.equal(got, blocked.box_view(w, inner))
+                assert int(torch.isnan(o).sum()) == o.numel() - got.numel()
+            for band in bands:
+                fused_step.blocked_stream_collide(
+                    blk[0], blk[1], words, 40, params, T, out=out,
+                    noise_dist=dist, ref=r, ext=ext, window=band)
+            assert fused_step.mode_launches.get("blocked window") \
+                == 1 + len(bands)
+            plain_box, plain_kw = inner, dict(window=inner)
+        assert fused_step.blocked_launches == fused_step.mode_launches[
+            "blocked ext"]
+        for o, w in zip(out, want):
+            assert torch.equal(ext.region(o), ext.region(w))
+        if b == mesh.size - 1:
+            ref_in = r if lay.strips else r_nan
+            fr, gr = blocked.blocked_sweep_reference(
+                src[0], src[1], words, 40, params, T,
+                fused_step.launch_tile(T, [hi - lo for lo, hi in plain_box],
+                                       sd), dist, ref_in, ext, **plain_kw)
+            assert max(_maxdiff(blocked.box_view(out[0], plain_box), fr),
+                       _maxdiff(blocked.box_view(out[1], plain_box), gr)) \
+                <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(overlap=True),
+                                  dict(y_exchange="strips"),
+                                  dict(y_exchange="strips", block=3)])
+def test_blocked_sweep_sessions_match_cpu_and_serial(cuda, opts):
+    """ShardedSession(block=2) of the droplet on (2, 2, 1) on the card with
+    the split and with the strips (1 + 7 steps, restore every 4: three
+    sweeps and a single step), and with the strips at block 3 (1 + 5
+    steps: one sweep, then two single steps, the second fed by the
+    strips 6 rows deep that the first wrote), bitwise the serial
+    session at the same block on the card and within ATOL of the same
+    session on the CPU."""
+    params = LBMParams(**dict(_DROP, alpha0=1.5, kBT=1e-5))
+    shape = (20, 20, 32)
+    f, g = _droplet_pops(shape, params, 45, "cpu")
+    opts = dict(opts)
+    block = opts.pop("block", 2)
+    n = 7 if block == 2 else 5
+    words = [13 * k + 2 for k in range(n + 1)]
+
+    def go(dev, **kw):
+        sess = ShardedSession(mesh_lib.make_mesh((2, 2, 1), dev), params,
+                              shape, mass_restore_int=4, block=block, **kw)
+        pc = sess.enter(init_state(f.to(dev), g.to(dev), 0), words[0])
+        return sess, sess.exit(sess.advance(pc, n, words[1:]))
+
+    fused_step.reset_launch_counts()
+    sess, got = go(cuda, **opts)
+    tag = "blocked ystrips" if sess.layout.strips else "blocked window"
+    per = 1 if sess.layout.strips else 5
+    assert sess.layout.strips or sess.layout.split == (True, True, False)
+    assert sess.pad[1] == 2 * block
+    assert fused_step.mode_launches.get(tag) == (n // block) * 4 * per
+    assert fused_step.launches == (n % block) * 4 * per
+    _, serial = go(cuda)
+    cpu = go("cpu", **opts)[1]
+    assert torch.equal(got.f, serial.f) and torch.equal(got.g, serial.g)
+    assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
+        <= ATOL

@@ -10,15 +10,19 @@ exchange on a side stream of every card under the interior windows'
 kernels) and, on (2, 2, 1), the y strips (``y_exchange="strips"``).
 Each sharded run is held against the single-card one at steps 901 and
 1101 (max |delta| <= 2e-5, bitwise printed) and its MLUPS are printed
-beside it.
+beside it.  ``--block T`` runs every session, the single-card one too,
+at T K steps a launch (K4: one exchange and the sweep's blocked launches
+every T steps); without it the sessions take block 1.
 
-    python tools/sharded_cards.py      # needs two cards or more
+    python tools/sharded_cards.py            # needs two cards or more
+    python tools/sharded_cards.py --block 2
 
 Prints every card's name and power limit first and one JSON line last;
 on a node with fewer than two cards it prints "no multi-card machine"
 and exits 1.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -55,9 +59,13 @@ def _run(sess, state, keep):
     return views, t_adv
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--block", type=int, default=1,
+                    help="K steps a launch in every session (default 1)")
+    T = ap.parse_args(argv).block
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if cards < 2:
         print("sharded_cards: no multi-card machine", file=sys.stderr)
@@ -82,11 +90,16 @@ def main() -> int:
     cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
     n_k = CHUNK * NCHUNKS
     keep = (901, 1 + n_k)
-    want, t_one = _run(make_session(cfg.params, SHAPE, noise_dist="clt4"),
+    want, t_one = _run(make_session(cfg.params, SHAPE, noise_dist="clt4",
+                                    block=T),
                        model.make_initial_state(cfg, device=dev), keep)
-    out = {"cards": cards, "single_mlups": cells * n_k / t_one / 1e6}
-    print(f"FusedSession on cuda:0: {out['single_mlups']:.1f} MLUPS",
-          flush=True)
+    out = {"cards": cards, "block": T,
+           "single_mlups": cells * n_k / t_one / 1e6}
+    print(f"FusedSession(block={T}) on cuda:0: {out['single_mlups']:.1f} "
+          f"MLUPS", flush=True)
+    # launches a block and window: blocked sweeps of T steps, the rest
+    # one-step launches
+    sweeps = NCHUNKS * (CHUNK // T) if T > 1 else 0
     meshes = [(2, 1, 1)] + ([(2, 2, 1)] if cards >= 4 else [])
     ok = True
     for ms in meshes:
@@ -95,7 +108,7 @@ def main() -> int:
             if sweep == "strips" and ms[1] == 1:
                 continue
             sess = make_session(cfg.params, SHAPE, noise_dist="clt4",
-                                mesh=mesh, **opts)
+                                mesh=mesh, block=T, **opts)
             assert isinstance(sess, ShardedSession)
             fused_step.reset_launch_counts()
             got, t_adv = _run(sess, model.make_initial_state(cfg,
@@ -108,14 +121,15 @@ def main() -> int:
                    for s in keep}
             mlups = cells * n_k / t_adv / 1e6
             modes = dict(fused_step.mode_launches)
-            print(f"ShardedSession {sweep} mesh {ms} on "
+            print(f"ShardedSession(block={T}) {sweep} mesh {ms} on "
                   f"{[str(d) for d in mesh.devices]}: {mlups:.1f} MLUPS; "
                   f"launches by mode {modes}; vs cuda:0 "
                   + ", ".join(f"step {s} max|delta| {e:.3e} (bitwise {b})"
                               for s, (e, b) in cmp.items()), flush=True)
+            per = mesh.size * (1 + 2 * sum(sess.layout.split))
             ok &= (max(e for e, _ in cmp.values()) <= TOL
-                   and modes.get("ext") == mesh.size * n_k
-                   * (1 + 2 * sum(sess.layout.split)))
+                   and modes.get("blocked ext", 0) == per * sweeps
+                   and modes.get("ext", 0) == per * (n_k - sweeps * T))
             out[f"{ms} {sweep}"] = {"mlups": mlups, "bitwise": {
                 str(s): b for s, (_, b) in cmp.items()}}
             del got, sess
