@@ -70,6 +70,10 @@ LIBRARIES = {
     "blocked_step_general_force_a1": ("blocked_step.cu",
                                       ("-DBFLBM_GENERAL_RELAX=1",
                                        "-DBFLBM_FORCE=1", "-DBFLBM_A1=1")),
+    "probe_copy": ("probe_copy.cu", ()),
+    "probe_transform": ("probe_transform.cu", ()),
+    "probe_noise": ("probe_noise.cu", ()),
+    "probe_launch": ("probe_launch.cu", ()),
 }
 SOURCES = tuple(LIBRARIES)
 _HEADERS = ("common.cuh", "k_cell.cuh", "lattice_tables.cuh")
@@ -78,7 +82,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}   # wall seconds of the last nvcc runs
-_tables_set = set()   # (name, device index) whose tables are filled
+_tables_set = set()   # (name, device index) whose tables are filled (or none)
 
 
 def build_dir() -> Path:
@@ -200,8 +204,10 @@ def ptxas_summary() -> List[str]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bflbm_set_tables.argtypes = [i, p, p, p, p]
-    lib.bflbm_set_tables.restype = i
+    ll = ctypes.c_longlong
+    if hasattr(lib, "bflbm_set_tables"):
+        lib.bflbm_set_tables.argtypes = [i, p, p, p, p]
+        lib.bflbm_set_tables.restype = i
     lib.bflbm_error_string.argtypes = [i]
     lib.bflbm_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "bflbm_fused_step"):
@@ -222,12 +228,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "bflbm_laplacian_psi"):
         lib.bflbm_laplacian_psi.argtypes = [i, p, p, p, p, f, f, p]
         lib.bflbm_laplacian_psi.restype = i
+    if hasattr(lib, "bflbm_probe_copy"):
+        lib.bflbm_probe_copy.argtypes = [i, p, p, ll, i, i, p]
+        lib.bflbm_probe_copy.restype = i
+    if hasattr(lib, "bflbm_probe_transform"):
+        lib.bflbm_probe_transform.argtypes = [i, p, p, ll, i, p]
+        lib.bflbm_probe_transform.restype = i
+    if hasattr(lib, "bflbm_probe_noise"):
+        lib.bflbm_probe_noise.argtypes = [i, p, i, i, i, i, i, i, i, i, f,
+                                          f, f, f, p]
+        lib.bflbm_probe_noise.restype = i
+    if hasattr(lib, "bflbm_probe_add_one"):
+        lib.bflbm_probe_add_one.argtypes = [i, p, p, i, p]
+        lib.bflbm_probe_add_one.restype = i
 
 
 def load(name: str, device) -> ctypes.CDLL:
     """Kernel library `name`, built if needed (with all the others), with
     the lattice tables (C, M, M_INV, w / cs^2) filled into the device's
-    __constant__ memory."""
+    __constant__ memory where the library has them."""
     if name not in SOURCES:
         raise ValueError(f"unknown kernel library {name!r}")
     if name not in _libs:
@@ -240,14 +259,16 @@ def load(name: str, device) -> ctypes.CDLL:
     lib = _libs[name]
     idx = device.index if device.index is not None else 0
     if (name, idx) not in _tables_set:
-        c = np.ascontiguousarray(C, dtype=np.int32)
-        m = np.ascontiguousarray(M, dtype=np.float32)
-        minv = np.ascontiguousarray(M_INV, dtype=np.float32)
-        gw = np.ascontiguousarray(W / CS2, dtype=np.float32)
-        rc = lib.bflbm_set_tables(idx, c.ctypes.data, m.ctypes.data,
-                                  minv.ctypes.data, gw.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"setting the {name} kernel tables failed: "
-                               + lib.bflbm_error_string(rc).decode())
+        if hasattr(lib, "bflbm_set_tables"):
+            c = np.ascontiguousarray(C, dtype=np.int32)
+            m = np.ascontiguousarray(M, dtype=np.float32)
+            minv = np.ascontiguousarray(M_INV, dtype=np.float32)
+            gw = np.ascontiguousarray(W / CS2, dtype=np.float32)
+            rc = lib.bflbm_set_tables(idx, c.ctypes.data, m.ctypes.data,
+                                      minv.ctypes.data, gw.ctypes.data)
+            if rc != 0:
+                raise RuntimeError(f"setting the {name} kernel tables "
+                                   "failed: "
+                                   + lib.bflbm_error_string(rc).decode())
         _tables_set.add((name, idx))
     return lib

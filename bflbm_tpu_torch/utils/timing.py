@@ -1,4 +1,4 @@
-"""Wall-clock step timing on a CUDA device (MLUPS)."""
+"""Step and kernel timing on a CUDA device (MLUPS, CUDA-event ms)."""
 
 from __future__ import annotations
 
@@ -33,3 +33,26 @@ def time_steps(run: Callable[[], object], cells: int, steps: int,
         "mlups": mlups,
         "ns_per_cell_step": best / (cells * steps) * 1e9,
     }
+
+
+def event_ms(run: Callable[[], object], calls: int = 1, warmup: int = 1,
+             repeats: int = 3) -> float:
+    """Device milliseconds a call of the timed work, which run() makes
+    `calls` times: CUDA events on the current stream around each of
+    `repeats` runs after `warmup` runs, the best run divided by `calls`.
+    Raises without a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("event_ms measures a CUDA device; none found")
+    for _ in range(warmup):
+        run()
+    best = None
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        best = ms if best is None else min(best, ms)
+    return best / calls

@@ -164,7 +164,21 @@ Phases (each raises on failure; the script then exits non-zero):
    mixture with the noise off on (2, 1, 1) with overlap=True, 1 + 1100
    steps, against phase 13c's serial T = 2 sessions at steps 901 (bitwise)
    and 1101, with launches a block, MLUPS and each sweep's CUDA-event
-   split beside the serial sweep's.
+   split beside the serial sweep's;
+15. the platform probes (``bflbm_tpu_torch.probes``, the counterparts of
+   the TPU probes under ``benchmarks/``) at 256^3 through their entry
+   point ``probes.run`` (``python -m bflbm_tpu_torch.probes``): the
+   library copy; the bulk (TMA) and staged copies through shared memory
+   at chunks of 512, 1024 and 2048 cells (bitwise ``f.clone()``); the
+   19 x 19 transform and its inverse unrolled and on the tensor cores in
+   3xTF32 (within 2e-5 of the plain einsum; two ``torch.matmul`` timed);
+   the mixture session (kBT 0 at block 2, 1e-5 at block 1); the twelve
+   noise-generator cases (nine hash, three Philox; within 2e-5 of plain,
+   ns a cell); 400 chained (8, 128) launches eager and replayed from a
+   CUDA graph (bitwise 400, beside ``torch.add`` both ways); every probe
+   kernel timed with CUDA events (best of 3) beside its bound, its plain
+   version and its library call, then held against its plain version
+   again on other inputs outside the counted run.
 
 Phases 9 and 10 pass ``block=1``: they check the one-step launches.
 
@@ -232,6 +246,13 @@ KERNELS.update(a_ext=KERNELS["a"], l_ext=KERNELS["l"], k_ext=KERNELS["b"],
                k_window=KERNELS["b"], k_ystrips=KERNELS["b"])
 SRC = "bflbm_tpu_torch/kernels/csrc/"
 TPU_KERNEL = "bflbm_tpu/kernels/fused_step.py:1956"
+# the probe kernels (phase 15): source and the TPU probe each replaces
+PROBE_KERNELS = {
+    "copy": ("probe_copy.cu", "benchmarks/tpu_probe.py:75"),
+    "transform": ("probe_transform.cu", "benchmarks/tpu_probe.py:162"),
+    "noise": ("probe_noise.cu", "benchmarks/tpu_noise_micro.py:294"),
+    "launch": ("probe_launch.cu", "benchmarks/tpu_overlap_r5.py:87"),
+}
 
 
 def _maxdiff(a, b):
@@ -3275,6 +3296,92 @@ def _k4s_sessions(dev, cells, serial_views, serial_mlups):
     return res
 
 
+def _probes(dev):
+    """Phase 15: the platform probes at 256^3 through ``probes.run`` with
+    the probe launch counters zeroed just before and read just after, then
+    every probe kernel held against its plain version again on other
+    inputs (these launches are not counted).  Adds the probes' bytes and
+    operations a cell to KERNELS.  Returns (records, counts, the second
+    checks' max |delta| by kernel)."""
+    import torch
+
+    from bflbm_tpu_torch import probes
+    from bflbm_tpu_torch.probes import launch, noise_micro, platform
+
+    per_cell = dict(bytes=platform.BYTES_PER_CELL, ops=0)
+    KERNELS.update({f"copy {v}": per_cell for v in platform.COPY_VARIANTS})
+    KERNELS.update({f"transform {v}": dict(bytes=platform.BYTES_PER_CELL,
+                                           ops=platform.TRANSFORM_OPS)
+                    for v in platform.TRANSFORM_VARIANTS})
+    KERNELS.update({f"noise {c}": dict(bytes=4, ops=noise_micro.OPS[c])
+                    for c in noise_micro.CASES})
+    # 4 B read and 4 B written an element; the true floor is launch latency
+    KERNELS["launch"] = dict(bytes=8, ops=1)
+
+    probes.reset_launch_counts()
+    recs = probes.run(probes.PROBES, device=dev, shape=SHAPE,
+                      out=lambda ln: print(f"[phase 15] {ln}", flush=True))
+    counts = probes.launch_counts()
+    for rec in recs:
+        if rec["key"] is not None:
+            _check(counts.get(rec["key"], 0) > 0,
+                   f"{rec['key']} was not launched by probes.run")
+
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(777)
+    f = torch.empty((19,) + SHAPE, device=dev).uniform_(0.5, 1.5,
+                                                        generator=gen)
+    out = torch.empty_like(f)
+    for variant in platform.COPY_VARIANTS:
+        for n in platform.CHUNKS:
+            out.fill_(float("nan"))
+            platform.chunk_copy(f, n, variant, out=out)
+            _check(torch.equal(out, f),
+                   f"copy {variant} at {n}: not bitwise")
+        errs[f"copy {variant}"] = _maxdiff(out, f)
+    want = platform.transform_reference(f)
+    for variant in platform.TRANSFORM_VARIANTS:
+        out.fill_(float("nan"))
+        platform.moment_transform(f, variant, out=out)
+        errs[f"transform {variant}"] = _maxdiff(out, want)
+    del f, out, want
+    torch.cuda.empty_cache()
+    noise = torch.empty(SHAPE, device=dev)
+    for case in noise_micro.CASES:
+        seed = (-424242, 99)
+        noise_micro.run_case(case, seed, noise)
+        errs[f"noise {case}"] = _maxdiff(
+            noise, noise_micro.run_case_reference(case, seed, SHAPE,
+                                                  device=dev))
+    a = torch.zeros(launch.SHAPE, device=dev)
+    res = launch.chain(lambda x, y: launch.add_one(x, out=y), a,
+                       torch.empty_like(a))
+    errs["launch"] = _maxdiff(res, torch.full_like(a, 400.0))
+    torch.cuda.synchronize()
+    for key, err in errs.items():
+        _check(err <= (0.0 if key.startswith(("copy", "launch")) else TOL),
+               f"{key}: max|delta| {err:.3e} against its plain version")
+    for rec in recs:
+        if rec["key"] is None:
+            continue
+        bound, by = _bound_ms(rec["key"], rec["cells"])
+        if rec["key"] == "launch":
+            rate = (f"from a graph; eager {rec['eager_ms']:.5f} ms, "
+                    f"torch.add eager {rec['library_eager_ms']:.5f} ms")
+        elif rec.get("ns_per_cell") is not None:
+            rate = f"{rec['ns_per_cell']:.4f} ns a cell"
+        else:
+            rate = f"{rec['bytes'] / rec['ms'] / 1e6:.1f} GB/s"
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f} ms")
+        print(f"[phase 15] {rec['key']}: {rec['ms']:.4f} ms ({rate}), bound "
+              f"{bound:.6f} ms ({by}), plain {rec['plain_ms']:.4f} ms, "
+              f"library {lib}, launches {counts[rec['key']]}, max|delta| "
+              f"{rec['max_abs_err']:.3e} (again on other inputs "
+              f"{errs[rec['key']]:.3e})", flush=True)
+    return recs, counts, errs
+
+
 def main() -> int:
     import torch
 
@@ -3681,6 +3788,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(14)
 
+    # -- phase 15: the platform probes ---------------------------------------
+    probe_recs, probe_counts, probe_errs = _probes(dev)
+    torch.cuda.empty_cache()
+    phase_done(15)
+
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (
             ("k1a", "k_step_kernel (uncoupled, u8)", "fused_step.cu",
@@ -3822,6 +3934,31 @@ def main() -> int:
             "ms": k4s_ms[kind],
             "plain_ms": k4s_ms[f"{kind}_plain"], "bound_ms": bound,
             "bound_by": by, "library_ms": None})
+    for rec in probe_recs:
+        if rec["key"] is None:
+            continue
+        kind = rec["key"].split()[0]
+        src, tpu = PROBE_KERNELS[kind]
+        bound, by = _bound_ms(rec["key"], rec["cells"])
+        row = {
+            "name": f"probe {rec['key']}", "route": "cuda",
+            "source": SRC + src, "replaces": tpu,
+            "mode": f"platform probe ({rec['probe']}); 256^3"
+                    if kind != "launch" else
+                    "platform probe (launch), (8, 128); ms a launch replayed "
+                    "from a CUDA graph of 400, eager_ms through the wrapper",
+            "launches": probe_counts[rec["key"]],
+            "max_abs_err": max(rec["max_abs_err"], probe_errs[rec["key"]]),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": rec["library_ms"]}
+        if kind == "copy":
+            row["ms_by_chunk"] = rec["ms_by_chunk"]
+        if kind == "launch":
+            row.update(eager_ms=rec["eager_ms"],
+                       library_eager_ms=rec["library_eager_ms"],
+                       note="bound by launch latency, not by its 8 KB or "
+                            "its operations")
+        record.append(row)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

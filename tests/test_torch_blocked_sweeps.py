@@ -1,33 +1,24 @@
 """K4 in the overlap split and the y strips of the PyTorch port on the CPU
 (windowed and strip-fed T-step launches: ``ShardedSession(block=T,
 overlap=True | "force")`` and ``ShardedSession(block=T,
-y_exchange="strips")``), against the serial decomposed sweep at block T
-and the JAX package.
+y_exchange="strips")``), against the serial decomposed sweep at block T;
+against the JAX package in tests/test_torch_blocked_split_jax.py and
+tests/test_torch_ystrips_jax.py.
 
 Meshes are of CPU devices, a device repeated for every block, so every
 launch runs its plain version (``ops.blocked.blocked_sweep_reference(...,
 window=, strips=)``): a window's tiles cover the window, a strip-fed sweep
 reads the strips mounted into a copy of the block's y pads.  Every cell
 repeats the serial sweep's arithmetic on the same values, so sweeps and
-sessions are compared bitwise, mass restores included; against JAX the
-tolerance is TOL = 2e-5, chip_smoke.py's kernel tolerance.
+sessions are compared bitwise, mass restores included.
 """
 
 import functools
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import to_np, to_torch
 
-from bflbm_tpu.config import LBMParams as JParams
-from bflbm_tpu.models import binary_fluid as jmodel
-from bflbm_tpu.ops import collide as jcollide
-from bflbm_tpu.parallel import kernel as jkernel_par
-from bflbm_tpu.parallel import mesh as jmesh_lib
-from bflbm_tpu.state import SimState as JState
 from bflbm_tpu_torch.config import LBMParams
 from bflbm_tpu_torch.kernels import fused_step
 from bflbm_tpu_torch.kernels.session import ShardedSession
@@ -390,80 +381,3 @@ def test_strips_at_block3_through_two_single_steps(launches):
     _, want = go(y_exchange="serial")
     assert got.step == want.step == 6
     assert torch.equal(got.f, want.f) and torch.equal(got.g, want.g)
-
-
-# -- against JAX ----------------------------------------------------------
-
-def test_block2_strips_match_jax_ystrips():
-    """The port's strips sweep at block 2 against JAX's
-    (make_kernel_ksteps(..., block=2, y_exchange="strips"), hash noise,
-    interpret mode) on the same post-collide droplet with kBT = 1e-5:
-    16 x 32 x 128 on (2, 2, 1), 5 K steps (two sweeps and a single step)
-    with JAX's per-step words, atol TOL."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 (virtual) devices")
-    kw = dict(_DROP, alpha0=1.5, kBT=1e-5)
-    jp = JParams(**kw)
-    shape = (16, 32, 128)
-    n = 5
-    state = jmodel.init_droplet(shape, jp, dtype=jnp.float32, radius=0.3)
-    h, xi_f, xi_g, key = jmodel.prelude(state, jp)
-    f1, g1 = jcollide.collide(state.f, state.g, h, xi_f, xi_g, jp)
-    pc = JState(f=f1, g=g1, key=key, step=state.step + 1)
-    jmesh = jmesh_lib.make_mesh((2, 2, 1), jax.devices()[:4])
-    want = jax.jit(jkernel_par.make_kernel_ksteps(
-        jmesh, jp, n, block=2, noise_impl="hash", transform="mxu",
-        interpret=True, y_exchange="strips"))(pc)
-    words = []
-    k = key
-    for _ in range(n):
-        k, sub = jax.random.split(k)
-        words.append(int(jax.random.randint(
-            sub, (), minval=jnp.iinfo(jnp.int32).min,
-            maxval=jnp.iinfo(jnp.int32).max, dtype=jnp.int32)))
-    params = LBMParams(**kw)
-    mesh = _cpu_mesh((2, 2, 1))
-    lay = kernel_par.layout(mesh, shape, params, "auto", "strips", block=2)
-    assert lay.strips and lay.pad == (4, 4, 0)
-    ss = kernel_par.pad_state(init_state(to_torch(f1), to_torch(g1), 0, 1),
-                              mesh, lay.pad)
-    got = mesh_lib.gather_state(kernel_par.make_kernel_ksteps(
-        mesh, params, n, y_exchange="strips", block=2)(ss, words))
-    assert got.step == int(want.step) == 1 + n
-    np.testing.assert_allclose(to_np(got.f), np.asarray(want.f), rtol=0,
-                               atol=TOL)
-    np.testing.assert_allclose(to_np(got.g), np.asarray(want.g), rtol=0,
-                               atol=TOL)
-
-
-def test_block2_split_matches_jax_overlap(launches):
-    """The port's split session at block 2 against JAX's split sweep
-    (make_kernel_nsteps(..., block=2, overlap=True), hash noise,
-    interpret mode): coupled droplet, kBT = 0, 20 x 8 x 128 on (2, 1, 1)
-    (local x 10, px 4: both sides split x), 1 + 5 steps (two sweeps and
-    a single step), atol TOL; the port's windows counted."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 (virtual) devices")
-    kw = dict(_DROP, alpha0=1.5, kBT=0.0)
-    shape = (20, 8, 128)
-    n = 6
-    state = jmodel.init_droplet(shape, JParams(**kw), dtype=jnp.float32,
-                                radius=0.3)
-    jmesh = jmesh_lib.make_mesh((2, 1, 1), jax.devices()[:2])
-    want = jkernel_par.make_kernel_nsteps(
-        jmesh, JParams(**kw), n, block=2, noise_impl="hash",
-        transform="mxu", interpret=True, donate=False, overlap=True)(
-        jmesh_lib.shard_state(state, jmesh))
-    sess = ShardedSession(_cpu_mesh((2, 1, 1)), LBMParams(**kw), shape,
-                          mass_restore_int=0, overlap=True, block=2)
-    pc = sess.enter(init_state(to_torch(state.f), to_torch(state.g), 0), 0)
-    got = sess.exit(sess.advance(pc, n - 1, [0] * (n - 1)))
-    assert sess.layout.split == (True, False, False)
-    assert sess.pad == (4, 0, 0)
-    assert sum(w is not None for w in launches["blocked"]) == 2 * 2 * 3
-    assert sum(w is not None for w in launches["single"]) == 2 * 3
-    assert got.step == int(want.step) == n
-    np.testing.assert_allclose(to_np(got.f), np.asarray(want.f), rtol=0,
-                               atol=TOL)
-    np.testing.assert_allclose(to_np(got.g), np.asarray(want.g), rtol=0,
-                               atol=TOL)

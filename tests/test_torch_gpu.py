@@ -26,6 +26,8 @@ from bflbm_tpu_torch.observables import stats
 from bflbm_tpu_torch.ops import collide as collide_ops
 from bflbm_tpu_torch.parallel import halo
 from bflbm_tpu_torch.parallel import mesh as mesh_lib
+from bflbm_tpu_torch.probes import launch as probe_launch
+from bflbm_tpu_torch.probes import noise_micro, platform
 from bflbm_tpu_torch.state import init_state
 
 ATOL = 2e-5
@@ -1237,3 +1239,91 @@ def test_blocked_sweep_sessions_match_cpu_and_serial(cuda, opts):
     assert torch.equal(got.f, serial.f) and torch.equal(got.g, serial.g)
     assert max(_maxdiff(got.f.cpu(), cpu.f), _maxdiff(got.g.cpu(), cpu.g)) \
         <= ATOL
+
+
+# -- the platform probes ------------------------------------------------------
+
+def _pops(shape, cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.empty((19,) + shape, device=cuda).uniform_(0.5, 1.5,
+                                                             generator=gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6, 10, 36), (16, 16, 64)])
+@pytest.mark.parametrize("variant", platform.COPY_VARIANTS)
+def test_probe_copy_matches_plain(cuda, variant, shape):
+    """Both copies bitwise f.clone() at every chunk size, the last chunk
+    ragged at 2160 cells."""
+    f = _pops(shape, cuda, 1)
+    for n in platform.CHUNKS:
+        out = torch.full_like(f, float("nan"))
+        before = platform.launches.get(f"copy {variant}", 0)
+        platform.chunk_copy(f, n, variant, out=out)
+        torch.cuda.synchronize()
+        assert platform.launches[f"copy {variant}"] == before + 1
+        assert torch.equal(out, platform.copy_reference(f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5, 7, 13), (16, 16, 32)])
+@pytest.mark.parametrize("variant", platform.TRANSFORM_VARIANTS)
+def test_probe_transform_matches_plain(cuda, variant, shape):
+    """Unrolled and 3xTF32 tensor-core transforms within 2e-5 of the plain
+    einsum on f in [0.5, 1.5); 455 cells leave a ragged group of 16."""
+    f = _pops(shape, cuda, 2)
+    out = torch.full_like(f, float("nan"))
+    platform.moment_transform(f, variant, out=out)
+    torch.cuda.synchronize()
+    assert _maxdiff(out, platform.transform_reference(f)) <= ATOL
+
+
+# the cases whose arithmetic the kernel repeats op for op: bitwise
+_EXACT_CASES = ("hash_uniform_only", "clt4_hash", "clt4_hash_1mul",
+                "clt4_hash_nomul", "philox_bits_only", "clt4_philox")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", noise_micro.CASES)
+def test_probe_noise_matches_plain(cuda, case):
+    """Every generator case within 2e-5 of its plain version on a 16 x 64 x
+    40 domain for two seeds (one a negative word); bitwise where no
+    transcendental or contracted FMA enters, so the Philox words are the
+    plain ones."""
+    shape = (16, 64, 40)
+    for seed in ((12345, 7), (-5, 2**31 - 1)):
+        out = torch.full(shape, float("nan"), device=cuda)
+        noise_micro.run_case(case, seed, out)
+        torch.cuda.synchronize()
+        want = noise_micro.run_case_reference(case, seed, shape,
+                                              device=cuda)
+        assert _maxdiff(out, want) <= ATOL
+        if case in _EXACT_CASES:
+            assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_probe_launch_chain_matches_plain(cuda):
+    """400 chained launches from zero, eager and replayed from a CUDA
+    graph, end at exactly 400, as the plain chain."""
+    (rec,) = probe_launch.probe_launch(cuda)
+    assert rec["bitwise_eager"] and rec["bitwise_graph"] and rec["ok"]
+    assert rec["ms"] > 0 and rec["eager_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_probes_run_on_the_card(cuda):
+    """Every probe through probes.run at 32 x 64 x 64: checks pass, times
+    measured, each probe kernel launched."""
+    from bflbm_tpu_torch import probes
+
+    probes.reset_launch_counts()
+    recs = probes.run(probes.PROBES, device=cuda, shape=(32, 64, 64),
+                      out=None)
+    assert all(r["ok"] and r["ms"] > 0 for r in recs)
+    counts = probes.launch_counts()
+    want = {"copy bulk", "copy staged", "transform unrolled",
+            "transform mma", "launch"} | {f"noise {c}"
+                                          for c in noise_micro.CASES}
+    assert set(counts) == want and min(counts.values()) > 0
+

@@ -196,14 +196,16 @@ def test_build_is_keyed_by_sources():
                               "blocked_step_general", "blocked_step_force",
                               "blocked_step_general_force",
                               "blocked_step_force_a1",
-                              "blocked_step_general_force_a1")
+                              "blocked_step_general_force_a1",
+                              "probe_copy", "probe_transform",
+                              "probe_noise", "probe_launch")
     for name in _build.SOURCES:
         so = _build.library_path(name)
         assert so.parent == _build.build_dir()
         assert so.parent.parts[-2:] == ("build", "bflbm_tpu_torch")
         assert so.name.startswith(f"lib{name}.")
         assert _build.source_hash(name) in so.name
-    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 14
+    assert len({_build.source_hash(n) for n in _build.SOURCES}) == 18
     assert _build.LIBRARIES["fused_step_general_force"] == (
         "fused_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1"))
     assert _build.LIBRARIES["fused_step_general_force_a1"] == (
@@ -214,6 +216,7 @@ def test_build_is_keyed_by_sources():
     assert _build.LIBRARIES["blocked_step_general_force_a1"] == (
         "blocked_step.cu", ("-DBFLBM_GENERAL_RELAX=1", "-DBFLBM_FORCE=1",
                             "-DBFLBM_A1=1"))
+    assert _build.LIBRARIES["probe_noise"] == ("probe_noise.cu", ())
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 

@@ -1,30 +1,20 @@
 """The rest of K7 in the PyTorch port on the CPU: windowed launches and the
 overlap split, and the y-strip exchange (``ShardedSession(overlap=,
-y_exchange=)``), against the serial decomposed session and the JAX
-package.
+y_exchange=)``), against the serial decomposed session; against the JAX
+package in tests/test_torch_overlap_jax.py and tests/test_torch_ystrips_jax.py.
 
 Meshes are of CPU devices, a device repeated for every block, so every
 launch runs its plain version: a window is cut from the plain ext step of
 the whole block, and a strip-fed step reads the strips mounted into a copy
 of the block's y pads.  Every sweep then repeats the serial sweep's
 arithmetic on the same values, so sessions are compared bitwise, mass
-restores included (the restore sums in the same order in every sweep);
-against JAX the tolerance is TOL = 2e-5, chip_smoke.py's kernel tolerance.
+restores included (the restore sums in the same order in every sweep).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import to_np, to_torch
 
-from bflbm_tpu.config import LBMParams as JParams
-from bflbm_tpu.models import binary_fluid as jmodel
-from bflbm_tpu.ops import collide as jcollide
-from bflbm_tpu.parallel import kernel as jkernel_par
-from bflbm_tpu.parallel import mesh as jmesh_lib
-from bflbm_tpu.state import SimState as JState
 from bflbm_tpu_torch.config import LBMParams
 from bflbm_tpu_torch.kernels import fused_step
 from bflbm_tpu_torch.kernels.session import ShardedSession, make_session
@@ -330,87 +320,3 @@ def test_make_session_passes_the_sweep():
     assert sess.layout.strips and sess.pad == (2, 2, 0)
     with pytest.raises(ValueError, match="y_exchange"):
         make_session(params, (16, 16, 16), y_exchange="dus")
-
-
-# -- against JAX --------------------------------------------------------------
-
-def test_split_session_matches_jax_overlap():
-    """The port's split session against JAX's split sweep at block 1
-    (make_kernel_nsteps(..., overlap=True), hash noise, interpret mode):
-    tests/test_kernel_shard.py's overlap configuration (coupled droplet,
-    kBT = 0, 16 x 96 x 128 on (2, 4, 1), local 8 x 24), 2 steps, atol
-    TOL; the port's split ran (its windows counted)."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 (virtual) devices")
-    kw = dict(alpha0=1.5, kBT=0.0, kappa=0.1, rho_lo=0.1, rho_hi=3.0)
-    shape = (16, 96, 128)
-    n = 2
-    state = jmodel.init_droplet(shape, JParams(**kw), dtype=jnp.float32,
-                                radius=0.3)
-    jmesh = jmesh_lib.make_mesh((2, 4, 1), jax.devices()[:8])
-    want = jkernel_par.make_kernel_nsteps(
-        jmesh, JParams(**kw), n, block=1, noise_impl="hash",
-        transform="mxu", interpret=True, donate=False, overlap=True)(
-        jmesh_lib.shard_state(state, jmesh))
-    seen = []
-    inner = fused_step.fused_stream_collide
-
-    def spy(*args, **kws):
-        seen.append(kws.get("window"))
-        return inner(*args, **kws)
-
-    sess = ShardedSession(_cpu_mesh((2, 4, 1)), LBMParams(**kw), shape,
-                          mass_restore_int=0, overlap=True)
-    pc = sess.enter(init_state(to_torch(state.f), to_torch(state.g), 0), 0)
-    fused_step.fused_stream_collide = spy
-    try:
-        got = sess.exit(sess.advance(pc, n - 1, [0] * (n - 1)))
-    finally:
-        fused_step.fused_stream_collide = inner
-    assert sess.layout.split == (True, True, False)
-    assert sum(w is not None for w in seen) == 8 * 5
-    assert got.step == int(want.step) == n
-    np.testing.assert_allclose(to_np(got.f), np.asarray(want.f), rtol=0,
-                               atol=TOL)
-    np.testing.assert_allclose(to_np(got.g), np.asarray(want.g), rtol=0,
-                               atol=TOL)
-
-
-def test_strips_match_jax_ystrips():
-    """The port's strips sweep against JAX's (make_kernel_ksteps(...,
-    y_exchange="strips"), block 1, hash noise, interpret mode) on the
-    same post-collide droplet with kBT = 1e-5: 16 x 32 x 128 on (2, 2, 1),
-    3 K steps with JAX's per-step words, atol TOL."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 (virtual) devices")
-    kw = dict(alpha0=1.5, kBT=1e-5, kappa=0.1, rho_lo=0.1, rho_hi=3.0)
-    jp = JParams(**kw)
-    shape = (16, 32, 128)
-    n = 3
-    state = jmodel.init_droplet(shape, jp, dtype=jnp.float32, radius=0.3)
-    h, xi_f, xi_g, key = jmodel.prelude(state, jp)
-    f1, g1 = jcollide.collide(state.f, state.g, h, xi_f, xi_g, jp)
-    pc = JState(f=f1, g=g1, key=key, step=state.step + 1)
-    jmesh = jmesh_lib.make_mesh((2, 2, 1), jax.devices()[:4])
-    want = jax.jit(jkernel_par.make_kernel_ksteps(
-        jmesh, jp, n, block=1, noise_impl="hash", transform="mxu",
-        interpret=True, y_exchange="strips"))(pc)
-    words = []
-    k = key
-    for _ in range(n):
-        k, sub = jax.random.split(k)
-        words.append(int(jax.random.randint(
-            sub, (), minval=jnp.iinfo(jnp.int32).min,
-            maxval=jnp.iinfo(jnp.int32).max, dtype=jnp.int32)))
-    params = LBMParams(**kw)
-    mesh = _cpu_mesh((2, 2, 1))
-    lay = kernel_par.layout(mesh, shape, params, "auto", "strips")
-    ss = kernel_par.pad_state(init_state(to_torch(f1), to_torch(g1), 0, 1),
-                              mesh, lay.pad)
-    got = mesh_lib.gather_state(kernel_par.make_kernel_ksteps(
-        mesh, params, n, y_exchange="strips")(ss, words))
-    assert got.step == int(want.step) == 1 + n
-    np.testing.assert_allclose(to_np(got.f), np.asarray(want.f), rtol=0,
-                               atol=TOL)
-    np.testing.assert_allclose(to_np(got.g), np.asarray(want.g), rtol=0,
-                               atol=TOL)

@@ -145,8 +145,9 @@ def test_session_checks_shape():
 
 def test_port_imports_no_jax():
     """Every module of bflbm_tpu_torch — the run driver, io (the native,
-    HDF5 and AMReX frame formats too), observables, the kernel wrappers
-    and the decomposed path (ops.blocked, parallel) among them — imports
+    HDF5 and AMReX frame formats too), observables, the kernel wrappers,
+    the decomposed path (ops.blocked, parallel) and the platform probes
+    (probes, its CLI module too) among them — imports
     without JAX or the JAX package, and
     without h5py, which io.hdf5 imports lazily (checked in a fresh
     interpreter)."""
@@ -167,7 +168,12 @@ def test_port_imports_no_jax():
         "        'bflbm_tpu_torch.ops.blocked',\n"
         "        'bflbm_tpu_torch.parallel.mesh',\n"
         "        'bflbm_tpu_torch.parallel.halo',\n"
-        "        'bflbm_tpu_torch.parallel.kernel'}\n"
+        "        'bflbm_tpu_torch.parallel.kernel',\n"
+        "        'bflbm_tpu_torch.probes',\n"
+        "        'bflbm_tpu_torch.probes.platform',\n"
+        "        'bflbm_tpu_torch.probes.noise_micro',\n"
+        "        'bflbm_tpu_torch.probes.launch',\n"
+        "        'bflbm_tpu_torch.probes.__main__'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith('jax.')\n"
