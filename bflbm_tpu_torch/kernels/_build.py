@@ -220,7 +220,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.bflbm_density_psi.restype = i
     if hasattr(lib, "bflbm_blocked_step"):
         lib.bflbm_blocked_step.argtypes = [i, p, p, p, p, p, p, p, i, i, p,
-                                           i, f, f, f, f, f, i, i, p, f, f,
+                                           p, f, f, f, f, f, i, i, p, f, f,
                                            f, f, i, f, i, p, p, i, p]
         lib.bflbm_blocked_step.restype = i
         lib.bflbm_blocked_smem.argtypes = [i, i, i, i]
@@ -229,7 +229,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.bflbm_laplacian_psi.argtypes = [i, p, p, p, p, f, f, p]
         lib.bflbm_laplacian_psi.restype = i
     if hasattr(lib, "bflbm_probe_copy"):
-        lib.bflbm_probe_copy.argtypes = [i, p, p, ll, i, i, p]
+        lib.bflbm_probe_copy.argtypes = [i, p, p, ll, i, i, i, p]
         lib.bflbm_probe_copy.restype = i
     if hasattr(lib, "bflbm_probe_transform"):
         lib.bflbm_probe_transform.argtypes = [i, p, p, ll, i, p]

@@ -23,28 +23,58 @@
 // those of the recomputed ring cells.  The design keeps the T - 1
 // intermediate steps, and every psi and laplacian, out of device memory.
 //
-// Design: x-marching columns.  One thread block per output tile of bx
-// x-planes by (by, bz) cells in y and z.  Phase s = 0..T-1 computes, plane
-// by plane, the tile grown by p_s = sd (T - 1 - s) cells on every side
-// (the JAX kernel's phase regions): (by + 2 p_s) x (bz + 2 p_s) cells of
-// planes x0 - p_s .. x0 + bx + p_s - 1.  Phase 0 pulls from device memory
-// with the periodic wrap; phase s >= 1 pulls from the planes phase s - 1
-// keeps in shared memory; the last phase (p = 0) writes the tile's cells
-// that lie in the domain, so a tile at the high edge of an axis it does
-// not divide writes only its cells inside the domain.  A march step runs
-// the phases in order, each in up to three stages with a barrier after
-// each: (psi) psi of the plane sd - 1 ahead of the one it collides, on its
-// region grown by sd - 1; (lap, A1) the laplacian of the plane one ahead,
-// grown by 1; (collide) its plane, reading psi and the laplacian of the
-// planes x - 1, x, x + 1 for the gradients.  Phase s collides its plane
-// k = t - 2 sd s - (2 sd - 2) (from its first) at march step t, so phase
-// s - 1 has just written the last plane the psi stage pulls from, sd
-// ahead; each intermediate phase keeps a ring of sd + 2 population planes
-// (the x - 1 of the collide's pull to the x + sd of the psi stage's), a
-// ring of 3 psi planes (4 under A1: the lap stage reads one more) and one
-// of 3 laplacian planes.  The march runs along x, the arrays' slowest
-// axis, so that the threads of a warp take neighbouring cells along z and
-// phase 0's device loads are contiguous.
+// Design: x-marching columns, one warp group a phase, thread-block
+// clusters across y and z.  A cluster of cy x cz blocks (a launch argument,
+// 1 x 1 included) marches an output tile of bx x-planes by (cy by, cz bz)
+// cells in y and z; each block owns a (by, bz) sub-tile of it.  Phase s =
+// 0..T-1 computes, plane by plane, the cluster's tile grown by p_s = sd (T -
+// 1 - s) cells on every side (the JAX kernel's phase regions, planes x0 -
+// p_s .. x0 + bx + p_s - 1); a block computes only its own part of it, its
+// sub-tile grown by p_s on the sides that are the cluster's outer sides.
+// Phase 0 pulls from device memory with the periodic wrap; phase s >= 1
+// pulls from the planes phase s - 1 keeps in shared memory; the last phase
+// (p = 0) writes the tile's cells that lie in the domain, so a tile at the
+// high edge of an axis it does not divide writes only its cells inside the
+// domain.  Each block keeps every phase's planes on the whole (by + 2 p_s)
+// x (bz + 2 p_s) region of its sub-tile (one layout in every block): the
+// cells of a neighbour's part within sd of its sub-tile, which its next
+// phase pulls, are written there by the neighbour (pushed through
+// distributed shared memory by all the threads of its phase, in a stage
+// after each collide), so no block recomputes a cell that another block of
+// its cluster owns.  Its psi and laplacian rings it computes itself from
+// those planes, on its part grown by sd - 1 and by 1 (38 adds a cell, a
+// fortieth of a collide), which keeps their reuse local to the phase.
+//
+// Each phase runs on a warp group of its own (threads a launch argument,
+// sized by the phase's cells), marching its planes concurrently with the
+// others: per plane (psi) psi of the plane sd - 1 ahead of the one it
+// collides, (lap, A1) the laplacian of the plane one ahead, (collide) its
+// plane, each stage closed by a named barrier of the group alone (bar.sync
+// id, n), then (push, in a cluster) its cells that neighbours pull.  Phase
+// s - 1 hands its planes to phase s through a ring of sd + 3 slots (the
+// x - 1 of the collide's pull to the x + sd of the psi stage's, and one
+// more, so that phase s - 1 runs a plane ahead), with two mbarriers a
+// slot: "full", armed once a plane by the producing group of the block (an
+// arrive after its barrier, with the bytes its neighbours push into the
+// plane as expected transactions), the neighbours' pushes being st.async
+// stores that complete their bytes on it, waited on by the consumers
+// before the psi stage of the plane two sd ahead of the one they collide
+// (every plane before it at the first step: pushes of different planes
+// may land in any order); "empty", arrived on by the consuming group of
+// the block (at CTA scope) and of every neighbour it pushes into (release
+// at cluster scope) once the plane's last reader is done (the march step
+// that collides the plane after it, or for the planes before phase s's
+// first collide the psi stage one plane later), waited on by the producer
+// before it writes the slot or pushes into it again.  Every group arrives
+// on every barrier of its planes whether or not it computed a cell (a tile
+// past the region's end under EXT computes none), so the groups' march
+// counts may differ and no barrier waits for ever.  No block-wide barrier
+// runs inside the march: one cluster barrier before it (the mbarriers
+// initialised in every block) and one after (no block exits while a
+// neighbour may still push into it or arrive on its barriers).  The march
+// runs along x, the arrays' slowest axis, so that the threads of a warp
+// take neighbouring cells along z and phase 0's device loads are
+// contiguous.
 //
 // Recomputed cells (the rings that neighbouring tiles compute too, and a
 // ring past the domain's edge, which wraps) are keyed by their wrapped
@@ -60,15 +90,16 @@
 // float32 values): loop-invariant reads of the __constant__ tables would
 // be hoisted out of the cell loop into hundreds of registers.
 //
-// Shared memory, per intermediate phase: sd + 2 planes x 2 species x 19
-// populations x 4 bytes a cell of its plane; per phase with a force: 3 (4
-// under A1) psi planes x 2 x 4 bytes a cell of its region grown by sd - 1,
-// and under A1 3 laplacian planes a cell of its region grown by 1.  The
-// launch needs the sum over the phases (bflbm_blocked_smem), dynamic shared
-// memory, allowed above 48 KB by cudaFuncSetAttribute once per
-// instantiation and device; the host picks the tile per (sd, T)
-// (kernels/fused_step.py blocked_tile) under the 232,448 bytes a block may
-// hold.
+// Shared memory, per block: 2 (T - 1) (sd + 3) mbarriers, then per
+// intermediate phase sd + 3 planes x 2 species x 19 populations x 4 bytes a
+// cell of its (by + 2 p_s) x (bz + 2 p_s) region; per phase with a force: 3
+// (4 under A1) psi planes x 2 x 4 bytes a cell of its region grown by sd -
+// 1, and under A1 3 laplacian planes a cell of its region grown by 1.  The
+// launch needs the sum (bflbm_blocked_smem), dynamic shared memory, allowed
+// above 48 KB by cudaFuncSetAttribute once per instantiation and device;
+// the host picks the sub-tile and the cluster per (sd, T) (kernels/
+// fused_step.py blocked_tile, blocked_cluster) under the 232,448 bytes a
+// block may hold; a cluster adds none.
 //
 // EXT (a template flag, chosen at launch from the geometry as the one-step
 // kernels choose theirs, common.cuh is_ext): JAX's sharded sweep at block
@@ -129,6 +160,8 @@
 #define BFLBM_A1 0
 #endif
 
+#include <cooperative_groups.h>
+
 #include "k_cell.cuh"
 #include "lattice_tables.cuh"
 
@@ -152,6 +185,7 @@ struct ImmTables {
 
 constexpr int KMAX = 8;            // most steps one launch takes
 constexpr int MAX_THREADS = 384;   // threads of a block, at most
+constexpr int MAX_CLUSTER = 8;     // blocks of a cluster, at most (portable)
 constexpr int MAX_DEVICES = 64;
 constexpr bool kForce = BFLBM_FORCE != 0;
 constexpr bool kA1 = BFLBM_A1 != 0;
@@ -159,7 +193,7 @@ static_assert(kForce || !kA1, "BFLBM_A1 needs BFLBM_FORCE");
 // This library's stencil depth: the pull 1, the psi gradient a second,
 // the gradient of the laplacian a third.
 constexpr int SD = kA1 ? 3 : (kForce ? 2 : 1);
-constexpr int POP_RING = SD + 2;   // population planes a phase keeps
+constexpr int POP_RING = SD + 3;   // population planes a phase keeps
 constexpr int PSI_RING = kA1 ? 4 : 3;
 constexpr int LAP_RING = 3;
 
@@ -171,7 +205,10 @@ struct BArgs {
   uint32_t words[KMAX];    // the noise word of each step
   uint32_t step0;          // the first step's label
   int T;                   // steps
-  int bx, by, bz;          // the tile: x-planes, y and z cells
+  int bx, by, bz;          // a block's sub-tile: x-planes, y and z cells
+  int cy, cz;              // the cluster: blocks along y and z
+  int first[KMAX + 1];     // phase s's warp group: threads first[s] ..
+                           // first[s + 1] - 1; first[T] = blockDim.x
   int use_sc;              // psi is the Shan-Chen pseudopotential
   float n0;                // its reference density
   int gx0, gy0, gz0;       // EXT: global coordinates of array cell (0, 0, 0)
@@ -196,6 +233,97 @@ __host__ __device__ __forceinline__ long long phase_floats(int ny, int nz,
          (nz + 2 * (SD - 1));
   if (kA1) n += static_cast<long long>(LAP_RING) * 2 * (ny + 2) * (nz + 2);
   return n;
+}
+
+// Bytes of the mbarriers in front of the rings: a full and an empty one
+// per slot of every intermediate phase's population ring, rounded up to 16.
+__host__ __device__ __forceinline__ int barrier_bytes(int T) {
+  return (2 * (T - 1) * POP_RING * 8 + 15) / 16 * 16;
+}
+
+// The floats in front of phase s's rings: the phases before it.
+__device__ __forceinline__ long long phase_base(int T, int s, int by,
+                                                int bz) {
+  long long n = 0;
+  for (int r = 0; r < s; ++r) {
+    const int pr = SD * (T - 1 - r);
+    n += phase_floats(by + 2 * pr, bz + 2 * pr, r == T - 1);
+  }
+  return n;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Wait until the phase of parity `parity` of the mbarrier at b has
+// completed; its arrivals' writes (at cluster scope) are then visible.
+__device__ __forceinline__ void bar_wait(const uint64_t* b, uint32_t parity) {
+  const uint32_t a = smem_u32(b);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1],"
+        " %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Arrive, releasing at cluster scope, on the mbarrier at b's offset in the
+// shared memory of the cluster's block `rank` (this block's own included).
+__device__ __forceinline__ void bar_arrive(const uint64_t* b, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(smem_u32(b)), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(r)
+      : "memory");
+}
+
+// The barrier of warp group `id` (1..KMAX) of n threads.
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// The blocks of a cluster next to block (iy, iz), diagonals included.
+__device__ __forceinline__ int neighbour_count(int iy, int iz, int cy,
+                                               int cz) {
+  const int ny = (iy > 0) + 1 + (iy < cy - 1);
+  const int nz = (iz > 0) + 1 + (iz < cz - 1);
+  return ny * nz - 1;
+}
+
+// The cells that block (ay, az) of a cluster of cy x cz blocks pushes to
+// block (ny, nz) in a phase grown by p: those of its part (its sub-tile,
+// grown by p on the cluster's outer sides) inside the other's part of the
+// next phase grown by SD (p on the outer sides, SD on the inner ones), a
+// box [y0, y1) x [z0, z1) from block (ay, az)'s sub-tile origin; returns
+// its cells (0 for an empty box).
+__device__ __forceinline__ int push_box(int ay, int az, int ny, int nz,
+                                        int cy, int cz, int by, int bz,
+                                        int p, int& y0, int& y1, int& z0,
+                                        int& z1) {
+  const int dy = ny - ay, dz = nz - az;
+  y0 = max(ay == 0 ? -p : 0, (ny == 0 ? -p : -SD) + dy * by);
+  y1 = min(by + (ay == cy - 1 ? p : 0), by + (ny == cy - 1 ? p : SD) + dy * by);
+  z0 = max(az == 0 ? -p : 0, (nz == 0 ? -p : -SD) + dz * bz);
+  z1 = min(bz + (az == cz - 1 ? p : 0), bz + (nz == cz - 1 ? p : SD) + dz * bz);
+  return (y1 > y0 && z1 > z0) ? (y1 - y0) * (z1 - z0) : 0;
+}
+
+// The shared::cluster address of `a` (a shared::cta address of this block)
+// in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
 }
 
 // Where phase 0 of a strip-fed launch pulls from, for a cell in row y:
@@ -331,13 +459,21 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     blocked_kernel(const BArgs p) {
   static_assert(EXT || !STRIPS, "y strips feed a halo-extended block");
   constexpr bool FORCE = kForce, A1 = kA1;
-  constexpr int LAG = 2 * SD;       // march steps between two phases
-  constexpr int LEAD = 2 * SD - 2;  // march steps the psi stage runs ahead
-  extern __shared__ float ring[];
+  constexpr int LEAD = 2 * SD - 2;  // planes the psi stage runs ahead
+  extern __shared__ __align__(16) unsigned char smem[];
   const Args& args = p.a;
   const int X = args.X, Y = args.Y, Z = args.Z, T = p.T;
   const size_t plane = static_cast<size_t>(X) * Y * Z;
-  // the tile's first cell in the arrays, and the end of the region the
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  // this block's place in its cluster (clusters span y and z only), and
+  // its neighbours there
+  const int cy = p.cy, cz = p.cz;
+  const int iy = static_cast<int>(blockIdx.y) % cy;
+  const int iz = static_cast<int>(blockIdx.z) % cz;
+  if (cluster.block_rank() != static_cast<unsigned>(iy + iz * cy)) __trap();
+  const int nnb = neighbour_count(iy, iz, cy, cz);
+  // the sub-tile's first cell in the arrays, and the end of the region the
   // last phase writes: the whole domain, or under EXT the launch's region
   // (the interior or a window of it), past which every phase s computes
   // only the ps cells its successors read
@@ -347,152 +483,215 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int xe = EXT ? args.r.x0 + args.r.nx : X;
   const int ye = EXT ? args.r.y0 + args.r.ny : Y;
   const int ze = EXT ? args.r.z0 + args.r.nz : Z;
-  const int nt = p.bx + LAG * (T - 1) + LEAD;   // march steps
-  for (int t = 0; t < nt; ++t) {
-    const float* prev = nullptr;       // phase s - 1's population ring
-    float* slab = ring;                // phase s's shared memory
-    for (int s = 0; s < T; ++s) {
-      const int ps = SD * (T - 1 - s);
-      const int ny = p.by + 2 * ps, nz = p.bz + 2 * ps;
-      const int nx = p.bx + 2 * ps;
-      const int ncell = ny * nz;
-      const int k = t - LAG * s - LEAD;  // the plane it collides, from its
-      const bool last = s == T - 1;      // first x0 - ps
-      // phase s - 1's planes: its region, SD cells wider on each side
-      const int qnz = nz + 2 * SD, qn = (ny + 2 * SD) * qnz;
-      // this phase's rings: populations, psi (grown by SD - 1), laplacian
-      // (grown by 1)
-      float* mine = slab;
-      const int pnz = nz + 2 * (SD - 1), pn = (ny + 2 * (SD - 1)) * pnz;
-      float* psi_ring = mine + (last ? 0 : POP_RING * 2 * Q * ncell);
-      const int lnz = nz + 2, ln = (ny + 2) * lnz;
-      float* lap_ring = psi_ring + (FORCE ? PSI_RING * 2 * pn : 0);
-      slab += phase_floats(ny, nz, last);
-      // word s, selected without indexing the parameter array at run time
-      uint32_t word = p.words[0];
-#pragma unroll
-      for (int q = 1; q < KMAX; ++q)
-        if (q == s) word = p.words[q];
-      const uint32_t step = p.step0 + static_cast<uint32_t>(s);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [T - 1][POP_RING]
+  uint64_t* empty = full + (T - 1) * POP_RING;          // [T - 1][POP_RING]
+  float* ring = reinterpret_cast<float*>(smem + barrier_bytes(T));
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < (T - 1) * POP_RING; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_u32(full + i))
+                   : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                       smem_u32(empty + i)),
+                   "r"(1 + nnb)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();   // every block's barriers are ready before any arrives
 
-      if (FORCE) {
-        // (psi) plane x0 - ps + kp of psi, on the region grown by SD - 1
-        const int kp = k + SD - 1;
-        if (kp >= 1 - SD && kp < nx + SD - 1 &&
-            !(EXT && x0 - ps + kp >= xe + ps + SD - 1)) {
-          const int x = x0 - ps + kp;
-          const int xw = wrap_any(x, X);
-          float* out = psi_ring + wrap_any(x - x0, PSI_RING) * (2 * pn);
-          const float* below = nullptr;
-          const float* here = nullptr;
-          const float* above = nullptr;
-          if (s > 0) {
-            below = prev + wrap_any(x - 1 - x0, POP_RING) * (2 * Q * qn);
-            here = prev + wrap_any(x - x0, POP_RING) * (2 * Q * qn);
-            above = prev + wrap_any(x + 1 - x0, POP_RING) * (2 * Q * qn);
-          }
-          for (int c = threadIdx.x; c < pn; c += blockDim.x) {
-            const int j = c / pnz, l = c - j * pnz;
-            if (EXT && (y0 - ps - (SD - 1) + j >= ye + ps + SD - 1 ||
-                        z0 - ps - (SD - 1) + l >= ze + ps + SD - 1))
-              continue;
-            float rho = 0.0f, phi = 0.0f;
-            if (s == 0) {
-              const int yw = wrap_any(y0 - ps - (SD - 1) + j, Y);
-              const int zw = wrap_any(z0 - ps - (SD - 1) + l, Z);
-              if (STRIPS) {
-                // strip-fed: every load first, then the sums
-                const StripRows rows(args, yw);
-                float fv[Q], gv[Q];
+  // this thread's phase, its warp group
+  int s = 0;
+  while (s + 1 < T && static_cast<int>(threadIdx.x) >= p.first[s + 1]) ++s;
+  const int tid = static_cast<int>(threadIdx.x) - p.first[s];
+  const int nth = p.first[s + 1] - p.first[s];
+  const bool last = s == T - 1;
+  const int ps = SD * (T - 1 - s);
+  const int ny = p.by + 2 * ps, nz = p.bz + 2 * ps;
+  const int nx = p.bx + 2 * ps;
+  const int ncell = ny * nz;
+  // its part of the cluster's phase region, in its region's (j, l)
+  // coordinates: the sub-tile, grown by ps on the cluster's outer sides
+  const int jlo = iy == 0 ? 0 : ps, jhi = iy == cy - 1 ? ny : ny - ps;
+  const int llo = iz == 0 ? 0 : ps, lhi = iz == cz - 1 ? nz : nz - ps;
+  // phase s - 1's planes: its region, SD cells wider on each side
+  const int qnz = nz + 2 * SD, qn = (ny + 2 * SD) * qnz;
+  // this phase's rings: populations, psi (grown by SD - 1), laplacian
+  // (grown by 1)
+  float* mine = ring + phase_base(T, s, p.by, p.bz);
+  const float* prev =
+      s > 0 ? ring + phase_base(T, s - 1, p.by, p.bz) : nullptr;
+  const int pnz = nz + 2 * (SD - 1), pn = (ny + 2 * (SD - 1)) * pnz;
+  float* psi_ring = mine + (last ? 0 : POP_RING * 2 * Q * ncell);
+  const int lnz = nz + 2, ln = (ny + 2) * lnz;
+  float* lap_ring = psi_ring + (FORCE ? PSI_RING * 2 * pn : 0);
+  uint64_t* my_full = full + s * POP_RING;
+  uint64_t* my_empty = empty + s * POP_RING;
+  const uint64_t* prev_full = full + (s - 1) * POP_RING;
+  uint64_t* prev_empty = empty + (s - 1) * POP_RING;
+  // the sizes of its stages' cell ranges
+  const int pwz = lhi - llo + 2 * (SD - 1);
+  const int pw = (jhi - jlo + 2 * (SD - 1)) * pwz;
+  const int lwz = lhi - llo + 2;
+  const int lw = (jhi - jlo + 2) * lwz;
+  const int cwz = lhi - llo;
+  const int cw = (jhi - jlo) * cwz;
+  // word s, selected without indexing the parameter array at run time
+  uint32_t word = p.words[0];
 #pragma unroll
-                for (int i = 0; i < Q; ++i)
-                  rows.load(args, i, ImmTables::c(i, 1),
-                            wrap(xw - ImmTables::c(i, 0), X),
-                            wrap(zw - ImmTables::c(i, 2), Z), plane, fv[i],
-                            gv[i]);
+  for (int q = 1; q < KMAX; ++q)
+    if (q == s) word = p.words[q];
+  const uint32_t step = p.step0 + static_cast<uint32_t>(s);
+  // the bytes the neighbours push into each of this phase's planes
+  uint32_t pushed_in = 0;
+  if (!last)
+    for (int ddz = -1; ddz <= 1; ++ddz)
+      for (int ddy = -1; ddy <= 1; ++ddy) {
+        const int ay = iy + ddy, az = iz + ddz;
+        if ((ddy == 0 && ddz == 0) || ay < 0 || ay >= cy || az < 0 ||
+            az >= cz)
+          continue;
+        int y0_, y1_, z0_, z1_;
+        pushed_in += 2 * Q * 4 *
+                     push_box(ay, az, iy, iz, cy, cz, p.by, p.bz, ps, y0_,
+                              y1_, z0_, z1_);
+      }
+
+  // plane k of this phase (x0 - ps + k) at march step k; its psi stage
+  // runs SD - 1 planes ahead
+  for (int k = -LEAD; k < nx; ++k) {
+    if (s > 0) {
+      // phase s - 1 has written (and its neighbours have pushed) the last
+      // plane this step pulls from, its plane k + 2 SD counted from its
+      // first, and at the first step every plane before it: the pushes of
+      // different planes may land in any order
+      for (int jp = k == -LEAD ? 0 : k + 2 * SD; jp <= k + 2 * SD; ++jp)
+        bar_wait(prev_full + jp % POP_RING, (jp / POP_RING) & 1);
+    }
+    if (FORCE) {
+      // (psi) plane x0 - ps + kp of psi, on the part grown by SD - 1
+      const int kp = k + SD - 1;
+      if (!(EXT && x0 - ps + kp >= xe + ps + SD - 1)) {
+        const int x = x0 - ps + kp;
+        const int xw = wrap_any(x, X);
+        float* out = psi_ring + wrap_any(x - x0, PSI_RING) * (2 * pn);
+        const float* below = nullptr;
+        const float* here = nullptr;
+        const float* above = nullptr;
+        if (s > 0) {
+          const int jq = x - x0 + ps + SD;   // from phase s - 1's first
+          below = prev + ((jq - 1) % POP_RING) * (2 * Q * qn);
+          here = prev + (jq % POP_RING) * (2 * Q * qn);
+          above = prev + ((jq + 1) % POP_RING) * (2 * Q * qn);
+        }
+        for (int c = tid; c < pw; c += nth) {
+          const int jj = c / pwz;
+          const int j = jlo + jj, l = llo + (c - jj * pwz);
+          if (EXT && (y0 - ps - (SD - 1) + j >= ye + ps + SD - 1 ||
+                      z0 - ps - (SD - 1) + l >= ze + ps + SD - 1))
+            continue;
+          float rho = 0.0f, phi = 0.0f;
+          if (s == 0) {
+            const int yw = wrap_any(y0 - ps - (SD - 1) + j, Y);
+            const int zw = wrap_any(z0 - ps - (SD - 1) + l, Z);
+            if (STRIPS) {
+              // strip-fed: every load first, then the sums
+              const StripRows rows(args, yw);
+              float fv[Q], gv[Q];
 #pragma unroll
-                for (int i = 0; i < Q; ++i) {
-                  rho += fv[i];
-                  phi += gv[i];
-                }
-              } else {
+              for (int i = 0; i < Q; ++i)
+                rows.load(args, i, ImmTables::c(i, 1),
+                          wrap(xw - ImmTables::c(i, 0), X),
+                          wrap(zw - ImmTables::c(i, 2), Z), plane, fv[i],
+                          gv[i]);
 #pragma unroll
-                for (int i = 0; i < Q; ++i) {
-                  const size_t src =
-                      i * plane +
-                      cell_offset(wrap(xw - ImmTables::c(i, 0), X),
-                                  wrap(yw - ImmTables::c(i, 1), Y),
-                                  wrap(zw - ImmTables::c(i, 2), Z), Y, Z);
-                  rho += __ldg(args.fin + src);
-                  phi += __ldg(args.gin + src);
-                }
+              for (int i = 0; i < Q; ++i) {
+                rho += fv[i];
+                phi += gv[i];
               }
             } else {
 #pragma unroll
               for (int i = 0; i < Q; ++i) {
-                const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
-                          cz = ImmTables::c(i, 2);
-                const float* src =
-                    (cx > 0 ? below : (cx < 0 ? above : here)) +
-                    (j + 1 - cy) * qnz + (l + 1 - cz);
-                rho += src[i * qn];
-                phi += src[(Q + i) * qn];
+                const size_t src =
+                    i * plane +
+                    cell_offset(wrap(xw - ImmTables::c(i, 0), X),
+                                wrap(yw - ImmTables::c(i, 1), Y),
+                                wrap(zw - ImmTables::c(i, 2), Z), Y, Z);
+                rho += __ldg(args.fin + src);
+                phi += __ldg(args.gin + src);
               }
             }
-            out[c] = psi_of(rho, p.use_sc, p.n0);
-            out[pn + c] = psi_of(phi, p.use_sc, p.n0);
-          }
-        }
-        __syncthreads();
-        if (A1) {
-          // (lap) plane x0 - ps + kl of the laplacian, on the region grown
-          // by 1: laplacian_psi.cu's sum over the psi ring
-          const int kl = k + 1;
-          if (kl >= -1 && kl < nx + 1 &&
-              !(EXT && x0 - ps + kl >= xe + ps + 1)) {
-            const int x = x0 - ps + kl;
-            float* out = lap_ring + wrap_any(x - x0, LAP_RING) * (2 * ln);
-            for (int c = threadIdx.x; c < ln; c += blockDim.x) {
-              const int j = c / lnz, l = c - j * lnz;
-              if (EXT && (y0 - ps - 1 + j >= ye + ps + 1 ||
-                          z0 - ps - 1 + l >= ze + ps + 1))
-                continue;
-              const int pc = (j + SD - 2) * pnz + (l + SD - 2);
-              float acc[2] = {0.0f, 0.0f};
+          } else {
 #pragma unroll
-              for (int i = 1; i < Q; ++i) {
-                const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
-                          cz = ImmTables::c(i, 2);
-                const float* v = psi_ring +
-                                 wrap_any(x + cx - x0, PSI_RING) * (2 * pn) +
-                                 pc + cy * pnz + cz;
-                acc[0] += kLatW[i] * v[0];
-                acc[1] += kLatW[i] * v[pn];
-              }
-              const float* v =
-                  psi_ring + wrap_any(x - x0, PSI_RING) * (2 * pn);
-#pragma unroll
-              for (int sp = 0; sp < 2; ++sp)
-                out[sp * ln + c] =
-                    kLatTwoCs2 * (acc[sp] - kLatWSum * v[sp * pn + pc]);
+            for (int i = 0; i < Q; ++i) {
+              const int cx = ImmTables::c(i, 0), cy_ = ImmTables::c(i, 1),
+                        cz_ = ImmTables::c(i, 2);
+              const float* src =
+                  (cx > 0 ? below : (cx < 0 ? above : here)) +
+                  (j + 1 - cy_) * qnz + (l + 1 - cz_);
+              rho += src[i * qn];
+              phi += src[(Q + i) * qn];
             }
           }
-          __syncthreads();
+          const int pc = j * pnz + l;
+          out[pc] = psi_of(rho, p.use_sc, p.n0);
+          out[pn + pc] = psi_of(phi, p.use_sc, p.n0);
         }
       }
+      group_sync(s + 1, nth);
+      if (A1) {
+        // (lap) plane x0 - ps + kl of the laplacian, on the part grown by
+        // 1: laplacian_psi.cu's sum over the psi ring
+        const int kl = k + 1;
+        if (kl >= -1 && !(EXT && x0 - ps + kl >= xe + ps + 1)) {
+          const int x = x0 - ps + kl;
+          float* out = lap_ring + wrap_any(x - x0, LAP_RING) * (2 * ln);
+          for (int c = tid; c < lw; c += nth) {
+            const int jj = c / lwz;
+            const int j = jlo + jj, l = llo + (c - jj * lwz);
+            if (EXT && (y0 - ps - 1 + j >= ye + ps + 1 ||
+                        z0 - ps - 1 + l >= ze + ps + 1))
+              continue;
+            const int pc = (j + SD - 2) * pnz + (l + SD - 2);
+            float acc[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int i = 1; i < Q; ++i) {
+              const int cx = ImmTables::c(i, 0), cy_ = ImmTables::c(i, 1),
+                        cz_ = ImmTables::c(i, 2);
+              const float* v = psi_ring +
+                               wrap_any(x + cx - x0, PSI_RING) * (2 * pn) +
+                               pc + cy_ * pnz + cz_;
+              acc[0] += kLatW[i] * v[0];
+              acc[1] += kLatW[i] * v[pn];
+            }
+            const float* v =
+                psi_ring + wrap_any(x - x0, PSI_RING) * (2 * pn);
+#pragma unroll
+            for (int sp = 0; sp < 2; ++sp)
+              out[sp * ln + j * lnz + l] =
+                  kLatTwoCs2 * (acc[sp] - kLatWSum * v[sp * pn + pc]);
+          }
+        }
+        group_sync(s + 1, nth);
+      }
+    }
 
-      // (collide) plane x0 - ps + k
-      const int x = x0 - ps + k;       // unwrapped
-      if (k >= 0 && k < nx && !(EXT ? x >= xe + ps : (last && x >= xe))) {
+    // (collide) plane x0 - ps + k
+    const int x = x0 - ps + k;       // unwrapped
+    if (k >= 0) {
+      if (!last && k >= POP_RING)   // its slot's last readers are done
+        bar_wait(my_empty + k % POP_RING, ((k / POP_RING) - 1) & 1);
+      if (!(EXT ? x >= xe + ps : (last && x >= xe))) {
         const int xw = wrap_any(x, X);
         // phase s - 1's planes x - 1, x, x + 1
         const float* below = nullptr;
         const float* here = nullptr;
         const float* above = nullptr;
         if (s > 0) {
-          below = prev + wrap_any(x - 1 - x0, POP_RING) * (2 * Q * qn);
-          here = prev + wrap_any(x - x0, POP_RING) * (2 * Q * qn);
-          above = prev + wrap_any(x + 1 - x0, POP_RING) * (2 * Q * qn);
+          const int jq = k + SD;   // plane x from phase s - 1's first
+          below = prev + ((jq - 1) % POP_RING) * (2 * Q * qn);
+          here = prev + (jq % POP_RING) * (2 * Q * qn);
+          above = prev + ((jq + 1) % POP_RING) * (2 * Q * qn);
         }
         // psi and laplacian planes x - 1, x, x + 1
         const float* psi_x[3] = {nullptr, nullptr, nullptr};
@@ -509,8 +708,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             lap_x[d] =
                 lap_ring + wrap_any(x + d - 1 - x0, LAP_RING) * (2 * ln);
         }
-        for (int c = threadIdx.x; c < ncell; c += blockDim.x) {
-          const int j = c / nz, l = c - j * nz;
+        float* slot = mine + (k % POP_RING) * (2 * Q * ncell);
+        for (int c = tid; c < cw; c += nth) {
+          const int jj = c / cwz;
+          const int j = jlo + jj, l = llo + (c - jj * cwz);
           const int y = y0 - ps + j, z = z0 - ps + l;
           if (EXT ? (y >= ye + ps || z >= ze + ps)
                   : (last && (y >= ye || z >= ze)))
@@ -551,33 +752,35 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             // pull from device memory, periodic
 #pragma unroll
             for (int i = 0; i < Q; ++i) {
-              const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
-                        cz = ImmTables::c(i, 2);
+              const int cx = ImmTables::c(i, 0), cy_ = ImmTables::c(i, 1),
+                        cz_ = ImmTables::c(i, 2);
               const size_t src = i * plane + cell_offset(wrap(xw - cx, X),
-                                                         wrap(yw - cy, Y),
-                                                         wrap(zw - cz, Z),
+                                                         wrap(yw - cy_, Y),
+                                                         wrap(zw - cz_, Z),
                                                          Y, Z);
               const float fi = __ldg(args.fin + src);
               const float gi = __ldg(args.gin + src);
-              pull_add<GENERAL, ImmTables>(i, cx, cy, cz, fi, gi, rho, phi,
+              pull_add<GENERAL, ImmTables>(i, cx, cy_, cz_, fi, gi, rho, phi,
                                            jf, jg, mf, mg);
             }
           } else {
             // pull from phase s - 1's plane x - cx in shared memory
 #pragma unroll
             for (int i = 0; i < Q; ++i) {
-              const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
-                        cz = ImmTables::c(i, 2);
+              const int cx = ImmTables::c(i, 0), cy_ = ImmTables::c(i, 1),
+                        cz_ = ImmTables::c(i, 2);
               const float* src = (cx > 0 ? below : (cx < 0 ? above : here)) +
-                                 (j + SD - cy) * qnz + (l + SD - cz);
+                                 (j + SD - cy_) * qnz + (l + SD - cz_);
               const float fi = src[i * qn];
               const float gi = src[(Q + i) * qn];
-              pull_add<GENERAL, ImmTables>(i, cx, cy, cz, fi, gi, rho, phi,
+              pull_add<GENERAL, ImmTables>(i, cx, cy_, cz_, fi, gi, rho, phi,
                                            jf, jg, mf, mg);
             }
           }
           const size_t idx = cell_offset(xw, yw, zw, Y, Z);
-          // the cell in the psi and laplacian rings
+          // the cell in this phase's region and in its psi and laplacian
+          // rings
+          const int cell = j * nz + l;
           const int pc = (j + SD - 1) * pnz + (l + SD - 1);
           const int lc = (j + 1) * lnz + (l + 1);
           float* fo;
@@ -589,10 +792,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             oplane = plane;
             oidx = idx;
           } else {
-            fo = mine + wrap_any(x - x0, POP_RING) * (2 * Q * ncell);
-            go = fo + Q * ncell;
+            fo = slot;
+            go = slot + Q * ncell;
             oplane = static_cast<size_t>(ncell);
-            oidx = static_cast<size_t>(c);
+            oidx = static_cast<size_t>(cell);
           }
           BFLBM_COLLIDE_CELL_WITH(args, word, step, kx, ky, kz, fo, go,
                                   oplane, oidx, ImmTables,
@@ -604,23 +807,95 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                            zw, X, Z);
         }
       }
-      // phase s + 1 reads what phase s wrote, and the next march step's
-      // phase s overwrites a plane phase s + 1 has just read
-      __syncthreads();
-      prev = mine;
+    }
+    // the stage's reads of phase s - 1's planes and of the psi ring, and
+    // its writes, are done
+    group_sync(s + 1, nth);
+    if (!last && k >= 0 && nnb > 0) {
+      // (push) the cells of plane k that a neighbour's next phase pulls
+      // (push_box), written into its region (the same layout as this
+      // one's) by st.async, each store counted on the neighbour's full
+      // barrier of the slot (complete_tx), which its own producer arms
+      const float* slot = mine + (k % POP_RING) * (2 * Q * ncell);
+      for (int ddz = -1; ddz <= 1; ++ddz)
+        for (int ddy = -1; ddy <= 1; ++ddy) {
+          const int ny_ = iy + ddy, nz_ = iz + ddz;
+          if ((ddy == 0 && ddz == 0) || ny_ < 0 || ny_ >= cy || nz_ < 0 ||
+              nz_ >= cz)
+            continue;
+          int ya, yb, za, zb;
+          const int nb = push_box(iy, iz, ny_, nz_, cy, cz, p.by, p.bz, ps,
+                                  ya, yb, za, zb);
+          if (nb == 0) continue;
+          const int bw = zb - za;
+          const uint32_t rank = static_cast<uint32_t>(ny_ + nz_ * cy);
+          const uint32_t peer = peer_addr(smem_u32(slot), rank);
+          const uint32_t rbar = peer_addr(smem_u32(my_full + k % POP_RING),
+                                          rank);
+          const int shift = ddy * p.by * nz + ddz * p.bz;
+          for (int c = tid; c < nb; c += nth) {
+            const int jj = c / bw;
+            const int cell = (ya + jj + ps) * nz + (za + (c - jj * bw) + ps);
+            float v[2 * Q];
+#pragma unroll
+            for (int q = 0; q < 2 * Q; ++q) v[q] = slot[q * ncell + cell];
+            const uint32_t dst = peer + 4u * static_cast<uint32_t>(cell - shift);
+#pragma unroll
+            for (int q = 0; q < 2 * Q; ++q)
+              asm volatile(
+                  "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32"
+                  " [%0], %1, [%2];" ::"r"(dst + 4u * q * ncell),
+                  "f"(v[q]), "r"(rbar)
+                  : "memory");
+          }
+        }
+    }
+    // one thread of the group hands the planes on: plane k is written
+    // (its full barrier armed for the bytes the neighbours push), phase
+    // s - 1's plane k + SD - 1 (x - 1 of the collide's pull) is read for
+    // the last time here and in every neighbour this block pushes into
+    const int jr = k + SD - 1;
+    if (tid == 0) {
+      if (!last && k >= 0)
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                smem_u32(my_full + k % POP_RING)),
+            "r"(pushed_in)
+            : "memory");
+      if (s > 0 && jr >= 0) {
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                         smem_u32(prev_empty + jr % POP_RING))
+                     : "memory");
+        for (int ddz = -1; ddz <= 1; ++ddz)
+          for (int ddy = -1; ddy <= 1; ++ddy) {
+            const int ny_ = iy + ddy, nz_ = iz + ddz;
+            if ((ddy == 0 && ddz == 0) || ny_ < 0 || ny_ >= cy || nz_ < 0 ||
+                nz_ >= cz)
+              continue;
+            bar_arrive(prev_empty + jr % POP_RING,
+                       static_cast<uint32_t>(ny_ + nz_ * cy));
+          }
+      }
     }
   }
+  // no block exits while a neighbour may still push into it or arrive on
+  // its barriers
+  cluster.sync();
 }
 
-// Launch one instantiation: its dynamic shared memory limit raised to
-// `smem` first when that is above 48 KB and above what was set on this
-// device before (a launch above the limit is refused, and only
-// cudaGetLastError reports it).
+// Launch one instantiation on clusters of 1 x cy x cz blocks: its dynamic
+// shared memory limit raised to `smem` first when that is above 48 KB and
+// above what was set on this device before (a launch above the limit is
+// refused, and only cudaGetLastError reports it); for a cluster of more
+// than one block, cudaOccupancyMaxActiveClusters checked first (the last
+// answer kept per device and shape): a cluster the device cannot place
+// refuses the launch (cudaErrorInvalidConfiguration) and nothing runs.
 template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT,
           bool STRIPS>
 int launch(int device, dim3 grid, int threads, size_t smem, cudaStream_t s,
            const BArgs& b) {
   static size_t allowed[MAX_DEVICES] = {};
+  static long long placed[MAX_DEVICES] = {};   // the last shape that fits
   auto kern = blocked_kernel<NOISE, DIST, GENERAL, REF, EXT, STRIPS>;
   if (smem > 48 * 1024 && smem > allowed[device]) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -629,7 +904,31 @@ int launch(int device, dim3 grid, int threads, size_t smem, cudaStream_t s,
     if (e != cudaSuccess) return static_cast<int>(e);
     allowed[device] = smem;
   }
-  kern<<<grid, threads, smem, s>>>(b);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = static_cast<unsigned>(b.cy);
+  attr[0].val.clusterDim.z = static_cast<unsigned>(b.cz);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const long long shape = (static_cast<long long>(smem) << 24) |
+                          (static_cast<long long>(threads) << 8) |
+                          (b.cy << 4) | b.cz;
+  if (b.cy * b.cz > 1 && placed[device] != shape) {
+    int clusters = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    placed[device] = shape;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, b);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -682,17 +981,19 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float* m,
   return static_cast<int>(e);
 }
 
-// Dynamic shared memory bytes of a launch of T steps at stencil depth sd
-// on tiles of (by, bz) cells in y and z: the sum of every phase's rings
-// (phase_floats), or -1 for a depth this library does not run.
+// Dynamic shared memory bytes a block of a launch of T steps at stencil
+// depth sd on sub-tiles of (by, bz) cells in y and z: the barriers
+// (barrier_bytes) and the sum of every phase's rings (phase_floats), the
+// same in every block of any cluster; or -1 for a depth this library does
+// not run.
 extern "C" long long bflbm_blocked_smem(int sd, int T, int by, int bz) {
-  if (sd != SD) return -1;
+  if (sd != SD || T < 1 || T > KMAX) return -1;
   long long floats = 0;
   for (int s = 0; s < T; ++s) {
     const int ps = SD * (T - 1 - s);
     floats += phase_floats(by + 2 * ps, bz + 2 * ps, s == T - 1);
   }
-  return floats * static_cast<long long>(sizeof(float));
+  return barrier_bytes(T) + floats * static_cast<long long>(sizeof(float));
 }
 
 // T K steps on device pointers (19, X, Y, Z) float32, z contiguous: fin,
@@ -706,43 +1007,56 @@ extern "C" long long bflbm_blocked_smem(int sd, int T, int by, int bz) {
 // whose region is its interior or a window of it, its pads at least sd T
 // deep on the padded axes and the region spanning the others.
 // words: host array of the T int32 noise words, the step of word s being
-// step0 + s.  tile: host array {bx, by, bz}, the output tile (x-planes, y
-// and z cells); threads: the block's threads, a multiple of 32 up to 384.
-// ref: the (2, X, Y, Z) COM-rolled (rho_eq, phi_eq) of USE_REF_STATE, or
-// null (read only with noise on).  dist: 0 u8, 1 clt4, 2 clt2, 3
-// Box-Muller.  coef: host array [pref_mom, cf[15], cg[15], scale, off].
-// lam_f, lam_g: 1 / (tau + 1/2), read by the general-relaxation build.
-// force_k = -cs^2 alpha0; a1 = cs^2 alpha1; s_f, s_g the Guo prefactors;
-// use_sc, n0: psi is the pseudopotential with reference density n0 (read
-// by the force builds).  strips_in, strips_out: the received y strips and
-// the strips the last phase writes (common.cuh YStrips, depth strip_rows,
-// the y pads' depth), or null.  Returns cudaErrorInvalidValue for
-// arguments it does not take (another sd, T outside 1..8, a tile or thread
-// count out of range, strips shallower than 1 row or covering the arrays'
-// y, more shared memory than a block of the device may hold), else
-// cudaGetLastError() after the launch.
+// step0 + s.  tile: host array {bx, by, bz, cy, cz}, a block's sub-tile
+// (x-planes, y and z cells) and the cluster (blocks along y and z, at most
+// 8 in all; a sub-tile at least sd cells across an axis the cluster
+// spans); the grid covers the region with whole clusters.  threads: host
+// array of the T warp groups' threads, phase by phase, each a positive
+// multiple of 32, at most 384 in all.  ref: the (2, X, Y, Z) COM-rolled
+// (rho_eq, phi_eq) of USE_REF_STATE, or null (read only with noise on).
+// dist: 0 u8, 1 clt4, 2 clt2, 3 Box-Muller.  coef: host array [pref_mom,
+// cf[15], cg[15], scale, off].  lam_f, lam_g: 1 / (tau + 1/2), read by the
+// general-relaxation build.  force_k = -cs^2 alpha0; a1 = cs^2 alpha1;
+// s_f, s_g the Guo prefactors; use_sc, n0: psi is the pseudopotential with
+// reference density n0 (read by the force builds).  strips_in, strips_out:
+// the received y strips and the strips the last phase writes (common.cuh
+// YStrips, depth strip_rows, the y pads' depth), or null.  Returns
+// cudaErrorInvalidValue for arguments it does not take (another sd, T
+// outside 1..8, a tile, cluster or thread split out of range, strips
+// shallower than 1 row or covering the arrays' y, more shared memory than
+// a block of the device may hold), cudaErrorInvalidConfiguration for a
+// cluster the device cannot place, else cudaGetLastError() after the
+// launch.
 extern "C" int bflbm_blocked_step(int device, const float* fin,
                                   const float* gin, const float* ref,
                                   float* fout, float* gout, const int* geom,
                                   const int* words, int T, int step0,
-                                  const int* tile, int threads, float eps,
-                                  float half_lam_f, float half_lam_g,
-                                  float lam_f, float lam_g, int noise_on,
-                                  int dist, const float* coef, float force_k,
-                                  float a1, float s_f, float s_g, int use_sc,
-                                  float n0, int sd, const float* strips_in,
-                                  float* strips_out, int strip_rows,
-                                  void* stream) {
+                                  const int* tile, const int* threads,
+                                  float eps, float half_lam_f,
+                                  float half_lam_g, float lam_f, float lam_g,
+                                  int noise_on, int dist, const float* coef,
+                                  float force_k, float a1, float s_f,
+                                  float s_g, int use_sc, float n0, int sd,
+                                  const float* strips_in, float* strips_out,
+                                  int strip_rows, void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   const int X = geom[0], Y = geom[1], Z = geom[2];
   const Region r = region_of(geom);
   if (sd != SD || T < 1 || T > KMAX || tile[0] < 1 || tile[1] < 1 ||
-      tile[2] < 1 || threads < 32 || threads > MAX_THREADS ||
-      threads % 32 != 0 || X < 1 || Y < 1 || Z < 1 || r.nx < 1 ||
-      r.ny < 1 || r.nz < 1 || geom[12] < 1 || geom[13] < 1 ||
+      tile[2] < 1 || tile[3] < 1 || tile[4] < 1 ||
+      tile[3] * tile[4] > MAX_CLUSTER || (tile[3] > 1 && tile[1] < SD) ||
+      (tile[4] > 1 && tile[2] < SD) || X < 1 || Y < 1 || Z < 1 ||
+      r.nx < 1 || r.ny < 1 || r.nz < 1 || geom[12] < 1 || geom[13] < 1 ||
       geom[14] < 1 || device < 0 || device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
+  int nthreads = 0;
+  for (int s = 0; s < T; ++s) {
+    if (threads[s] < 32 || threads[s] % 32 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    nthreads += threads[s];
+  }
+  if (nthreads > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
   const bool strips = strips_in != nullptr || strips_out != nullptr;
   if (strips && (strip_rows < 1 || 2 * strip_rows >= Y))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -778,6 +1092,10 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
   b.bx = tile[0];
   b.by = tile[1];
   b.bz = tile[2];
+  b.cy = tile[3];
+  b.cz = tile[4];
+  b.first[0] = 0;
+  for (int s = 0; s < T; ++s) b.first[s + 1] = b.first[s] + threads[s];
   b.a.r = r;
   b.a.GY = static_cast<uint32_t>(geom[12]);
   b.a.GZ = static_cast<uint32_t>(geom[13]);
@@ -786,8 +1104,10 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
   b.gz0 = geom[11];
   b.GX = geom[14];
   b.a.ys = ystrips_of(strips_in, strips_out, strip_rows, Y);
-  const dim3 grid((r.nx + b.bx - 1) / b.bx, (r.ny + b.by - 1) / b.by,
-                  (r.nz + b.bz - 1) / b.bz);
+  // whole clusters over the region
+  const int cty = b.by * b.cy, ctz = b.bz * b.cz;
+  const dim3 grid((r.nx + b.bx - 1) / b.bx, (r.ny + cty - 1) / cty * b.cy,
+                  (r.nz + ctz - 1) / ctz * b.cz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr bool kGeneral = BFLBM_GENERAL_RELAX != 0;
   // the hash keys of a whole-domain launch are the array's own
@@ -796,14 +1116,14 @@ extern "C" int bflbm_blocked_step(int device, const float* fin,
                    geom[13] != Z || strips;
   if (strips)
     return launch_mode<kGeneral, true, true>(noise_on, dist, device, grid,
-                                             threads,
+                                             nthreads,
                                              static_cast<size_t>(smem), s, b);
   if (ext)
     return launch_mode<kGeneral, true, false>(noise_on, dist, device, grid,
-                                              threads,
+                                              nthreads,
                                               static_cast<size_t>(smem), s, b);
   return launch_mode<kGeneral, false, false>(noise_on, dist, device, grid,
-                                             threads,
+                                             nthreads,
                                              static_cast<size_t>(smem), s, b);
 }
 

@@ -779,25 +779,38 @@ def fused_stream_collide(f: torch.Tensor, g: torch.Tensor, word: int,
 # what caps T.
 SMEM_PER_BLOCK = 232448
 _BLOCKED_MAX_THREADS = 384
-# The (y, z) cross-section of a blocked tile per (stencil depth, T), the
-# tile marching along all of x.  Uncoupled (sd = 1), the largest whose
-# shared memory fits: 8 x 32 at T = 2 (155,040 bytes), 8 x 16 at T = 3
-# (191,520), 8 x 8 at T = 4 (200,640); T >= 5 needs 317,376 on 8 x 8.
-# With a force (each intermediate phase keeping sd + 2 population planes,
-# every phase 3 psi planes, 4 and 3 laplacian planes under alpha1), the
-# fastest of the tiles that fit at 256^3 on an H100 (tools/k4_tiles.py,
-# PERF.md section 6): coupled (sd = 2) 8 x 16 at T = 2 (157,632), 4 x 8 at
-# T = 3 (185,952), T = 4 needs 297,856 on 4 x 4; alpha1 (sd = 3) 4 x 16 at
-# T = 2 (193,472), T = 3 needs 303,776 on 4 x 4.
-_BLOCKED_SECTIONS = {(1, 2): (8, 32), (1, 3): (8, 16), (1, 4): (8, 8),
+# Blocks a thread-block cluster may hold (the portable limit).
+MAX_CLUSTER = 8
+# The (y, z) sub-tile of a block of a blocked launch per (stencil depth,
+# T), the tile marching along all of x, and the cluster of blocks along
+# (y, z) that shares its phases' planes (csrc/blocked_step.cu): the fastest
+# measured pair at 256^3 on an H100 (tools/k4_tiles.py, PERF.md section 6)
+# among those whose shared memory fits a block (each intermediate phase
+# keeping sd + 3 population planes, with a force every phase 3 psi planes,
+# 4 and 3 laplacian planes under alpha1).  Uncoupled T = 5 needs 423,424
+# bytes on 8 x 8, coupled T = 4 (sd T = 8, which JAX takes) 368,624 on
+# 4 x 4 and alpha1 T = 3 (sd T = 9, which JAX refuses) 358,080: all three
+# are refused (check_block).
+# Measured (NVIDIA H100 80GB HBM3, 700 W; ms a step, u8 uncoupled, clt4
+# with a force): uncoupled T = 2 4 x 32 2.1885, T = 3 4 x 16 2.8453, T = 4
+# 4 x 8 4.6619, every cluster of more than one block slower; coupled T = 2
+# 8 x 16 on 1 x 2 clusters 5.3631 (5.2799 in a second run) against 1 x 1
+# 5.3351 (5.3368), and faster on 1 x 2 with the noise off (3.9236 against
+# 4.0234) and under general tau (5.4625 against 5.5512, the mode that
+# AUTO_BLOCK runs at T = 2); T = 3 4 x 8 on 2 x 1 14.4940 against 15.3384;
+# alpha1 T = 2 4 x 16 on 1 x 2 10.5248 against 10.9087; 2 x 2 and 4-block
+# clusters slower everywhere.
+_BLOCKED_SECTIONS = {(1, 2): (4, 32), (1, 3): (4, 16), (1, 4): (4, 8),
                      (2, 2): (8, 16), (2, 3): (4, 8), (3, 2): (4, 16)}
+_BLOCKED_CLUSTERS = {(1, 2): (1, 1), (1, 3): (1, 1), (1, 4): (1, 1),
+                     (2, 2): (1, 2), (2, 3): (2, 1), (3, 2): (1, 2)}
 
 
 def blocked_tile(T: int, shape, sd: int = 1) -> Tuple[int, int, int]:
-    """The output tile of a T-step sweep at stencil depth sd
+    """The output tile of a block of a T-step sweep at stencil depth sd
     (:func:`sd_depth`) over arrays (.., X, Y, Z): all X planes, and the
-    (y, z) cross-section of ``_BLOCKED_SECTIONS`` (8 x 32 at T = 1; past
-    the table the smallest tile considered, 8 x 8 uncoupled, 4 x 4 with a
+    (y, z) sub-tile of ``_BLOCKED_SECTIONS`` (8 x 32 at T = 1; past the
+    table the smallest tile considered, 8 x 8 uncoupled, 4 x 4 with a
     force)."""
     T, sd = int(T), int(sd)
     default = (8, 32) if T == 1 else ((8, 8) if sd == 1 else (4, 4))
@@ -805,23 +818,47 @@ def blocked_tile(T: int, shape, sd: int = 1) -> Tuple[int, int, int]:
     return (int(tuple(shape)[-3]), by, bz)
 
 
+def blocked_cluster(T: int, sd: int = 1) -> Tuple[int, int]:
+    """The thread-block cluster (blocks along y, z) of a T-step sweep at
+    stencil depth sd: ``_BLOCKED_CLUSTERS``' entry, 1 x 1 past it."""
+    return tuple(_BLOCKED_CLUSTERS.get((int(sd), int(T)), (1, 1)))
+
+
 # x planes a tile of a band across y or z marches (JAX's pick_band)
 BAND_PLANES = 16
 
 
 def launch_tile(T: int, region, sd: int = 1) -> Tuple[int, int, int]:
-    """The tile of a T-step launch on a region of (nx, ny, nz) cells:
-    :func:`blocked_tile`'s, its (y, z) section no wider than the region,
-    so that a thin seam band of the overlap split (sd T cells across) is
-    one tile across; a region thinner than the section in y or z (a seam
-    band across y or z) marches x in chunks of :data:`BAND_PLANES`
-    planes, so that its launch still has a tile for most SMs (JAX's
-    ``pick_band``, ``bflbm_tpu/parallel/kernel.py:505-516``: x tiles of 16
-    for its y bands, the interior's tiles for its x bands)."""
+    """The tile of a block of a T-step launch on a region of (nx, ny, nz)
+    cells: :func:`blocked_tile`'s, its (y, z) section no wider than the
+    region, so that a thin seam band of the overlap split (sd T cells
+    across) is one tile across; a region thinner than the section in y or
+    z (a seam band across y or z) marches x in chunks of
+    :data:`BAND_PLANES` planes, so that its launch still has a tile for
+    most SMs (JAX's ``pick_band``, ``bflbm_tpu/parallel/kernel.py:505-516``:
+    x tiles of 16 for its y bands, the interior's tiles for its x
+    bands)."""
     nx, ny, nz = (int(n) for n in tuple(region)[-3:])
     _, by, bz = blocked_tile(T, (nx, ny, nz), sd)
     bx = nx if (ny >= by and nz >= bz) else min(nx, BAND_PLANES)
     return (bx, min(by, ny), min(bz, nz))
+
+
+def launch_cluster(T: int, region, sd: int = 1) -> Tuple[int, int]:
+    """The cluster of a T-step launch on a region of (nx, ny, nz) cells:
+    :func:`blocked_cluster`'s where the region holds at least one cluster
+    tile (:func:`blocked_tile`'s sub-tiles times the cluster) in y and z,
+    else 1 x 1: a seam band thinner than a sub-tile across y or z (whose
+    :func:`launch_tile` marches x in chunks), a region thinner than a
+    cluster tile across an axis the cluster spans.  The launch covers the
+    region with whole clusters, the last ones past its end where the tile
+    does not divide it."""
+    nx, ny, nz = (int(n) for n in tuple(region)[-3:])
+    _, by, bz = blocked_tile(T, (nx, ny, nz), sd)
+    cy, cz = blocked_cluster(T, sd)
+    if ny < cy * by or nz < cz * bz:
+        return (1, 1)
+    return (cy, cz)
 
 
 def _phase_regions(T: int, tile, sd: int):
@@ -833,37 +870,60 @@ def _phase_regions(T: int, tile, sd: int):
 
 
 def blocked_smem_bytes(T: int, tile, sd: int = 1) -> int:
-    """Dynamic shared memory of a T-step launch at stencil depth sd on
-    `tile` (as ``csrc/blocked_step.cu`` bflbm_blocked_smem), float32 planes
-    of each phase's region: sd + 2 planes of 2 x 19 populations a cell of
-    each intermediate phase; with a force, 3 planes of the two psi fields
-    (4 under alpha1) on every phase's region grown by sd - 1, and under
-    alpha1 3 planes of their laplacian grown by 1."""
+    """Dynamic shared memory of a block of a T-step launch at stencil depth
+    sd on sub-tiles `tile` (as ``csrc/blocked_step.cu`` bflbm_blocked_smem,
+    the same in every block of any cluster): 8 bytes for each of the full
+    and empty mbarriers of the sd + 3 slots of every intermediate phase,
+    rounded up to 16, then float32 planes of each phase's region: sd + 3
+    planes of 2 x 19 populations a cell of each intermediate phase; with a
+    force, 3 planes of the two psi fields (4 under alpha1) on every
+    phase's region grown by sd - 1, and under alpha1 3 planes of their
+    laplacian grown by 1."""
+    T = int(T)
     psi_ring = 4 if sd == 3 else 3
     floats = 0
     for s, (ny, nz) in enumerate(_phase_regions(T, tile, sd)):
         if s < T - 1:
-            floats += (sd + 2) * 2 * Q * ny * nz
+            floats += (sd + 3) * 2 * Q * ny * nz
         if sd >= 2:
             floats += psi_ring * 2 * (ny + 2 * (sd - 1)) * (nz + 2 * (sd - 1))
         if sd == 3:
             floats += 3 * 2 * (ny + 2) * (nz + 2)
-    return 4 * floats
+    barriers = -(-2 * (T - 1) * (sd + 3) * 8 // 16) * 16
+    return barriers + 4 * floats
 
 
-def blocked_threads(T: int, tile, sd: int = 1) -> int:
-    """Threads of a blocked launch: the cells of phase 0's widest stage (its
-    psi region, grown by sd - 1, with a force), rounded up to a warp, at
-    most 384 (the threads loop over more)."""
-    ny, nz = _phase_regions(T, tile, sd)[0]
-    cells = (ny + 2 * (sd - 1)) * (nz + 2 * (sd - 1))
-    return min(_BLOCKED_MAX_THREADS, -(-cells // 32) * 32)
+def blocked_threads(T: int, tile, sd: int = 1,
+                    cluster=(1, 1)) -> Tuple[int, ...]:
+    """The warp groups of a blocked launch, phase by phase: 384 threads
+    (12 warps) at most, each phase at least one warp, the others given one
+    at a time to the phase with the most cells a warp, until every phase
+    has a thread a cell.  A phase's cells are those of its part in the
+    cluster's corner block (its sub-tile grown by sd (T - 1 - s) on the
+    cluster's outer sides, every side in a 1 x 1 cluster), the largest
+    part of any block."""
+    T = int(T)
+    _, by, bz = tile
+    cy, cz = cluster
+    cells = []
+    for s in range(T):
+        p = sd * (T - 1 - s)
+        cells.append((by + p * (1 if cy > 1 else 2))
+                     * (bz + p * (1 if cz > 1 else 2)))
+    warps = [1] * T
+    for _ in range(_BLOCKED_MAX_THREADS // 32 - T):
+        s = max(range(T), key=lambda r: cells[r] / warps[r])
+        if 32 * warps[s] >= cells[s]:
+            break
+        warps[s] += 1
+    return tuple(32 * w for w in warps)
 
 
 def check_block(params: LBMParams, T) -> None:
-    """Raise ValueError for a block T the port does not run: below 1, or
-    more shared memory on its tile (:func:`blocked_tile` at the
-    configuration's stencil depth) than a thread block holds."""
+    """Raise ValueError for a block T the port does not run: below 1, past
+    the kernel's 8 steps, or more shared memory on its tile
+    (:func:`blocked_tile` at the configuration's stencil depth) than a
+    thread block holds."""
     if isinstance(T, bool) or not isinstance(T, (int, np.integer)) or T < 1:
         raise ValueError(f"block must be an integer >= 1, got {T!r}")
     T, sd = int(T), sd_depth(params)
@@ -874,6 +934,9 @@ def check_block(params: LBMParams, T) -> None:
             f"block = {T} at stencil depth {sd} on tiles of {tile[1]} x "
             f"{tile[2]} cells (y, z) needs {need} bytes of shared memory; a "
             f"thread block holds at most {SMEM_PER_BLOCK}")
+    if T > 8:
+        raise ValueError(f"block = {T}: the blocked kernel takes at most 8 "
+                         "steps a launch")
 
 
 def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
@@ -975,6 +1038,8 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     rows = next((int(t.shape[-2]) for t in (strips, strips_out)
                  if t is not None), 0)
     tile = launch_tile(T, region, sd)
+    cluster = launch_cluster(T, region, sd)
+    threads = blocked_threads(T, tile, sd, cluster)
     from . import _build
 
     lib = _build.load("blocked_step" + ("_general" if general_relax(params)
@@ -988,8 +1053,8 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
         None if ref is None else ref.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), geom,
         (ctypes.c_int * T)(*[_as_i32(w) for w in words]), T,
-        _as_i32(step0), (ctypes.c_int * 3)(*tile),
-        blocked_threads(T, tile, sd), params.div_eps, 0.5 * params.lam_f,
+        _as_i32(step0), (ctypes.c_int * 5)(*tile, *cluster),
+        (ctypes.c_int * T)(*threads), params.div_eps, 0.5 * params.lam_f,
         0.5 * params.lam_g, params.lam_f, params.lam_g,
         int(params.noise_on), NOISE_DISTS[noise_dist][0], coef,
         -CS2 * params.alpha0, CS2 * params.alpha1,
@@ -1002,6 +1067,7 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
     _raise_on(rc, lib, "blocked_step")
     blocked_launches += 1
     for tag in (["blocked"] + (["blocked ext"] if ext is not None else [])
+                + (["blocked cluster"] if cluster != (1, 1) else [])
                 + (["blocked window"] if window is not None else [])
                 + (["blocked ystrips"] if strips is not None else [])):
         mode_launches[tag] = mode_launches.get(tag, 0) + 1
@@ -1010,17 +1076,19 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
 
 # The block the sessions take when none is given: the T of the fastest
 # step per mode and stencil depth, measured at 256^3 on an H100
-# (``chip_smoke.py`` phases 11 and 12, PERF.md section 6).  Uncoupled
-# (phase 11): K4 at T = 2 beat the one-step kernel with the noise off (its
-# step has the least arithmetic) and under general tau (the one-step kernel
-# is register-bound there); with noise the one-step kernel was faster at
-# every T, and T = 3 and 4 lost in every mode.  Coupled ("coupled ...",
-# phase 12): K4 at T = 2 was 2% faster than the pair A + B under general
-# tau (6.8169 against 6.9692 ms a step) and 1.4-1.8x slower in every other
-# mode, T = 3 3.2-6.0x slower everywhere; alpha1 ("alpha1 ..."): T = 2 was
-# 1.9-3.0x slower than A + L + B-A1 in every mode.
+# (``tools/k4_tiles.py`` and ``chip_smoke.py`` phases 11 and 12, PERF.md
+# section 6, with the tiles and clusters above).  Uncoupled: K4 at T = 2
+# beats the one-step kernel only under general tau (2.6396 against 3.3868
+# ms a step), where the one-step kernel is register-bound; with the noise
+# off the one-step kernel is now faster (1.8596 against 2.0483 at best:
+# the phases' hand-off costs more than the serial phases of the earlier
+# design did), and with noise at every T.  Coupled ("coupled ..."): T = 2
+# wins under general tau (5.4625 against A + B's 7.0186) and loses in
+# every other mode (clt4 5.3351 against 3.8114), T = 3 everywhere; alpha1
+# ("alpha1 ..."): T = 2 loses in every mode (clt4 10.5248 against the
+# triple's 5.2083).
 _AUTO_MODES = ("off", "u8", "clt4", "clt2", "bm", "ref", "general")
-AUTO_BLOCK = {"off": 2, "u8": 1, "clt4": 1, "clt2": 1, "bm": 1, "ref": 1,
+AUTO_BLOCK = {"off": 1, "u8": 1, "clt4": 1, "clt2": 1, "bm": 1, "ref": 1,
               "general": 2}
 AUTO_BLOCK.update({f"{depth} {mode}": 1 for depth in ("coupled", "alpha1")
                    for mode in _AUTO_MODES})

@@ -62,9 +62,9 @@ def describe(rec: dict) -> str:
         parts.append(f"{rec['ns_per_cell']:.4f} ns/cell")
     if rec.get("mlups") is not None:
         parts.append(f"{rec['mlups']:.1f} MLUPS")
-    if rec.get("ms_by_chunk"):
-        parts.append("by chunk " + ", ".join(
-            f"{n}: {_fmt(ms)}" for n, ms in rec["ms_by_chunk"].items()))
+    if rec.get("ms_by_config"):
+        parts.append("by chunk x stages " + ", ".join(
+            f"{n}: {_fmt(ms)}" for n, ms in rec["ms_by_config"].items()))
     if rec["probe"] == "launch":
         parts.append(f"eager {_fmt(rec['eager_ms'])}, library graph "
                      f"{_fmt(rec['library_ms'])} eager "

@@ -4,9 +4,11 @@
   library's elementwise rate (the JAX probe's XLA ``x + 1``); no kernel of
   the port.
 - ``dma``: :func:`chunk_copy`, the array through shared memory in chunks of
-  19 x n cells (``csrc/probe_copy.cu``, bulk (TMA) and staged), the
-  counterpart of ``_pallas_roundtrip`` (``tpu_probe.py:53-92``), against
-  its plain version ``f.clone()`` bitwise.
+  19 x n cells, a persistent grid whose blocks keep S chunks a ring
+  (``csrc/probe_copy.cu``, bulk (TMA) and staged), the counterpart of
+  ``_pallas_roundtrip`` (``tpu_probe.py:53-92``), against its plain
+  version ``f.clone()`` bitwise, at every (chunk, stages) of
+  :func:`copy_configs`.
 - ``transform``: :func:`moment_transform`, M_INV (M f) per cell
   (``csrc/probe_transform.cu``, unrolled FMAs and tensor cores in
   3xTF32), the counterpart of ``probe_transform.make`` (:95-176), within
@@ -32,7 +34,8 @@ from ..lattice import M, M_INV
 from . import _lib
 
 Q = 19
-CHUNKS = (512, 1024, 2048)     # cells a chunk: 38.9, 77.8, 155.6 KB
+CHUNKS = (256, 512, 1024, 2048)   # cells a chunk: 19.5-155.6 KB a stage
+STAGES = (1, 2, 4, 8)             # chunks a block keeps in its ring
 COPY_VARIANTS = ("bulk", "staged")
 TRANSFORM_VARIANTS = ("unrolled", "mma")
 MAX_SMEM = 232448              # dynamic shared memory a block may hold
@@ -93,14 +96,25 @@ def copy_reference(f: torch.Tensor) -> torch.Tensor:
     return f.clone()
 
 
-def chunk_copy(f: torch.Tensor, chunk: int = CHUNKS[0],
+def copy_configs() -> List[Tuple[int, int]]:
+    """The (chunk, stages) pairs the dma probe runs: every pair of
+    :data:`CHUNKS` and :data:`STAGES` whose ring fits a block's shared
+    memory."""
+    return [(n, s) for n in CHUNKS for s in STAGES
+            if s * Q * n * 4 <= MAX_SMEM]
+
+
+def chunk_copy(f: torch.Tensor, chunk: int = CHUNKS[1],
                variant: str = "bulk",
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None, *,
+               stages: int = 1) -> torch.Tensor:
     """f, a (19, X, Y, Z) float32 tensor, copied into `out` (allocated when
-    None) through shared memory, one block a chunk of 19 x `chunk` cells:
-    variant "bulk" by the Tensor Memory Accelerator, "staged" by threads
-    (``csrc/probe_copy.cu``).  The cell count and `chunk` must be
-    multiples of 4 (16-byte rows).
+    None) through shared memory in chunks of 19 x `chunk` cells by a
+    persistent grid whose blocks each keep a ring of `stages` chunks
+    (1-8): variant "bulk" by the Tensor Memory Accelerator, "staged" by
+    threads with cp.async (``csrc/probe_copy.cu``).  The cell count and
+    `chunk` must be multiples of 4 (16-byte rows), and the ring (stages x
+    19 x chunk x 4 bytes) must fit a block's shared memory.
 
     CPU tensors run :func:`copy_reference`.  CUDA tensors launch the
     kernel or raise."""
@@ -112,9 +126,14 @@ def chunk_copy(f: torch.Tensor, chunk: int = CHUNKS[0],
     if chunk <= 0 or chunk % 4 or cells % 4:
         raise ValueError(f"the chunk ({chunk}) and the cell count ({cells}) "
                          "must be positive multiples of 4")
-    if Q * chunk * 4 > MAX_SMEM:
-        raise ValueError(f"a chunk of {chunk} cells needs {Q * chunk * 4} B "
-                         f"of shared memory, past {MAX_SMEM}")
+    if (isinstance(stages, bool) or not isinstance(stages, int)
+            or not 1 <= stages <= max(STAGES)):
+        raise ValueError(f"stages must be an integer in 1..{max(STAGES)}, "
+                         f"got {stages!r}")
+    if stages * Q * chunk * 4 > MAX_SMEM:
+        raise ValueError(f"{stages} stages of {chunk} cells need "
+                         f"{stages * Q * chunk * 4} B of shared memory, past "
+                         f"{MAX_SMEM}")
     out = _output(out, f)
     if f.device.type == "cpu":
         return out.copy_(copy_reference(f))
@@ -123,7 +142,8 @@ def chunk_copy(f: torch.Tensor, chunk: int = CHUNKS[0],
     lib = _build.load("probe_copy", f.device)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.bflbm_probe_copy(f.device.index, f.data_ptr(), out.data_ptr(),
-                              cells, chunk, int(variant == "bulk"), stream)
+                              cells, chunk, stages, int(variant == "bulk"),
+                              stream)
     _raise_on(rc, lib, f"probe_copy ({variant})")
     _count(f"copy {variant}")
     return out
@@ -196,8 +216,9 @@ def probe_copy(device: torch.device, shape) -> List[dict]:
 
 
 def probe_dma(device: torch.device, shape) -> List[dict]:
-    """Each copy variant at each chunk size against ``f.clone()``,
-    bitwise; the record's ms is its fastest chunk's."""
+    """Each copy variant at each (chunk, stages) of :func:`copy_configs`
+    against ``f.clone()``, bitwise; the record's ms is its fastest
+    pair's."""
     f = _populations(shape, device, SEED)
     want = copy_reference(f)
     out = torch.empty_like(f)
@@ -205,20 +226,23 @@ def probe_dma(device: torch.device, shape) -> List[dict]:
     library_ms = _lib.timed(device, lambda: out.copy_(f))
     records = []
     for variant in COPY_VARIANTS:
-        by_chunk, ok, err = {}, True, 0.0
-        for n in CHUNKS:
+        by_config, ok, err = {}, True, 0.0
+        for n, s in copy_configs():
             out.fill_(float("nan"))
-            chunk_copy(f, n, variant, out=out)
+            chunk_copy(f, n, variant, out=out, stages=s)
             ok = ok and torch.equal(out, want)
             err = max(err, _lib.max_abs_err(out, want))
-            by_chunk[n] = _lib.timed(
-                device, lambda n=n: chunk_copy(f, n, variant, out=out))
-        ms = None if device.type != "cuda" else min(by_chunk.values())
+            by_config[f"{n}x{s}"] = _lib.timed(
+                device, lambda n=n, s=s: chunk_copy(f, n, variant, out=out,
+                                                    stages=s))
+        best = (None if device.type != "cuda"
+                else min(by_config, key=by_config.get))
         records.append(dict(
             probe="dma", name=f"copy {variant}", key=f"copy {variant}",
-            cells=f[0].numel(), bytes=BYTES_PER_CELL * f[0].numel(), ms=ms,
-            ms_by_chunk=by_chunk, plain_ms=plain_ms, library_ms=library_ms,
-            max_abs_err=err, bitwise=ok, ok=ok))
+            cells=f[0].numel(), bytes=BYTES_PER_CELL * f[0].numel(),
+            ms=None if best is None else by_config[best], best=best,
+            ms_by_config=by_config, plain_ms=plain_ms,
+            library_ms=library_ms, max_abs_err=err, bitwise=ok, ok=ok))
     return records
 
 

@@ -46,9 +46,10 @@ Phases (each raises on failure; the script then exits non-zero):
    ``run.main`` (400 steps; checkpoint, equilibrium artifact, convergence
    report, frames, droplet records, 399 launches of each kernel); (2) the
    fluctuating continuation through ``run.run`` with USE_REF_STATE and
-   clt4 (1100 steps; launches, the ref-roll counter, the masses after the
-   restore at step 1000, the droplet's drift and radius, the driver's
-   MLUPS and its time split); (3) short continuations through ``main``
+   clt4 (1100 steps, a droplet record every 200; launches, the ref-roll
+   counter, the masses after the restore at step 1000, the droplet's
+   drift and radius, the driver's MLUPS and its time split); (3) short
+   continuations through ``main``
    with ``--tau-f/--tau-g --noise-dist clt2`` and with ``--noise-dist
    bm``; (4) S(k) through the driver on a 64^3 mixture (the density
    structure factor over kBT / cs^2 within 5% of 1).  The 256^3 frames
@@ -122,8 +123,10 @@ Phases (each raises on failure; the script then exits non-zero):
    A + B (A + L + B-A1) launches, max |delta| <= 2e-5, bitwise printed,
    and no pre-pass launched; (b) at 256^3 the K4 launch timed in every
    mode beside the one-step pair (triple) with the bound a step and the
-   fastest T beside ``fused_step.AUTO_BLOCK``; (c) phase 5's droplet
-   session at the auto block, T = 2 and 3 (launches, masses, COM drift,
+   fastest T beside ``fused_step.AUTO_BLOCK``, and each T's sub-tile,
+   cluster, warp groups, shared memory a block and registers; (c) phase
+   5's droplet session at the auto block, T = 2 and 3 (launches, those on
+   clusters of more than one block, all of them at T = 2, masses, COM drift,
    volume ratio, MLUPS, step 901 against phase 5's) and phase 8's alpha1
    session at T = 2; (d) the droplet campaign at 64^3 through ``run.main
    --block 2`` and ``run(cfg, block=2)`` with USE_REF_STATE; and the
@@ -168,8 +171,9 @@ Phases (each raises on failure; the script then exits non-zero):
 15. the platform probes (``bflbm_tpu_torch.probes``, the counterparts of
    the TPU probes under ``benchmarks/``) at 256^3 through their entry
    point ``probes.run`` (``python -m bflbm_tpu_torch.probes``): the
-   library copy; the bulk (TMA) and staged copies through shared memory
-   at chunks of 512, 1024 and 2048 cells (bitwise ``f.clone()``); the
+   library copy; the bulk (TMA) and staged copies through shared memory,
+   a persistent ring at every (chunk, stages) of ``platform.copy_configs``
+   (bitwise ``f.clone()``, each timed); the
    19 x 19 transform and its inverse unrolled and on the tensor cores in
    3xTF32 (within 2e-5 of the plain einsum; two ``torch.matmul`` timed);
    the mixture session (kBT 0 at block 2, 1e-5 at block 1); the twelve
@@ -695,7 +699,7 @@ def _driver_fluct(tmp, eq, ckpt, cells):
         shape=SHAPE, checkpoint_path=ckpt, step_continue=400, nsteps=1100,
         use_ref_state=True, ref_state_path=os.path.join(eq,
                                                         "equilibrium.npz"),
-        plot_int=0, print_int=100, droplet_int=100,
+        plot_int=0, print_int=100, droplet_int=200,
         out_dir=os.path.join(tmp, "fluct"))
     fused_step.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1956,10 +1960,36 @@ def _k4_ref(shape, dev, seed):
     return (1.0 + 0.1 * torch.rand((2,) + tuple(shape), generator=gen)).to(dev)
 
 
+def _k4_layout(params, dist, with_ref, T):
+    """A K4 launch's layout at 256^3 in a mode: its sub-tile, cluster,
+    warp groups, shared memory a block and the registers of its
+    instantiation (``-Xptxas -v``)."""
+    from bflbm_tpu_torch.kernels import _build, fused_step
+
+    sd = fused_step.sd_depth(params)
+    tile = fused_step.launch_tile(T, SHAPE, sd)
+    cl = fused_step.launch_cluster(T, SHAPE, sd)
+    lib = ("blocked_step" + ("_general" if fused_step.general_relax(params)
+                             else "") + ("_force" if sd >= 2 else "")
+           + ("_a1" if sd == 3 else ""))
+    noise = params.noise_on
+    args = (f"<{int(noise)},{fused_step.NOISE_DISTS[dist][0] if noise else 0}"
+            f",{int(fused_step.general_relax(params))},"
+            f"{int(bool(with_ref) and noise)},0,0>")
+    regs = next((ln.split(": ", 1)[1].split(",")[0]
+                 for ln in _build.ptxas_summary()
+                 if ln.startswith(f"{lib} blocked_kernel{args}")), "?")
+    return (f"tile {tile[1]}x{tile[2]}, cluster {cl[0]}x{cl[1]}, threads "
+            f"{'+'.join(map(str, fused_step.blocked_threads(T, tile, sd, cl)))}"
+            f", {fused_step.blocked_smem_bytes(T, tile, sd)} B shared a "
+            f"block, {regs}")
+
+
 def _k4_vs_plain(f, g, params, dist, ref, T, tag, errs, plain_tile=None,
                  phase=11):
     """One K4 launch of T steps against its plain version (the plain sweep
-    on the kernel's tiles, or on `plain_tile`) and against T one-step
+    on one whole-domain tile, or on `plain_tile`: any tiling gives the
+    same cells bitwise, tests/test_torch_blocked.py) and against T one-step
     launches (K, or A + K, or A + L + K) with the same words; the K4
     launch must launch no pre-pass.  Appends the larger error to errs[T]
     and returns (bitwise to plain, bitwise to the one-step launches,
@@ -1984,9 +2014,7 @@ def _k4_vs_plain(f, g, params, dist, ref, T, tag, errs, plain_tile=None,
     t0 = time.perf_counter()
     fr, gr = blocked.blocked_sweep_reference(
         f, g, words, 77, params, T,
-        plain_tile or fused_step.blocked_tile(T, f.shape,
-                                              fused_step.sd_depth(params)),
-        dist, ref)
+        plain_tile or tuple(f.shape[1:]), dist, ref)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     e_plain = max(_maxdiff(fo, fr), _maxdiff(go, gr))
@@ -2080,7 +2108,9 @@ def _k4_times(f, g, cells):
         print(f"[phase 11] 256^3 {tag}: ms a launch / a step: " + ", ".join(
             f"T={t} {v:.4f} / {v / t:.4f}" for t, v in row.items())
             + f"; fastest step at T = {best} (AUTO_BLOCK "
-            f"{fused_step.AUTO_BLOCK[tag]})", flush=True)
+            f"{fused_step.AUTO_BLOCK[tag]}); " + "; ".join(
+                f"T={t}: {_k4_layout(p, dist, with_ref, t)}"
+                for t in K4_BLOCKS), flush=True)
     return table
 
 
@@ -2285,7 +2315,9 @@ def _k4f_256(dev, errs, cells):
                               for t, v in row.items())
                   + f" (T = 1: the one-step {steps}); bound a step "
                   f"{bounds}; fastest step at T = {best} "
-                  f"(AUTO_BLOCK {fused_step.AUTO_BLOCK[key]})", flush=True)
+                  f"(AUTO_BLOCK {fused_step.AUTO_BLOCK[key]}); " + "; ".join(
+                      f"T={t}: {_k4_layout(p, dist, with_ref, t)}"
+                      for t in blocks), flush=True)
         del f, g, out, psi, lap, ref
         torch.cuda.empty_cache()
     return plain_ms, table
@@ -2374,12 +2406,19 @@ def _k4f_sessions(dev, cells, phase5_901, phase5_mlups):
         view, counts, t_adv, _ = _run_session(sess, state, tag, keep)
         del state
         nb, nl = fused_step.blocked_launches, fused_step.laplacian_launches
+        ncl = fused_step.mode_launches.get("blocked cluster", 0)
         singles = NCHUNKS * (CHUNK % T if T > 1 else CHUNK)
         want_b = NCHUNKS * (CHUNK // T) if T > 1 else 0
+        sd = fused_step.sd_depth(cfg.params)
+        clustered = T > 1 and fused_step.launch_cluster(T, SHAPE, sd) != (
+            1, 1)
         _check((nb, counts[0], counts[1]) == (want_b, singles, singles)
-               and nl == (singles if depth == "alpha1" else 0),
-               f"{tag}: launches K4 {nb}, K {counts[0]}, A {counts[1]}, "
-               f"L {nl}")
+               and nl == (singles if depth == "alpha1" else 0)
+               and ncl == (nb if clustered else 0),
+               f"{tag}: launches K4 {nb} (on clusters {ncl}), K "
+               f"{counts[0]}, A {counts[1]}, L {nl}")
+        if (depth, T) == ("coupled", 2):
+            _check(ncl > 0, f"{tag}: no cluster launch at coupled T = 2")
         rho = view.f.sum(0)
         drift = float((stats.center_of_mass(rho) - com0).norm())
         r0 = cfg.init_radius * SHAPE[0]
@@ -2396,7 +2435,8 @@ def _k4f_sessions(dev, cells, phase5_901, phase5_mlups):
                    f"{e:.3e} (bitwise {bit}, tol {TOL}); phase 5 "
                    f"{phase5_mlups:.1f} MLUPS")
             _check(e <= TOL, f"{tag}: step 901 differs from phase 5: {e}")
-        print(f"[{tag}] launches K4 {nb}, K {counts[0]}, A {counts[1]}, L "
+        print(f"[{tag}] launches K4 {nb} (on clusters of more than one "
+              f"block {ncl}), K {counts[0]}, A {counts[1]}, L "
               f"{nl} (A and L only in the single steps); droplet COM drift "
               f"{drift:.4e} cells (tol {COM_TOL}); volume ratio {vol:.4f} "
               f"(range {VOL_RANGE}); {mlups:.1f} MLUPS{vs5}", flush=True)
@@ -3333,12 +3373,14 @@ def _probes(dev):
                                                         generator=gen)
     out = torch.empty_like(f)
     for variant in platform.COPY_VARIANTS:
-        for n in platform.CHUNKS:
+        errs[f"copy {variant}"] = 0.0
+        for n, s in platform.copy_configs():
             out.fill_(float("nan"))
-            platform.chunk_copy(f, n, variant, out=out)
+            platform.chunk_copy(f, n, variant, out=out, stages=s)
             _check(torch.equal(out, f),
-                   f"copy {variant} at {n}: not bitwise")
-        errs[f"copy {variant}"] = _maxdiff(out, f)
+                   f"copy {variant} at {n} x {s} stages: not bitwise")
+            errs[f"copy {variant}"] = max(errs[f"copy {variant}"],
+                                          _maxdiff(out, f))
     want = platform.transform_reference(f)
     for variant in platform.TRANSFORM_VARIANTS:
         out.fill_(float("nan"))
@@ -3952,7 +3994,7 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound,
             "bound_by": by, "library_ms": rec["library_ms"]}
         if kind == "copy":
-            row["ms_by_chunk"] = rec["ms_by_chunk"]
+            row["ms_by_chunk_x_stages"] = rec["ms_by_config"]
         if kind == "launch":
             row.update(eager_ms=rec["eager_ms"],
                        library_eager_ms=rec["library_eager_ms"],

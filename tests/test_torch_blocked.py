@@ -153,6 +153,80 @@ def test_plain_sweep_with_force_equals_composition(case, mode):
     assert err <= ATOL
 
 
+K4_ODD = (20, 12, 40)   # a shape no cluster tile divides
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), K4_ODD],
+                         ids=["16^3", "20x12x40"])
+@pytest.mark.parametrize("sd,T", [(2, 2), (2, 3), (3, 2)])
+def test_plain_sweep_on_cluster_tiles_is_composition(sd, T, shape):
+    """The plain sweep on the tiles that the kernel's clusters march (each
+    block's sub-tile times the cluster, ``fused_step.blocked_cluster``) is
+    bitwise T composed plain one-step K calls: a cluster computes every
+    cell of its tile from the same inputs as one block of that tile."""
+    kw = {2: _DROPLET, 3: _ALPHA1}[sd]
+    params = TParams(**kw)
+    assert tfs.sd_depth(params) == sd
+    _, by, bz = tfs.blocked_tile(T, shape, sd)
+    cy, cz = tfs.blocked_cluster(T, sd)
+    f, g = _droplet_state(shape, params, 101)
+    got = blocked.blocked_sweep_reference(f, g, WORDS[:T], 40, params, T,
+                                          (shape[0], cy * by, cz * bz),
+                                          "clt4")
+    want = _composed(f, g, WORDS[:T], 40, params, "clt4")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_cluster_table_fits_a_block():
+    """Every (sd, T) entry: its sub-tile's shared memory fits a block, its
+    warp groups (a warp at least a phase) hold at most 384 threads in
+    multiples of 32, its cluster at most 8 blocks, and a sub-tile spans
+    at least sd cells across an axis that its cluster spans (a pushed
+    cell goes to the next block only)."""
+    assert set(tfs._BLOCKED_CLUSTERS) == set(tfs._BLOCKED_SECTIONS)
+    for (sd, T), (by, bz) in tfs._BLOCKED_SECTIONS.items():
+        cy, cz = tfs.blocked_cluster(T, sd)
+        tile = (8, by, bz)
+        assert tfs.blocked_smem_bytes(T, tile, sd) <= tfs.SMEM_PER_BLOCK
+        assert 1 <= cy * cz <= tfs.MAX_CLUSTER
+        assert (cy == 1 or by >= sd) and (cz == 1 or bz >= sd)
+        for cluster in ((1, 1), (cy, cz)):
+            threads = tfs.blocked_threads(T, tile, sd, cluster)
+            assert len(threads) == T and sum(threads) <= 384
+            assert all(t >= 32 and t % 32 == 0 for t in threads)
+            # the phases' threads shrink with their regions
+            assert list(threads) == sorted(threads, reverse=True)
+    assert tfs.blocked_cluster(7, 1) == (1, 1)
+
+
+@pytest.mark.parametrize("sd,T,tile", [(1, 2, (8, 32)), (1, 4, (4, 8)),
+                                       (2, 2, (8, 16)), (2, 3, (2, 6)),
+                                       (3, 2, (4, 16)), (3, 2, (5, 3))])
+def test_blocked_smem_bytes_is_the_source_formula(sd, T, tile):
+    """blocked_smem_bytes per block is the formula of
+    ``csrc/blocked_step.cu`` bflbm_blocked_smem, written out: 8 bytes for
+    each of 2 (T - 1) (sd + 3) mbarriers rounded up to 16, then 4 bytes a
+    float of every phase's rings on its region (by + 2 p) x (bz + 2 p),
+    p = sd (T - 1 - s): sd + 3 planes of 38 populations but in the last
+    phase, with a force 3 (4 under alpha1) psi planes of 2 fields grown by
+    sd - 1, under alpha1 3 laplacian planes of 2 grown by 1."""
+    by, bz = tile
+    floats = 0
+    for s in range(T):
+        p = sd * (T - 1 - s)
+        ny, nz = by + 2 * p, bz + 2 * p
+        if s < T - 1:
+            floats += (sd + 3) * 38 * ny * nz
+        if sd > 1:
+            floats += (4 if sd == 3 else 3) * 2 * (ny + 2 * sd - 2) * (
+                nz + 2 * sd - 2)
+        if sd == 3:
+            floats += 3 * 2 * (ny + 2) * (nz + 2)
+    bars = 2 * (T - 1) * (sd + 3) * 8
+    assert tfs.blocked_smem_bytes(T, (4,) + tile, sd) \
+        == (bars + 15) // 16 * 16 + 4 * floats
+
+
 @pytest.mark.parametrize("T", [2, 3, 4])
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_plain_sweep_equals_composition(T, mode):
@@ -396,33 +470,37 @@ def test_bad_block_values_refused(T):
 
 
 def test_block_past_shared_memory_refused():
-    """T = 5 on the 8 x 8 cross-section needs 317,376 bytes of shared
+    """T = 5 on the 8 x 8 cross-section needs 423,424 bytes of shared
     memory a block, past the 232,448 a block holds: refused on the CPU
-    too, since the plain version runs the kernel's tiles.  The tiles'
+    too, since the plain version runs the kernel's tiles.  The sub-tiles'
     shared memory at every stencil depth (``csrc/blocked_step.cu``
-    bflbm_blocked_smem)."""
+    bflbm_blocked_smem: the mbarriers, sd + 3 population planes a phase but
+    the last, the psi and laplacian rings), and every entry of the tile
+    table fits a block."""
     p = TParams(kBT=1e-5)
-    with pytest.raises(ValueError, match="317376 bytes"):
+    with pytest.raises(ValueError, match="423424 bytes"):
         FusedSession(p, SHAPE, block=5)
     f, g = _state(SHAPE, 98)
-    with pytest.raises(ValueError, match="317376 bytes"):
+    with pytest.raises(ValueError, match="423424 bytes"):
         tfs.blocked_stream_collide(f, g, [1] * 5, 0, p, 5)
-    assert tfs.blocked_smem_bytes(4, tfs.blocked_tile(4, SHAPE)) == 200640
-    assert tfs.blocked_smem_bytes(2, tfs.blocked_tile(2, SHAPE)) == 155040
-    assert tfs.blocked_smem_bytes(3, tfs.blocked_tile(3, SHAPE)) == 191520
+    assert tfs.blocked_smem_bytes(4, (8, 4, 8)) == 180160
+    assert tfs.blocked_smem_bytes(2, (8, 8, 32)) == 206784
+    assert tfs.blocked_smem_bytes(3, (8, 8, 8)) == 148480
     with pytest.raises(ValueError, match="words"):
         tfs.blocked_stream_collide(f, g, [1, 2, 3], 0, p, 2)
-    for kw, T, tile, need in ((_DROPLET, 2, (8, 16), 157632),
-                              (_DROPLET, 3, (4, 8), 185952),
-                              (_ALPHA1, 2, (4, 16), 193472)):
-        sd = tfs.sd_depth(TParams(**kw))
-        assert tfs.blocked_tile(T, SHAPE, sd)[1:] == tile
+    for sd, T, tile, need in ((2, 2, (8, 16), 194192),
+                              (2, 3, (4, 8), 229888),
+                              (3, 2, (4, 16), 227008)):
         assert tfs.blocked_smem_bytes(T, (8,) + tile, sd) == need
-        tfs.check_block(TParams(**kw), T)
+    for (sd, T), tile in tfs._BLOCKED_SECTIONS.items():
+        assert tfs.blocked_tile(T, SHAPE, sd)[1:] == tile
+        assert tfs.blocked_smem_bytes(T, (8,) + tile, sd) \
+            <= tfs.SMEM_PER_BLOCK
+        tfs.check_block(TParams(**{1: {}, 2: _DROPLET, 3: _ALPHA1}[sd]), T)
 
 
-@pytest.mark.parametrize("kw,T,need", [(_DROPLET, 4, 297856),
-                                       (_ALPHA1, 3, 303776)],
+@pytest.mark.parametrize("kw,T,need", [(_DROPLET, 4, 368624),
+                                       (_ALPHA1, 3, 358080)],
                          ids=["coupled T=4", "alpha1 T=3"])
 def test_force_block_past_shared_memory_refused(kw, T, need):
     """Coupled T = 4 and alpha1 T = 3 fit no tile (4 x 4 the smallest):

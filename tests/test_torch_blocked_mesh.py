@@ -237,14 +237,18 @@ def test_make_session_passes_the_block():
                         block=2)
     assert isinstance(sess, ShardedSession)
     assert (sess.block, sess.pad) == (2, (0, 6, 6))
-    # block None: AUTO_BLOCK's entry for the mode (uncoupled, noise off:
-    # 2), with the split and the strips too
+    # block None: AUTO_BLOCK's entry for the mode (uncoupled: 1 with the
+    # noise off, 2 under general tau), with the split and the strips too
     off = LBMParams(kBT=0.0)
     assert make_session(off, (12, 12, 12), mesh=_cpu_mesh((2, 1, 1))).block \
-        == fused_step.AUTO_BLOCK["off"] == 2
+        == fused_step.AUTO_BLOCK["off"]
+    general = LBMParams(kBT=0.0, tau_f=0.7, tau_g=0.6)
+    assert make_session(general, (12, 12, 12),
+                        mesh=_cpu_mesh((2, 1, 1))).block \
+        == fused_step.AUTO_BLOCK["general"] == 2
     for opts in (dict(overlap=True), dict(y_exchange="strips")):
-        sess = make_session(off, (12, 12, 12), mesh=_cpu_mesh((2, 1, 1)),
-                            **opts)
+        sess = make_session(general, (12, 12, 12),
+                            mesh=_cpu_mesh((2, 1, 1)), **opts)
         assert sess.block == 2 and sess.pad[0] == 2
     assert make_session(params, (12, 12, 12),
                         mesh=_cpu_mesh((2, 1, 1))).block == 1
@@ -301,7 +305,7 @@ def test_refusals():
         assert (sess.block, sess.pad) == (2, (4, 4, 0))
         assert sess.layout.strips == strips and not any(sess.layout.split)
     # T past shared memory
-    with pytest.raises(ValueError, match="297856 bytes"):
+    with pytest.raises(ValueError, match="368624 bytes"):
         ShardedSession(mesh, coupled, (16, 16, 16), block=4)
     # pads shallower than sd T on the launch
     f, g = model.perturbed_populations((12, 12, 12), 1, device="cpu")

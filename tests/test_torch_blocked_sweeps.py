@@ -147,7 +147,25 @@ def test_band_tiles_and_the_plain_sweep_on_them():
     assert fused_step.launch_tile(2, (120, 120, 256), 2) == (120, 8, 16)
     assert fused_step.launch_tile(2, (4, 120, 256), 2) == (4, 8, 16)
     assert fused_step.launch_tile(2, (128, 4, 256), 2) == (16, 4, 16)
-    assert fused_step.launch_tile(2, (128, 128, 4), 1) == (16, 8, 4)
+    assert fused_step.launch_tile(2, (128, 128, 4), 1) == (
+        16, fused_step.blocked_tile(2, (1, 1, 1), 1)[1], 4)
+    # seam bands thinner than a sub-tile across y or z, and regions
+    # thinner than a cluster tile across a clustered axis, run 1 x 1
+    # clusters; an x band and the interior take the table's
+    for sd in (1, 2, 3):
+        cl = fused_step.blocked_cluster(2, sd)
+        _, by, bz = fused_step.blocked_tile(2, (1, 1, 1), sd)
+        assert fused_step.launch_cluster(2, (128, by - 1, 256), sd) == (1, 1)
+        assert fused_step.launch_cluster(2, (128, 256, bz - 1), sd) == (1, 1)
+        # a region one cell short of a cluster tile across a clustered axis
+        if cl[0] > 1:
+            assert fused_step.launch_cluster(
+                2, (128, cl[0] * by - 1, 256), sd) == (1, 1)
+        if cl[1] > 1:
+            assert fused_step.launch_cluster(
+                2, (128, 256, cl[1] * bz - 1), sd) == (1, 1)
+        assert fused_step.launch_cluster(2, (2 * sd, 256, 256), sd) == cl
+        assert fused_step.launch_cluster(2, (120, 120, 256), sd) == cl
     kw, dist, _ = DEPTHS[2]
     params = LBMParams(**kw)
     shape = (40, 20, 8)

@@ -833,9 +833,9 @@ def test_blocked_kernel_refusals(cuda):
     with pytest.raises(ValueError, match="alias"):
         fused_step.blocked_stream_collide(f, g, [1, 2], 0, p, 2, out=(f, g))
     coupled = LBMParams(**_DROP, alpha0=1.5, kBT=1e-5)
-    with pytest.raises(ValueError, match="297856 bytes"):
+    with pytest.raises(ValueError, match="368624 bytes"):
         fused_step.blocked_stream_collide(f, g, [1] * 4, 0, coupled, 4)
-    with pytest.raises(ValueError, match="303776 bytes"):
+    with pytest.raises(ValueError, match="358080 bytes"):
         fused_step.blocked_stream_collide(
             f, g, [1] * 3, 0, dataclasses.replace(coupled, alpha1=0.5), 3)
     # the decomposed path runs block 2 (pads sd T = 4 deep), the overlap
@@ -882,12 +882,16 @@ def _droplet_pops(shape, params, seed, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(_K4_FORCE))
 @pytest.mark.parametrize("mode", sorted(_K4_MODES))
-@pytest.mark.parametrize("shape", [(16, 16, 16), (12, 20, 40)])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (12, 20, 40), (12, 32, 64),
+                                   (12, 40, 72)])
 def test_blocked_force_kernel_matches_plain(cuda, case, mode, shape):
     """One K4 launch of T steps with the Shan-Chen (and alpha1) force on a
     perturbed droplet against its plain version (the plain sweep on the
     kernel's tiles) and against T one-step launches (A, L, K) with the
-    same words; the sweep launches no pre-pass."""
+    same words; the sweep launches no pre-pass.  (12, 32, 64) and (12, 40,
+    72) run on the table's clusters, the second with a ragged last
+    cluster in y and z; the smaller shapes on them too where they hold a
+    cluster tile, else on 1 x 1 clusters."""
     from bflbm_tpu_torch.ops import blocked
 
     _, T = case
@@ -904,10 +908,14 @@ def test_blocked_force_kernel_matches_plain(cuda, case, mode, shape):
     torch.cuda.synchronize()
     assert (fused_step.blocked_launches, fused_step.density_launches,
             fused_step.laplacian_launches) == (1, 0, 0)
+    sd = fused_step.sd_depth(params)
+    clustered = fused_step.launch_cluster(T, shape, sd) != (1, 1)
+    assert fused_step.mode_launches.get("blocked cluster", 0) == clustered
+    if shape[1] >= 32:
+        assert clustered == (fused_step.blocked_cluster(T, sd) != (1, 1))
     fr, gr = blocked.blocked_sweep_reference(
         f, g, words, 40, params, T,
-        fused_step.blocked_tile(T, f.shape, fused_step.sd_depth(params)),
-        dist, ref)
+        fused_step.blocked_tile(T, f.shape, sd), dist, ref)
     assert max(_maxdiff(fo, fr), _maxdiff(go, gr)) <= ATOL
     fa, ga = f, g
     for s, w in enumerate(words):
@@ -973,19 +981,24 @@ def _one_step_mesh(blocks, mesh, pad, exts, words, step0, params, dist,
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(_K4_EXT_CASES))
 @pytest.mark.parametrize("mode", sorted(_K4_MODES))
-@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 1), (1, 2, 2)])
-def test_blocked_ext_kernel_matches_plain(cuda, case, mode, mesh_shape):
-    """One K4 launch of T steps on every block of a 16 x 12 x 20 droplet
-    (pads sd T deep, exchanged once; the ref operand's pads filled too)
-    against the plain ext sweep on the block, against T one-step ext
-    launches with an exchange before each, and against the whole-domain
-    K4 launch on the block's cells."""
+@pytest.mark.parametrize("mesh_shape,shape", [
+    ((2, 1, 1), (16, 12, 20)), ((2, 2, 1), (16, 12, 20)),
+    ((1, 2, 2), (16, 12, 20)), ((2, 1, 1), (16, 40, 72)),
+    ((1, 2, 1), (12, 80, 72))])
+def test_blocked_ext_kernel_matches_plain(cuda, case, mode, mesh_shape,
+                                          shape):
+    """One K4 launch of T steps on every block of a droplet (pads sd T
+    deep, exchanged once; the ref operand's pads filled too) against the
+    plain ext sweep on the block, against T one-step ext launches with an
+    exchange before each, and against the whole-domain K4 launch on the
+    block's cells.  The 16 x 12 x 20 blocks run 1 x 1 clusters (thinner
+    than a cluster tile), the 40 x 72 interiors the table's clusters with
+    a ragged last one, their rings in the pads on a split y."""
     from bflbm_tpu_torch.ops import blocked
 
     sd, T = case
     kw, dist, with_ref = _K4_MODES[mode]
     params = LBMParams(**dict(_K4_EXT_CASES[case], **kw))
-    shape = (16, 12, 20)
     f, g = _droplet_pops(shape, params, 39, cuda)
     ref = (1.0 + 0.1 * torch.rand((2,) + shape, generator=torch.Generator()
                                   .manual_seed(40))).to(cuda) \
@@ -1012,6 +1025,9 @@ def test_blocked_ext_kernel_matches_plain(cuda, case, mode, mesh_shape):
         torch.cuda.synchronize()
         assert (fused_step.blocked_launches, fused_step.launches,
                 fused_step.mode_launches.get("blocked ext")) == (1, 0, 1)
+        assert fused_step.mode_launches.get("blocked cluster", 0) == (
+            fused_step.launch_cluster(T, ext.interior(blk.shape), sd)
+            != (1, 1))
         fr, gr = blocked.blocked_sweep_reference(
             blk[0], blk[1], words, 40, params, T,
             fused_step.blocked_tile(T, ext.interior(blk.shape), sd), dist,
@@ -1102,21 +1118,23 @@ def _nan_pads(t, pad, axes=(0, 1, 2)):
 @pytest.mark.parametrize("case", sorted(_K4_EXT_CASES))
 @pytest.mark.parametrize("mode", ["off", "ref", "general"])
 @pytest.mark.parametrize("sweep", sorted(_K4_SWEEPS))
-def test_blocked_window_and_strip_launches(cuda, case, mode, sweep):
+@pytest.mark.parametrize("shape", [(32, 32, 32), (32, 80, 72)])
+def test_blocked_window_and_strip_launches(cuda, case, mode, sweep, shape):
     """K4 launches of the split and of the strips at block T on every block
     of a 32^3 droplet: the interior window launched with every pad (the
     ref operand's too) NaN writes exactly its window, finite, and with the
     seam bands the interior bitwise the serial ext K4 launch; the
     strip-fed launch with NaN y pads equals the serial launch bitwise and
     writes its edge rows into its strips bitwise; the last block's
-    launches within ATOL of their plain versions."""
+    launches within ATOL of their plain versions.  On (32, 80, 72) the
+    interior windows and the strip-fed launches run on the table's
+    clusters (the last ragged), the y and z seam bands on 1 x 1."""
     from bflbm_tpu_torch.ops import blocked
     from bflbm_tpu_torch.parallel import kernel as kernel_par
 
     sd, T = case
     kw, dist, with_ref = _K4_MODES[mode]
     params = LBMParams(**dict(_K4_EXT_CASES[case], **kw))
-    shape = (32, 32, 32)
     f, g = _droplet_pops(shape, params, 43, cuda)
     mesh_shape, opts = _K4_SWEEPS[sweep]
     mesh = mesh_lib.make_mesh(mesh_shape, cuda)
@@ -1253,16 +1271,18 @@ def _pops(shape, cuda, seed):
 @pytest.mark.parametrize("shape", [(6, 10, 36), (16, 16, 64)])
 @pytest.mark.parametrize("variant", platform.COPY_VARIANTS)
 def test_probe_copy_matches_plain(cuda, variant, shape):
-    """Both copies bitwise f.clone() at every chunk size, the last chunk
-    ragged at 2160 cells."""
+    """Both copies bitwise f.clone() at every chunk size and stage count
+    (the ring of a persistent block), the last chunk ragged at 2160
+    cells; a block walks several chunks at (16, 16, 64) and at most one at
+    (6, 10, 36)."""
     f = _pops(shape, cuda, 1)
-    for n in platform.CHUNKS:
+    for n, s in platform.copy_configs():
         out = torch.full_like(f, float("nan"))
         before = platform.launches.get(f"copy {variant}", 0)
-        platform.chunk_copy(f, n, variant, out=out)
+        platform.chunk_copy(f, n, variant, out=out, stages=s)
         torch.cuda.synchronize()
         assert platform.launches[f"copy {variant}"] == before + 1
-        assert torch.equal(out, platform.copy_reference(f))
+        assert torch.equal(out, platform.copy_reference(f)), (n, s)
 
 
 @pytest.mark.gpu

@@ -175,19 +175,38 @@ def test_transform_plain_matches_float64_and_jax(variant):
                                atol=TOL)
 
 
+@pytest.mark.parametrize("stages", platform.STAGES)
 @pytest.mark.parametrize("variant", platform.COPY_VARIANTS)
-def test_copy_plain_is_exact(variant):
+def test_copy_plain_is_exact(variant, stages):
     f = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (19, 4, 6, 10)).astype(np.float32))
     for n in platform.CHUNKS:
-        out = platform.chunk_copy(f, n, variant)
+        if (n, stages) not in platform.copy_configs():
+            with pytest.raises(ValueError, match="shared memory"):
+                platform.chunk_copy(f, n, variant, stages=stages)
+            continue
+        out = platform.chunk_copy(f, n, variant, stages=stages)
         assert torch.equal(out, f) and out.data_ptr() != f.data_ptr()
     with pytest.raises(ValueError, match="multiples of 4"):
-        platform.chunk_copy(f, 510, variant)
+        platform.chunk_copy(f, 510, variant, stages=stages)
     with pytest.raises(ValueError, match="shared memory"):
-        platform.chunk_copy(f, 4096, variant)
+        platform.chunk_copy(f, 4096, variant, stages=stages)
     with pytest.raises(ValueError, match="alias"):
-        platform.chunk_copy(f, 512, variant, out=f)
+        platform.chunk_copy(f, 256, variant, out=f, stages=stages)
+
+
+@pytest.mark.parametrize("stages", [0, -1, 9, 2.0, True])
+def test_copy_refuses_bad_stage_counts(stages):
+    """A ring of 1-8 chunks, an integer: anything else is refused before
+    any copy, on the CPU as on the card."""
+    f = torch.zeros((19, 2, 2, 4))
+    with pytest.raises(ValueError, match="stages"):
+        platform.chunk_copy(f, 256, "bulk", stages=stages)
+    assert platform.copy_configs() == [
+        (n, s) for n in platform.CHUNKS for s in platform.STAGES
+        if s * 19 * n * 4 <= platform.MAX_SMEM]
+    assert (256, 8) in platform.copy_configs()
+    assert (2048, 2) not in platform.copy_configs()
 
 
 def test_wrappers_refuse_bad_input():
