@@ -16,8 +16,11 @@ library is written to a temporary file and renamed into place.
 ``-Xptxas -v`` output (registers, spills) is kept in a ``.log`` beside
 each library.
 
-Every library exports ``bflbm_set_tables(device, c, m, minv, gw)``, which
-fills its ``__constant__`` lattice tables, and ``bflbm_error_string``.
+Every library exports ``bflbm_error_string``; those with ``__constant__``
+lattice tables (the K, K4 and density libraries) also export
+``bflbm_set_tables(device, c, m, minv, gw)``, which fills them.  The
+laplacian library and the probes read the tables as immediates
+(``csrc/lattice_tables.cuh``).
 """
 
 from __future__ import annotations
@@ -76,7 +79,8 @@ LIBRARIES = {
     "probe_launch": ("probe_launch.cu", ()),
 }
 SOURCES = tuple(LIBRARIES)
-_HEADERS = ("common.cuh", "k_cell.cuh", "lattice_tables.cuh")
+_HEADERS = ("common.cuh", "k_cell.cuh", "lattice_tables.cuh",
+            "stencil_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -171,10 +175,26 @@ def _build_unlocked() -> Dict[str, Path]:
     return {name: library_path(name) for name in SOURCES}
 
 
+def _function_name(mangled: str) -> str:
+    """The unqualified name of an Itanium-mangled function: the last of
+    the length-prefixed names after ``_Z`` / ``_ZN`` (the anonymous
+    namespace's own name carries digits, so no pattern can find it)."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if m is None:
+            return name
+        pos += len(m.group(0))
+        name = mangled[pos:pos + int(m.group(0))]
+        pos += int(m.group(0))
+
+
 def ptxas_summary() -> List[str]:
     """One line per kernel instantiation of the current builds: its
     template arguments (k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF,
-    A1, EXT>, blocked_kernel<NOISE, DIST, GENERAL, REF, EXT, STRIPS> of the
+    A1, EXT>, a1_tile_kernel<NOISE, DIST, GENERAL, REF, EXT> of the A1
+    builds, blocked_kernel<NOISE, DIST, GENERAL, REF, EXT, STRIPS> of the
     library's force and relaxation) with the
     ``-Xptxas -v`` registers and spills."""
     out = []
@@ -187,10 +207,8 @@ def ptxas_summary() -> List[str]:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 mangled = m.group(1)
-                kern = re.search(r"\d+([a-z_]+_kernel)[IE]", mangled)
                 args = re.findall(r"L[bi](\d+)E", mangled)
-                entry = (f"{kern.group(1) if kern else mangled}"
-                         f"<{','.join(args)}>")
+                entry = f"{_function_name(mangled)}<{','.join(args)}>"
             elif "spill" in ln:
                 spill = ln.strip()
             elif "registers" in ln and entry is not None:
@@ -213,8 +231,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "bflbm_fused_step"):
         lib.bflbm_fused_step.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                          f, f, f, f, f, i, i, p, f, f, f,
-                                         f, p, p, i, p]
+                                         f, p, p, i, p, p]
         lib.bflbm_fused_step.restype = i
+    if hasattr(lib, "bflbm_a1_smem"):
+        lib.bflbm_a1_smem.argtypes = [i, i, i]
+        lib.bflbm_a1_smem.restype = ll
     if hasattr(lib, "bflbm_density_psi"):
         lib.bflbm_density_psi.argtypes = [i, p, p, p, p, i, f, p, i, p]
         lib.bflbm_density_psi.restype = i
@@ -226,8 +247,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.bflbm_blocked_smem.argtypes = [i, i, i, i]
         lib.bflbm_blocked_smem.restype = ctypes.c_longlong
     if hasattr(lib, "bflbm_laplacian_psi"):
-        lib.bflbm_laplacian_psi.argtypes = [i, p, p, p, p, f, f, p]
+        lib.bflbm_laplacian_psi.argtypes = [i, p, p, p, p, p]
         lib.bflbm_laplacian_psi.restype = i
+        lib.bflbm_laplacian_smem.argtypes = [i, i]
+        lib.bflbm_laplacian_smem.restype = ll
     if hasattr(lib, "bflbm_probe_copy"):
         lib.bflbm_probe_copy.argtypes = [i, p, p, ll, i, i, i, p]
         lib.bflbm_probe_copy.restype = i

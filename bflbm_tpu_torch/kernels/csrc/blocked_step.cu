@@ -83,12 +83,13 @@
 // cell arithmetic after the pull is k_cell.cuh's BFLBM_COLLIDE_CELL_WITH,
 // the code of the one-step kernel csrc/fused_step.cu, with the gradients
 // of psi and of the laplacian summed from shared memory in gradient2's
-// order, the densities in the pre-pass's order i = 0..18, the laplacian in
-// laplacian_psi.cu's, so a blocked launch equals T one-step launches
-// (A, L and K) with the same words.  It reads the lattice tables as
-// compile-time constants (ImmTables and lattice_tables.cuh, the same
-// float32 values): loop-invariant reads of the __constant__ tables would
-// be hoisted out of the cell loop into hundreds of registers.
+// order (stencil_tile.cuh SHARED_FORCES), the densities in the pre-pass's
+// order i = 0..18, the laplacian in laplacian_psi.cu's, so a blocked
+// launch equals T one-step launches (A, L and K) with the same words.  It
+// reads the lattice tables as compile-time constants (stencil_tile.cuh
+// ImmTables and lattice_tables.cuh, the same float32 values):
+// loop-invariant reads of the __constant__ tables would be hoisted out of
+// the cell loop into hundreds of registers.
 //
 // Shared memory, per block: 2 (T - 1) (sd + 3) mbarriers, then per
 // intermediate phase sd + 3 planes x 2 species x 19 populations x 4 bytes a
@@ -163,25 +164,9 @@
 #include <cooperative_groups.h>
 
 #include "k_cell.cuh"
-#include "lattice_tables.cuh"
+#include "stencil_tile.cuh"
 
 namespace {
-
-// The lattice tables as constant device arrays, read at indices known
-// after unrolling (lattice_tables.cuh): each read folds to an immediate
-// operand.  Read from __constant__ memory inside the cell loop, they would
-// be hoisted out of it into hundreds of registers, and spill.
-struct ImmTables {
-  static __device__ __forceinline__ int c(int i, int d) {
-    return kLatC[i][d];
-  }
-  static __device__ __forceinline__ float m(int k, int i) {
-    return kLatM[k][i];
-  }
-  static __device__ __forceinline__ float minv(int i, int k) {
-    return kLatMinv[i][k];
-  }
-};
 
 constexpr int KMAX = 8;            // most steps one launch takes
 constexpr int MAX_THREADS = 384;   // threads of a block, at most
@@ -250,10 +235,6 @@ __device__ __forceinline__ long long phase_base(int T, int s, int by,
     n += phase_floats(by + 2 * pr, bz + 2 * pr, r == T - 1);
   }
   return n;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Wait until the phase of parity `parity` of the mbarrier at b has
@@ -399,59 +380,6 @@ __device__ __forceinline__ void cell_to_strips(const YStrips& ys,
 __device__ __forceinline__ float psi_of(float n, int use_sc, float n0) {
   return use_sc ? n0 * (1.0f - expf(-n / n0)) : n;
 }
-
-// gradient2's 19-point isotropic gradient of both species of a field kept
-// in shared memory, at cell `cell` of planes vx[0..2] (x - 1, x, x + 1),
-// whose rows hold `rowz` cells and whose second species starts n floats
-// after the first: the same products summed in the same order.
-__device__ __forceinline__ void shared_gradient2(const float* (&vx)[3], int n,
-                                                 int cell, int rowz,
-                                                 float (&g0)[3],
-                                                 float (&g1)[3]) {
-#pragma unroll
-  for (int d = 0; d < 3; ++d) g0[d] = g1[d] = 0.0f;
-#pragma unroll
-  for (int i = 1; i < Q; ++i) {
-    const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
-              cz = ImmTables::c(i, 2);
-    const float* v = vx[cx + 1] + cell + cy * rowz + cz;
-    const float v0 = v[0];
-    const float v1 = v[n];
-    const float w = kLatGW[i];
-    g0[0] += (w * static_cast<float>(cx)) * v0;
-    g0[1] += (w * static_cast<float>(cy)) * v0;
-    g0[2] += (w * static_cast<float>(cz)) * v0;
-    g1[0] += (w * static_cast<float>(cx)) * v1;
-    g1[1] += (w * static_cast<float>(cy)) * v1;
-    g1[2] += (w * static_cast<float>(cz)) * v1;
-  }
-}
-
-// k_cell.cuh BFLBM_FORCES_FROM_ARRAYS with psi and its laplacian read from
-// the phase's rings: the kernel's locals psi_x, pn, pc, pnz (psi planes
-// x - 1, x, x + 1, the floats between species, the cell, a row) and
-// lap_x, ln, lc, lnz (the same for the laplacian).
-#define BLOCKED_FORCES(ARGS, CX, CY, CZ)                                     \
-  if (FORCE && (!A1 || ARGS.fc.k != 0.0f)) {                                  \
-    float grad_rho[3], grad_phi[3];                                           \
-    shared_gradient2(psi_x, pn, pc, pnz, grad_rho, grad_phi);                 \
-    const float psi_rho = psi_x[1][pc];                                       \
-    const float psi_phi = psi_x[1][pn + pc];                                  \
-_Pragma("unroll")                                                             \
-    for (int d = 0; d < 3; ++d) {                                             \
-      af[d] = ARGS.fc.k * psi_rho * grad_phi[d] * inv_rho;                    \
-      ag[d] = ARGS.fc.k * psi_phi * grad_rho[d] * inv_phi;                    \
-    }                                                                         \
-  }                                                                           \
-  if (A1) {                                                                   \
-    float gl_rho[3], gl_phi[3];                                               \
-    shared_gradient2(lap_x, ln, lc, lnz, gl_rho, gl_phi);                     \
-_Pragma("unroll")                                                             \
-    for (int d = 0; d < 3; ++d) {                                             \
-      af[d] = af[d] - ARGS.fc.a1 * gl_phi[d];                                 \
-      ag[d] = ag[d] - ARGS.fc.a1 * gl_rho[d];                                 \
-    }                                                                         \
-  }
 
 template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT,
           bool STRIPS>
@@ -799,7 +727,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           }
           BFLBM_COLLIDE_CELL_WITH(args, word, step, kx, ky, kz, fo, go,
                                   oplane, oidx, ImmTables,
-                                  BLOCKED_FORCES);
+                                  SHARED_FORCES);
           if (STRIPS && last && args.ys.out != nullptr &&
               (yw < args.ys.y_lo + args.ys.rows ||
                yw >= args.ys.y_hi - args.ys.rows))

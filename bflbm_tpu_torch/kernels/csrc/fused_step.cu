@@ -1,5 +1,5 @@
 // K = collide o stream of the fluctuating binary-fluid LBM, for NVIDIA
-// Hopper (sm_90a), one thread per cell.
+// Hopper (sm_90a), one thread per cell; under A1 on x-marching tiles.
 //
 // Replaces the TPU kernel bflbm_tpu/kernels/fused_step.py:_step_kernel /
 // _k_compute (the pl.pallas_call at fused_step.py:1956) at block 1, one
@@ -14,7 +14,8 @@
 //     this kernel: its 18-neighbour gradient, taken with the weights and
 //     loop of the psi gradient, gives a_f -= cs^2 alpha1 grad lap psi(phi)
 //     and a_g -= cs^2 alpha1 grad lap psi(rho), not divided by the
-//     density; with alpha0 = 0 the Shan-Chen term is skipped;
+//     density; with alpha0 = 0 the Shan-Chen term is skipped.  A kernel of
+//     its own design, a1_tile_kernel (below);
 //   - GENERAL: K1d, general relaxation (fused_step.py:843-851, 1051-1064):
 //     all 19 moments of the streamed populations, rows k < 10 relaxed
 //     towards m_eq at 1 / (tau + 1/2), ghost rows towards 0, the Guo rows
@@ -100,6 +101,24 @@
 // The per-cell arithmetic after the pull, the tables and the generators
 // live in k_cell.cuh (BFLBM_COLLIDE_CELL), which csrc/blocked_step.cu (T
 // steps a launch, K4) includes too.
+//
+// The A1 builds (B-A1) take both gradients, of psi and of its laplacian,
+// from shared memory instead: a thread per cell gathering 72 neighbour
+// values through L2 with 64-bit address arithmetic ran 33% behind B on the
+// same input, whose gradient is half as many gathers.  a1_tile_kernel: a
+// block owns a (ty, tz) tile of the launch's region and marches x over a
+// chunk of xc planes, with a ring of TILE_RING planes of the laplacian and
+// (when alpha0 != 0) of psi, both species with a 1-cell y / z halo, in
+// shared memory (stencil_tile.cuh TileWalk): the next planes are copied in
+// with cp.async while the cells of plane x are collided, their gradients
+// summed
+// from planes x - 1, x, x + 1 with gradient2's products in its order
+// (SHARED_FORCES).  The populations are pulled straight from device memory
+// as above, each value once, warps along z; the lattice tables are
+// immediates (ImmTables: loop-invariant __constant__ reads would be hoisted
+// into registers), the same float32 values, so a cell comes out bitwise as
+// the thread-per-cell kernel computed it.  The strips exchange's rows and
+// copy_to_strips work as in k_step_kernel.
 
 #ifndef BFLBM_GENERAL_RELAX
 #define BFLBM_GENERAL_RELAX 0
@@ -112,6 +131,9 @@
 #endif
 
 #include "k_cell.cuh"
+#if BFLBM_A1
+#include "stencil_tile.cuh"
+#endif
 
 namespace {
 
@@ -203,36 +225,176 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
     copy_to_strips(p.ys, p.fout, p.gout, plane, idx, x, y, z, X, Z);
 }
 
-template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1,
-          bool EXT>
-int launch(dim3 grid, cudaStream_t s, const Args& a) {
-  k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF, A1, EXT>
-      <<<grid, BLOCK, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+#if BFLBM_A1
+constexpr int MAX_DEVICES = 64;
+// Blocks of TILE_MAX_THREADS an SM the registers must allow (at most 128
+// registers a thread): left free, the EXT instantiations took 255, one
+// block of 8 warps an SM.
+constexpr int A1_MIN_BLOCKS = 2;
+
+// The fields of an A1 tile's ring: the laplacian, and psi for the
+// Shan-Chen gradient unless alpha0 = 0 (force_k = 0), which skips it.
+__host__ __device__ __forceinline__ int a1_fields(float force_k) {
+  return force_k != 0.0f ? 2 : 1;
 }
 
+// B-A1 on x-marching tiles (the A1 builds' only kernel; the design is in
+// the notes at the top).  Each thread owns one (y, z) cell of the block's
+// tile and collides it in every plane of the chunk; a thread past the
+// region's end collides none but copies its share of the ring.
+template <bool NOISE, int DIST, bool GENERAL, bool REF, bool EXT>
+__global__ void __launch_bounds__(TILE_MAX_THREADS, A1_MIN_BLOCKS)
+    a1_tile_kernel(const Args p, const StencilTile t) {
+  constexpr bool FORCE = true, A1 = true;
+  extern __shared__ __align__(16) float ring[];   // [slot][field][species]
+  const int X = p.X, Y = p.Y, Z = p.Z;
+  const TileWalk w(t, p.r, Y, Z);
+  const size_t plane = static_cast<size_t>(X) * Y * Z;
+  const int xplane = Y * Z;
+  const int fields = a1_fields(p.fc.k);
+  const float* const base[2] = {p.lap, p.psi};
+  const int n = w.xb - w.xa;
+  const int y = w.y, z = w.z;
+  // a row next to the y halo of the strips exchange
+  const bool near_strips = EXT && p.ys.in != nullptr &&
+                           (y - 1 < p.ys.y_lo || y + 1 >= p.ys.y_hi);
+  // SHARED_FORCES' strides: the laplacian and psi share the slot layout
+  const int ln = w.hn, lnz = w.hz, lc = w.cell;
+  const int pn = w.hn, pnz = w.hz, pc = w.cell;
+  // planes xa - 1 .. xa + TILE_AHEAD - 1 before the march (stencil_tile.cuh)
+  for (int j = 0; j < TILE_RING - 1; ++j)
+    w.copy(ring, j, base, fields, plane, X, xplane);
+  for (int k = 0; k < n; ++k) {
+    cp_async_wait_ahead();
+    __syncthreads();
+    w.copy(ring, k + TILE_RING - 1, base, fields, plane, X, xplane);
+    if (!w.active) continue;
+    const int x = w.xa + k;
+    const size_t idx = cell_offset(x, y, z, Y, Z);
+
+    // the pull, as k_step_kernel's
+    float rho = 0.0f, phi = 0.0f;
+    float jf[3] = {0.0f, 0.0f, 0.0f};
+    float jg[3] = {0.0f, 0.0f, 0.0f};
+    float mf[Q], mg[Q];
+    if (GENERAL) {
+#pragma unroll
+      for (int q = 4; q < Q; ++q) mf[q] = mg[q] = 0.0f;
+    }
+    if (near_strips) {
+#pragma unroll 1
+      for (int i = 0; i < Q; ++i) {
+        const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
+        float fi, gi;
+        int side, row;
+        if (strip_row(p.ys, y - cy, side, row)) {
+          const size_t o = strip_offset(p.ys, side, 0, i, wrap(x - cx, X),
+                                        row, wrap(z - cz, Z), X, Z);
+          fi = __ldg(p.ys.in + o);
+          gi = __ldg(p.ys.in + o + Q * strip_plane(p.ys, X, Z));
+        } else {
+          const size_t src = i * plane + cell_offset(wrap(x - cx, X),
+                                                     wrap(y - cy, Y),
+                                                     wrap(z - cz, Z), Y, Z);
+          fi = __ldg(p.fin + src);
+          gi = __ldg(p.gin + src);
+        }
+        pull_add<GENERAL>(i, cx, cy, cz, fi, gi, rho, phi, jf, jg, mf, mg);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const int cx = ImmTables::c(i, 0), cy = ImmTables::c(i, 1),
+                  cz = ImmTables::c(i, 2);
+        const size_t src = i * plane + cell_offset(wrap(x - cx, X),
+                                                   wrap(y - cy, Y),
+                                                   wrap(z - cz, Z), Y, Z);
+        const float fi = __ldg(p.fin + src);
+        const float gi = __ldg(p.gin + src);
+        pull_add<GENERAL, ImmTables>(i, cx, cy, cz, fi, gi, rho, phi, jf,
+                                     jg, mf, mg);
+      }
+    }
+
+    // planes x - 1, x, x + 1 of the laplacian and of psi
+    const float* lap_x[3];
+    const float* psi_x[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      lap_x[d] = ring + ((k + d) % TILE_RING) * (fields * 2 * w.hn);
+      psi_x[d] = lap_x[d] + 2 * w.hn;
+    }
+    BFLBM_COLLIDE_CELL_WITH(p, p.word, p.step, x, y, z, p.fout, p.gout,
+                            plane, idx, ImmTables, SHARED_FORCES);
+    if (EXT && p.ys.out != nullptr &&
+        (y < p.ys.y_lo + p.ys.rows || y >= p.ys.y_hi - p.ys.rows))
+      copy_to_strips(p.ys, p.fout, p.gout, plane, idx, x, y, z, X, Z);
+  }
+}
+#endif
+
+// How a launch runs: its grid and stream; under A1 also the device, the
+// tile and the dynamic shared memory of a block.
+struct Launch {
+  dim3 grid;
+  cudaStream_t s;
+  int device;
+  int ty, tz, xc;
+  long long smem;
+};
+
+#if BFLBM_A1
+// Every instantiation of an A1 build is the tiled kernel, its dynamic
+// shared memory limit raised to l.smem first when that is above 48 KB and
+// above what was set on this device before (a launch above the limit is
+// refused, and only cudaGetLastError reports it).
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1,
+          bool EXT>
+int launch(const Launch& l, const Args& a) {
+  static_assert(FORCE && A1, "the A1 builds launch the tiled kernel");
+  static long long allowed[MAX_DEVICES] = {};
+  auto kern = a1_tile_kernel<NOISE, DIST, GENERAL, REF, EXT>;
+  if (l.smem > 48 * 1024 && l.smem > allowed[l.device]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(l.smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed[l.device] = l.smem;
+  }
+  kern<<<l.grid, l.ty * l.tz, static_cast<size_t>(l.smem), l.s>>>(
+      a, StencilTile{l.ty, l.tz, l.xc});
+  return static_cast<int>(cudaGetLastError());
+}
+#else
+template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1,
+          bool EXT>
+int launch(const Launch& l, const Args& a) {
+  k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF, A1, EXT>
+      <<<l.grid, BLOCK, 0, l.s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 template <int DIST, bool FORCE, bool GENERAL, bool A1, bool EXT>
-int launch_noise(dim3 grid, cudaStream_t s, const Args& a) {
+int launch_noise(const Launch& l, const Args& a) {
   if (a.ref != nullptr)
-    return launch<true, DIST, FORCE, GENERAL, true, A1, EXT>(grid, s, a);
-  return launch<true, DIST, FORCE, GENERAL, false, A1, EXT>(grid, s, a);
+    return launch<true, DIST, FORCE, GENERAL, true, A1, EXT>(l, a);
+  return launch<true, DIST, FORCE, GENERAL, false, A1, EXT>(l, a);
 }
 
 template <bool FORCE, bool GENERAL, bool A1, bool EXT>
-int launch_mode(int noise_on, int dist, dim3 grid, cudaStream_t s,
-                const Args& a) {
+int launch_mode(int noise_on, int dist, const Launch& l, const Args& a) {
   if (!noise_on)
-    return launch<false, DIST_U8, FORCE, GENERAL, false, A1, EXT>(grid, s,
-                                                                  a);
+    return launch<false, DIST_U8, FORCE, GENERAL, false, A1, EXT>(l, a);
   switch (dist) {
     case DIST_U8:
-      return launch_noise<DIST_U8, FORCE, GENERAL, A1, EXT>(grid, s, a);
+      return launch_noise<DIST_U8, FORCE, GENERAL, A1, EXT>(l, a);
     case DIST_CLT4:
-      return launch_noise<DIST_CLT4, FORCE, GENERAL, A1, EXT>(grid, s, a);
+      return launch_noise<DIST_CLT4, FORCE, GENERAL, A1, EXT>(l, a);
     case DIST_CLT2:
-      return launch_noise<DIST_CLT2, FORCE, GENERAL, A1, EXT>(grid, s, a);
+      return launch_noise<DIST_CLT2, FORCE, GENERAL, A1, EXT>(l, a);
     case DIST_BM:
-      return launch_noise<DIST_BM, FORCE, GENERAL, A1, EXT>(grid, s, a);
+      return launch_noise<DIST_BM, FORCE, GENERAL, A1, EXT>(l, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -267,7 +429,12 @@ extern "C" int bflbm_set_tables(int device, const int* c, const float* m,
 // general-relaxation build.  force_k = -cs^2 alpha0; a1 = cs^2 alpha1;
 // s_f, s_g the Guo prefactors.  strips_in, strips_out: the received y
 // strips and the strips K writes (common.cuh YStrips, depth strip_rows),
-// or null.  Returns cudaGetLastError() after the launch.
+// or null.  tile: host array {ty, tz, xc} of the A1 builds' tiles
+// (stencil_tile.cuh StencilTile), null for the other builds.  Returns
+// cudaErrorInvalidValue for arguments it does not take (a tile given to a
+// build without A1 or missing from one with it, a tile out of range, more
+// shared memory than a block of the device holds), else
+// cudaGetLastError() after the launch.
 extern "C" int bflbm_fused_step(int device, const float* fin,
                                 const float* gin, const float* psi,
                                 const float* lap, const float* ref,
@@ -278,7 +445,8 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
                                 int dist, const float* coef, float force_k,
                                 float a1, float s_f, float s_g,
                                 const float* strips_in, float* strips_out,
-                                int strip_rows, void* stream) {
+                                int strip_rows, const int* tile,
+                                void* stream) {
   DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
   Args a;
@@ -310,25 +478,52 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
   }
   a.nc.scale = coef[1 + 2 * NGHOST];
   a.nc.off = coef[2 + 2 * NGHOST];
-  const dim3 grid = cell_grid(a.r);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Launch l = {};
+  l.s = static_cast<cudaStream_t>(stream);
+  l.device = device;
   constexpr bool kGeneral = BFLBM_GENERAL_RELAX != 0;
   constexpr bool kForce = BFLBM_FORCE != 0;
   constexpr bool kA1 = BFLBM_A1 != 0;
   static_assert(kForce || !kA1, "BFLBM_A1 needs BFLBM_FORCE");
-  if ((psi != nullptr) != kForce || (lap != nullptr) != kA1)
+  if ((psi != nullptr) != kForce || (lap != nullptr) != kA1 ||
+      (tile != nullptr) != kA1)
     return static_cast<int>(cudaErrorInvalidValue);   // another library's
+#if BFLBM_A1
+  const StencilTile t{tile[0], tile[1], tile[2]};
+  if (!tile_ok(t) || device < 0 || device >= MAX_DEVICES || a.r.nx < 1 ||
+      a.r.ny < 1 || a.r.nz < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  l.ty = t.ty;
+  l.tz = t.tz;
+  l.xc = t.xc;
+  l.smem = tile_smem(t.ty, t.tz, a1_fields(force_k));
+  int optin = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (l.smem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  l.grid = tile_grid(t, a.r);
+#else
+  l.grid = cell_grid(a.r);
+#endif
   // the hash keys of a whole-domain launch are the array's own
   const bool ext = is_ext(a.X, a.Y, a.Z, a.r) || a.ox != 0 || a.oy != 0 ||
                    a.oz != 0 || a.GY != static_cast<uint32_t>(a.Y) ||
                    a.GZ != static_cast<uint32_t>(a.Z) ||
                    strips_in != nullptr || strips_out != nullptr;
   if (ext)
-    return launch_mode<kForce, kGeneral, kA1, true>(noise_on, dist, grid, s,
-                                                    a);
-  return launch_mode<kForce, kGeneral, kA1, false>(noise_on, dist, grid, s,
-                                                   a);
+    return launch_mode<kForce, kGeneral, kA1, true>(noise_on, dist, l, a);
+  return launch_mode<kForce, kGeneral, kA1, false>(noise_on, dist, l, a);
 }
+
+#if BFLBM_A1
+// Dynamic shared memory bytes of a block on (ty, tz) tiles whose ring
+// holds `fields` fields (1: the laplacian; 2: and psi, alpha0 != 0) of
+// both species: TILE_RING slots with a 1-cell y / z halo.
+extern "C" long long bflbm_a1_smem(int ty, int tz, int fields) {
+  return tile_smem(ty, tz, fields);
+}
+#endif
 
 extern "C" const char* bflbm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -86,7 +86,7 @@ import numpy as np
 import torch
 
 from ..config import LBMParams
-from ..lattice import B, CS2, Q, W
+from ..lattice import B, CS2, Q
 from ..ops import blocked
 from ..ops import collide as collide_ops
 from ..ops import hydro as hydro_ops
@@ -535,13 +535,6 @@ def density_psi(f: torch.Tensor, g: torch.Tensor, params: LBMParams,
     return out
 
 
-# Lattice weights of the laplacian kernel: w_i, their sum over i >= 1 and
-# 2 / cs^2, as the JAX kernel's lap_ext1 rounds them to float32.
-_LAP_W = [float(np.float32(w)) for w in W]
-_LAP_WSUM = float(np.float32(sum(float(w) for w in W[1:])))
-_LAP_TWO_CS2 = float(np.float32(2.0 / CS2))
-
-
 def laplacian_psi(psi: torch.Tensor,
                   out: Optional[torch.Tensor] = None,
                   ext: Optional[Ext] = None, *,
@@ -554,7 +547,7 @@ def laplacian_psi(psi: torch.Tensor,
     inside that region: only its cells are written.
 
     CPU tensors run :func:`laplacian_psi_reference`.  CUDA tensors launch
-    ``csrc/laplacian_psi.cu`` or raise."""
+    ``csrc/laplacian_psi.cu`` on :func:`stencil_tile`'s tiles or raise."""
     global laplacian_launches
     _check_box_args(psi, ext, window)
     if psi.device.type == "cpu":
@@ -575,10 +568,9 @@ def laplacian_psi(psi: torch.Tensor,
     from . import _build
 
     lib = _build.load("laplacian_psi", psi.device)
-    w = (ctypes.c_float * Q)(*_LAP_W)
     rc = lib.bflbm_laplacian_psi(
-        psi.device.index, psi.data_ptr(), out.data_ptr(), geom, w,
-        _LAP_WSUM, _LAP_TWO_CS2,
+        psi.device.index, psi.data_ptr(), out.data_ptr(), geom,
+        (ctypes.c_int * 3)(*stencil_tile("l")),
         torch.cuda.current_stream(psi.device).cuda_stream)
     _raise_on(rc, lib, "laplacian_psi")
     laplacian_launches += 1
@@ -609,8 +601,9 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
     y halo in place of the y pads; strips_out: strips of the same layout
     into which K also writes its first and last `rows` interior rows (on
     the interior x cells).  The library is the build of ``fused_step.cu``
-    for the relaxation (:func:`general_relax`), the force and alpha1.
-    Raises for what the kernel does not take."""
+    for the relaxation (:func:`general_relax`), the force and alpha1; with
+    alpha1 its kernel runs on :func:`stencil_tile`'s tiles.  Raises for
+    what the kernel does not take."""
     global launches
     check_noise_dist(noise_dist)
     if f.device.type != "cuda":
@@ -664,6 +657,7 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
         1.0 / (1.0 + 1.0 / (2.0 * params.tau_g)),
         None if strips is None else strips.data_ptr(),
         None if strips_out is None else strips_out.data_ptr(), rows,
+        None if lap is None else (ctypes.c_int * 3)(*stencil_tile("b_a1")),
         torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, lib, "fused_step")
     launches += 1
@@ -804,6 +798,71 @@ _BLOCKED_SECTIONS = {(1, 2): (4, 32), (1, 3): (4, 16), (1, 4): (4, 8),
                      (2, 2): (8, 16), (2, 3): (4, 8), (3, 2): (4, 16)}
 _BLOCKED_CLUSTERS = {(1, 2): (1, 1), (1, 3): (1, 1), (1, 4): (1, 1),
                      (2, 2): (1, 2), (2, 3): (2, 1), (3, 2): (1, 2)}
+
+# The x-marching tiles of kernels L (csrc/laplacian_psi.cu) and B-A1 (the
+# A1 builds of csrc/fused_step.cu; csrc/stencil_tile.cuh): a block owns a
+# (ty, tz) tile of the launch's region in (y, z), ty * tz threads along z
+# first, and marches xc planes of x, with a ring of STENCIL_RING planes of
+# the fields it reads (psi for L; the laplacian and, with alpha0, psi for
+# B-A1), both species with a 1-cell y / z halo, in shared memory.  The
+# entries are the fastest of tools/stencil_tiles.py's survey at 256^3 on
+# an H100 (PERF.md section 6), device ms a launch from a CUDA graph on
+# NVIDIA H100 80GB HBM3, 700 W: L 4 x 32 marching 64 planes 0.1351 (8 x 32
+# x 16 0.1618, 2 x 64 x 64 0.1362, every tile marching 8 planes 0.166 or
+# more); B-A1 (clt4, alpha0 1.2) 2 x 64 x 16 2.1117 (8 x 32 x 16 2.1838,
+# 4 x 64 x 8 2.1349, 8 x 16 tiles 2.30-3.02).
+_STENCIL_TILES = {"l": (4, 32, 64), "b_a1": (2, 64, 16)}
+STENCIL_RING = 6
+STENCIL_MAX_THREADS = 256
+
+
+def stencil_tile(kind: str) -> Tuple[int, int, int]:
+    """(ty, tz, xc) of kernel `kind`'s blocks, "l" or "b_a1": the y and z
+    cells of a block's tile and the x planes it marches."""
+    return tuple(int(v) for v in _STENCIL_TILES[kind])
+
+
+def stencil_grid(tile, region) -> Tuple[int, int, int]:
+    """The grid of an L or B-A1 launch on a region of (nx, ny, nz) cells,
+    as ``csrc/stencil_tile.cuh`` tile_grid computes it: (z tiles, y
+    tiles, x chunks), the last of each past the region's end where the
+    tile does not divide it."""
+    ty, tz, xc = (int(v) for v in tile)
+    nx, ny, nz = (int(n) for n in tuple(region)[-3:])
+    return (-(-nz // tz), -(-ny // ty), -(-nx // xc))
+
+
+def stencil_blocks(tile, region):
+    """The cells each block of an L or B-A1 launch on a region of (nx, ny,
+    nz) cells writes, one box ((x0, x1), (y0, y1), (z0, z1)) a block, from
+    the region's first cell: its chunk's planes and its tile's cells, cut
+    at the region's end (the kernels' threads past it write nothing)."""
+    ty, tz, xc = (int(v) for v in tile)
+    nx, ny, nz = (int(n) for n in tuple(region)[-3:])
+    gz, gy, gx = stencil_grid(tile, region)
+    for bx in range(gx):
+        for by in range(gy):
+            for bz in range(gz):
+                yield ((bx * xc, min(bx * xc + xc, nx)),
+                       (by * ty, min(by * ty + ty, ny)),
+                       (bz * tz, min(bz * tz + tz, nz)))
+
+
+def stencil_fields(kind: str, params: Optional[LBMParams] = None) -> int:
+    """The fields of two species kernel `kind`'s ring holds: psi for L;
+    the laplacian for B-A1, and psi too when the configuration `params`
+    has alpha0 != 0 (the Shan-Chen gradient)."""
+    return 1 if kind == "l" or params.alpha0 == 0.0 else 2
+
+
+def stencil_smem_bytes(tile, fields: int) -> int:
+    """Dynamic shared memory of a block of an L or B-A1 launch on tiles
+    `tile` whose ring holds `fields` fields (as ``csrc/laplacian_psi.cu``
+    bflbm_laplacian_smem and ``fused_step.cu``'s bflbm_a1_smem): the
+    STENCIL_RING slots of `fields` fields of two species on the (ty + 2)
+    x (tz + 2) cells of the tile with its halo, 4 bytes a float."""
+    ty, tz = (int(v) for v in tuple(tile)[:2])
+    return STENCIL_RING * int(fields) * 2 * (ty + 2) * (tz + 2) * 4
 
 
 def blocked_tile(T: int, shape, sd: int = 1) -> Tuple[int, int, int]:

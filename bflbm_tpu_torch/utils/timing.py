@@ -56,3 +56,22 @@ def event_ms(run: Callable[[], object], calls: int = 1, warmup: int = 1,
         ms = start.elapsed_time(end)
         best = ms if best is None else min(best, ms)
     return best / calls
+
+
+def graph_ms(run: Callable[[], object], calls: int = 1,
+             repeats: int = 3) -> float:
+    """Device milliseconds a call of the work run() enqueues `calls`
+    times, replayed from a CUDA graph of one run(): the launches back to
+    back, without the host's enqueue between them (a wrapper's Python and
+    ctypes cost, which eager timing measures instead where a kernel is
+    shorter than it).  One run() outside the capture first (first-use
+    builds), then event_ms of the replays.  Raises without a CUDA
+    device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_ms measures a CUDA device; none found")
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return event_ms(graph.replay, calls=calls, repeats=repeats)

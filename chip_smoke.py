@@ -57,11 +57,14 @@ Phases (each raises on failure; the script then exits non-zero):
 8. the alpha1 path (K1c: alpha0 = 1.2, alpha1 = 0.5, kappa = 0.1, rho_lo
    = 0.1, rho_hi = 3, the JAX package's alpha1 session configuration):
    (a) the laplacian pre-pass L and the K step B-A1 against their plain
-   versions, max |delta| <= 2e-5, on 32^3 droplets (no noise, u8, clt4;
-   alpha0 0 and 1.2; exact and general tau; with and without the ref
-   operand; the pseudopotential) and on the 256^3 droplet, where A, L,
+   versions, max |delta| <= 2e-5, on 32^3 droplets (no noise, u8, clt4,
+   clt2, Box-Muller; alpha0 0 and 1.2; exact and general tau; with and
+   without the ref operand; the pseudopotential), on 20 x 12 x 40 (the
+   tiles ragged) and on the 256^3 droplet, where A, L,
    B-A1, the triple, their plain versions and a circular ``Conv3d`` with
-   the 19 laplacian taps are timed; (b) the 256^3 alpha1 droplet session
+   the 19 laplacian taps are timed, and L's and B-A1's x-marching tiles
+   printed (tile, x chunk, shared memory a block, time, bound and the
+   share of the bound); (b) the 256^3 alpha1 droplet session
    with kBT = 1e-5 and clt4, 1 + 1100 steps with the restore at step 1000
    (launches of A, L and K, finiteness, masses, the droplet's centre of
    mass, MLUPS); (c) ``run(cfg)`` at 256^3 for 300 steps with frames at
@@ -862,7 +865,7 @@ def _alpha1_vs_plain(f, g, params, dist, ref, tag, errs):
 
 def _alpha1_small(dev, errs):
     """L and B-A1 against plain on perturbed 32^3 droplets in every mode
-    B-A1 has."""
+    B-A1 has, and on 20 x 12 x 40, which no tile divides."""
     from bflbm_tpu_torch.config import LBMParams
 
     general = dict(tau_f=0.7, tau_g=0.6)
@@ -871,6 +874,8 @@ def _alpha1_small(dev, errs):
             ("no noise, alpha0 = 0", dict(alpha0=0.0), "u8", False),
             ("u8", dict(kBT=KBT), "u8", False),
             ("clt4", dict(kBT=KBT), "clt4", False),
+            ("clt2", dict(kBT=KBT), "clt2", False),
+            ("Box-Muller", dict(kBT=KBT), "bm", False),
             ("clt4, alpha0 = 0", dict(kBT=KBT, alpha0=0.0), "clt4", False),
             ("clt4, pseudopotential", dict(kBT=KBT, use_sc_pseudo=True),
              "clt4", False),
@@ -884,6 +889,12 @@ def _alpha1_small(dev, errs):
         f, g = _perturbed_droplet(SMALL, p, 41, dev, radius=0.3)
         ref = _ref_operand(f, g, (2, 3, -1)) if with_ref else None
         _alpha1_vs_plain(f, g, p, dist, ref, f"32^3 droplet, {tag}", errs)
+    for tag, kw in (("clt4", dict(kBT=KBT)),
+                    ("general tau, clt4", dict(general, kBT=KBT))):
+        p = LBMParams(**dict(ALPHA1, **kw))
+        f, g = _perturbed_droplet((20, 12, 40), p, 43, dev, radius=0.3)
+        _alpha1_vs_plain(f, g, p, "clt4", None,
+                         f"20 x 12 x 40 droplet, {tag}", errs)
 
 
 def _library_laplacian(psi):
@@ -916,6 +927,7 @@ def _alpha1_256(dev, cells, errs):
     from bflbm_tpu_torch.kernels import fused_step
     from bflbm_tpu_torch.kernels.session import FusedSession
     from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.utils.timing import graph_ms
 
     acfg = config.preset("droplet-eq").replace(shape=SHAPE).with_params(
         kBT=KBT, **ALPHA1)
@@ -949,6 +961,14 @@ def _alpha1_256(dev, cells, errs):
                                             lap=lap)
 
     t["triple"] = _time_ms(triple_run, cells, NREP)
+    # the device's time of L and B-A1, replayed from a CUDA graph: the
+    # launches back to back, without the gaps the host's enqueue leaves
+    # between short launches
+    t["l_graph"] = graph_ms(lambda: [fused_step.laplacian_psi(psi, out=lap)
+                                     for _ in range(NREP)], NREP)
+    t["b_a1_graph"] = graph_ms(
+        lambda: [fused_step.launch_k(f, g, 1, i, ap, (fo, go), psi, "clt4",
+                                     lap=lap) for i in range(NREP)], NREP)
     t["a_plain"] = _time_ms(
         lambda: fused_step.density_psi_reference(f, g, ap), cells, 1)
     t["l_plain"] = _time_ms(
@@ -968,6 +988,17 @@ def _alpha1_256(dev, cells, errs):
           f"{t['a_plain']:.2f} ms, plain L {t['l_plain']:.2f} ms, plain K "
           f"{t['b_a1_plain']:.2f} ms; library Conv3d laplacian "
           f"{t['l_lib']:.3f} ms (max|conv - L| {lib_err:.3e})", flush=True)
+    for kind in ("l", "b_a1"):
+        ty, tz, xc = fused_step.stencil_tile(kind)
+        smem = fused_step.stencil_smem_bytes(
+            (ty, tz), fused_step.stencil_fields(kind, ap))
+        bound, by = _bound_ms(kind, cells)
+        ms = t[kind + "_graph"]
+        print(f"[phase 8] {kind}: tiles of {ty} x {tz} (y, z) marching "
+              f"{xc} x planes, {smem} B of shared memory a block; "
+              f"{ms:.4f} ms from a CUDA graph ({t[kind]:.4f} eager) against "
+              f"a bound of {bound:.4f} ms ({by}), {bound / ms:.1%} of it",
+              flush=True)
     return t
 
 
@@ -1219,6 +1250,7 @@ def _ext_256(dcfg, dev, cells, errs):
     from bflbm_tpu_torch.ops.blocked import Ext
     from bflbm_tpu_torch.parallel import halo
     from bflbm_tpu_torch.parallel import mesh as mesh_lib
+    from bflbm_tpu_torch.utils.timing import graph_ms
 
     dparams = dcfg.params
     pc = FusedSession(dparams, SHAPE).enter(
@@ -1291,6 +1323,10 @@ def _ext_256(dcfg, dev, cells, errs):
             t["l"] = _time_ms(lambda: [
                 fused_step.laplacian_psi(psis[b], out=laps[b], ext=exts[b])
                 for _ in range(NREP) for b in range(2)], cells, NREP)
+            # the device's time, as phase 8 takes it
+            t["l_graph"] = graph_ms(lambda: [
+                fused_step.laplacian_psi(psis[b], out=laps[b], ext=exts[b])
+                for _ in range(NREP) for b in range(2)], NREP)
             t["l_plain"] = _time_ms(lambda: [
                 fused_step.laplacian_psi_reference(psis[b], exts[b])
                 for b in range(2)], cells, 1)
@@ -1334,7 +1370,8 @@ def _ext_256(dcfg, dev, cells, errs):
     print(f"[phase 9] 256^3 on mesh (2, 1, 1), per step (both blocks): ext A "
           f"{t['a']:.4f} ms (whole-domain A {t['a_whole']:.4f}), ext K "
           f"{t['k']:.4f} ms (whole-domain K {t['k_whole']:.4f}), ext L "
-          f"{t['l']:.4f} ms, ext B-A1 {t['k_a1']:.4f} ms, exchange "
+          f"{t['l']:.4f} ms ({t['l_graph']:.4f} from a CUDA graph), ext "
+          f"B-A1 {t['k_a1']:.4f} ms, exchange "
           f"{t['exchange']:.4f} ms; plain ext A {t['a_plain']:.2f} ms, K "
           f"{t['k_plain']:.2f} ms, L {t['l_plain']:.2f} ms", flush=True)
     return t, k_bits and block_bits
@@ -3862,20 +3899,20 @@ def main() -> int:
             ("bm", "k_step_kernel (coupled, Box-Muller)", "fused_step.cu",
              *mode_ms["bm"], None, flag_launches["bm"], max(new_errs["bm"]),
              "K3: _bm_normals :668 over hash_uniforms :535"),
-            ("l", "laplacian_psi_kernel", "laplacian_psi.cu", a1_ms["l"],
-             a1_ms["l_plain"], a1_ms["l_lib"], a1_l_launches,
-             max(a1_errs["l"]), "K1c lap_ext1 (:810-826)"),
-            ("b_a1", "k_step_kernel (coupled, alpha1, clt4)",
-             "fused_step.cu", a1_ms["b_a1"], a1_ms["b_a1_plain"], None,
-             a1_k_launches, max(a1_errs["b_a1"]),
+            ("l", "laplacian_tile_kernel", "laplacian_psi.cu",
+             a1_ms["l_graph"], a1_ms["l_plain"], a1_ms["l_lib"],
+             a1_l_launches, max(a1_errs["l"]), "K1c lap_ext1 (:810-826)"),
+            ("b_a1", "a1_tile_kernel (coupled, alpha1, clt4)",
+             "fused_step.cu", a1_ms["b_a1_graph"], a1_ms["b_a1_plain"],
+             None, a1_k_launches, max(a1_errs["b_a1"]),
              "K1c: alpha1 square-gradient force (:827-832, :927-934)"),
             ("a_ext", "density_psi_kernel (ext)", "density_psi.cu",
              ext_ms["a"], ext_ms["a_plain"], None, sharded[(2, 1, 1)][1],
              max(ext_errs["a_ext"]),
              "K7 ext_mode (:1155-1160, 1290, 1348): psi on the block and "
              "sd - 1 cells beyond; 256^3 on mesh (2,1,1), both blocks"),
-            ("l_ext", "laplacian_psi_kernel (ext)", "laplacian_psi.cu",
-             ext_ms["l"], ext_ms["l_plain"], None, a1_ext_launches[1],
+            ("l_ext", "laplacian_tile_kernel (ext)", "laplacian_psi.cu",
+             ext_ms["l_graph"], ext_ms["l_plain"], None, a1_ext_launches[1],
              max(ext_errs["l_ext"]),
              "K7 ext_mode with K1c: the laplacian sd - 2 cells beyond the "
              "block; 256^3 on mesh (2,1,1), both blocks"),
@@ -3908,6 +3945,11 @@ def main() -> int:
             "replaces": TPU_KERNEL, "mode": mode, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+        if key in ("l", "b_a1", "l_ext"):
+            record[-1].update(
+                eager_ms=ext_ms["l"] if key == "l_ext" else a1_ms[key],
+                note="ms replayed from a CUDA graph of 20 launches (the "
+                     "device's time); eager_ms through the wrapper")
     for t in K4_BLOCKS:
         key = f"k4_{t}"
         bound, by = _bound_ms(key, cells)

@@ -402,6 +402,150 @@ def test_alpha1_session_matches_cpu(cuda):
         <= ATOL
 
 
+# Kernels L and B-A1 (x-marching tiles) in every mode B-A1 has: keywords
+# over the alpha1 droplet's, the generator, with the ref operand
+_A1_MODES = {
+    "off": (dict(), "u8", False),
+    "u8": (dict(kBT=1e-5), "u8", False),
+    "clt4": (dict(kBT=1e-5), "clt4", False),
+    "clt2": (dict(kBT=1e-5), "clt2", False),
+    "bm": (dict(kBT=1e-5), "bm", False),
+    "ref": (dict(kBT=1e-5), "clt4", True),
+    "general tau": (dict(kBT=1e-5, tau_f=0.7, tau_g=0.6), "clt4", False),
+    "alpha0 = 0": (dict(kBT=1e-5, alpha0=0.0), "clt4", False),
+}
+# (shape, tile of both kernels or None for the table's): a shape no tile of
+# the table divides, and Z = 32 under a 64-wide tile
+_A1_RAGGED = {"20x12x40": ((20, 12, 40), None),
+              "Z 32 under tz 64": ((12, 16, 32), (4, 64, 8))}
+
+
+def _a1_case(shape, mode, dev, seed):
+    kw = dict(_A1_MODES[mode][0])
+    alpha0 = kw.pop("alpha0", 1.2)
+    params, f, g = _alpha1_droplet(shape, dev, seed, alpha0, **kw)
+    ref = (torch.stack([f.sum(0), g.sum(0)]).roll((1, -2, 3), (1, 2, 3))
+           .contiguous() if _A1_MODES[mode][2] else None)
+    return params, f, g, _A1_MODES[mode][1], ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_A1_RAGGED))
+@pytest.mark.parametrize("mode", sorted(_A1_MODES))
+def test_stencil_kernels_on_ragged_tiles_match_plain(cuda, monkeypatch, case,
+                                                     mode):
+    """L and B-A1 on a region their tiles do not divide, within ATOL of
+    plain; another tiling, (2, 128) marching 5 planes, gives the same
+    bits."""
+    shape, tile = _A1_RAGGED[case]
+    for kind in ("l", "b_a1"):
+        if tile is not None:
+            monkeypatch.setitem(fused_step._STENCIL_TILES, kind, tile)
+    params, f, g, dist, ref = _a1_case(shape, mode, cuda, 17)
+    psi = fused_step.density_psi(f, g, params)
+
+    def launch():
+        lap = fused_step.laplacian_psi(psi)
+        out = (torch.full_like(f, float("nan")),
+               torch.full_like(g, float("nan")))
+        fused_step.launch_k(f, g, 4321, 55, params, out, psi, dist, ref,
+                            lap=lap)
+        torch.cuda.synchronize()
+        return lap, out
+
+    fused_step.reset_launch_counts()
+    lap, (fo, go) = launch()
+    assert (fused_step.laplacian_launches, fused_step.launches,
+            fused_step.mode_launches["alpha1"]) == (1, 1, 1)
+    assert _maxdiff(lap, fused_step.laplacian_psi_reference(psi)) <= ATOL
+    fr, gr = fused_step.k_step_reference(f, g, 4321, 55, params, dist, ref)
+    assert max(_maxdiff(fo, fr), _maxdiff(go, gr)) <= ATOL
+    for kind in ("l", "b_a1"):
+        monkeypatch.setitem(fused_step._STENCIL_TILES, kind, (2, 128, 5))
+    lap2, (fo2, go2) = launch()
+    assert torch.equal(lap2, lap)
+    assert torch.equal(fo2, fo) and torch.equal(go2, go)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 1)])
+def test_alpha1_ext_and_windows_on_ragged_shape(cuda, mesh_shape):
+    """On 20 x 12 x 40 (clt4): ext L and B-A1 on every block, their
+    interiors bitwise the whole-domain launches'; on (2, 1, 1), whose
+    blocks the forced overlap split cuts on every axis, L and B-A1
+    launched on each window into NaN outputs write exactly it, bitwise
+    the whole-block ext launch."""
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+
+    shape = (20, 12, 40)
+    params, f, g, dist, _ = _a1_case(shape, "clt4", cuda, 19)
+    psi_w = fused_step.density_psi(f, g, params)
+    lap_w = fused_step.laplacian_psi(psi_w)
+    whole = fused_step.fused_stream_collide(f, g, 97, 13, params,
+                                            noise_dist=dist)
+    mesh = mesh_lib.make_mesh(mesh_shape, cuda)
+    lay = kernel_par.layout(mesh, shape, params, "force")
+    assert any(lay.split) == (mesh_shape == (2, 1, 1))
+    pad = lay.pad if any(lay.split) else mesh.pads(3)
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+    halo.exchange_halo(ss.blocks, mesh, pad)
+    exts = halo.block_exts(mesh, shape, pad)
+
+    def nan(lead, like):
+        return torch.full((lead,) + tuple(like.shape[1:]), float("nan"),
+                          device=cuda)
+
+    for blk, ext in zip(ss.blocks, exts):
+        fb, gb = blk[0], blk[1]
+        psi = fused_step.density_psi(fb, gb, params, ext=ext)
+        lap = fused_step.laplacian_psi(psi, ext=ext)
+        fo, go = fused_step.launch_k(fb, gb, 97, 13, params,
+                                     (nan(19, fb), nan(19, fb)), psi, dist,
+                                     lap=lap, ext=ext)
+        torch.cuda.synchronize()
+        o, n = ext.origin, ext.interior(fb.shape)
+        cells = (slice(None),) + tuple(slice(a, a + k) for a, k in zip(o, n))
+        assert torch.equal(ext.region(lap), lap_w[cells])
+        assert torch.equal(ext.region(fo), whole[0][cells])
+        assert torch.equal(ext.region(go), whole[1][cells])
+        if not any(lay.split):
+            continue
+        inner, bands = kernel_par.split_windows(lay, fb.shape, 3)
+        for win in [inner] + bands:
+            _, l_win = fused_step.prepass_windows(params, ext, fb.shape, win)
+            got = fused_step.laplacian_psi(psi, out=nan(2, fb), ext=ext,
+                                           window=l_win)
+            out = (nan(19, fb), nan(19, fb))
+            fused_step.launch_k(fb, gb, 97, 13, params, out, psi, dist,
+                                lap=lap, ext=ext, window=win)
+            torch.cuda.synchronize()
+            for t, want, w in ((got, lap, l_win), (out[0], fo, win),
+                               (out[1], go, win)):
+                assert torch.equal(blocked.box_view(t, w),
+                                   blocked.box_view(want, w))
+                assert int(torch.isnan(t).sum()) == t.numel() \
+                    - blocked.box_view(t, w).numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(_A1_MODES))
+def test_alpha1_blocked_launch_is_one_step_launches(cuda, mode):
+    """An alpha1 K4 launch of T = 2 steps on 20 x 12 x 40 is bitwise two
+    one-step A + L + B-A1 launches with the same words."""
+    shape = (20, 12, 40)
+    params, f, g, dist, ref = _a1_case(shape, mode, cuda, 23)
+    words = [911, -37]
+    fo, go = fused_step.blocked_stream_collide(f, g, words, 40, params, 2,
+                                               noise_dist=dist, ref=ref)
+    fa, ga = f, g
+    for s, w in enumerate(words):
+        fa, ga = fused_step.fused_stream_collide(fa, ga, w, 40 + s, params,
+                                                 noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    assert torch.equal(fo, fa) and torch.equal(go, ga)
+
+
 @pytest.mark.gpu
 def test_native_frames_of_card_tensors(cuda, tmp_path):
     """write_frame(fmt="native") and the async writer take the card's

@@ -68,7 +68,8 @@ def render() -> str:
         _vector("kLatGW", np.asarray(W / CS2, np.float32), _float),
         "",
         "// kLatW[i]: w_i, and kLatWSum = sum_{i>=1} w_i, kLatTwoCs2 = 2 / cs^2:",
-        "// the laplacian's weights (kernels/fused_step.py _LAP_W)",
+        "// the laplacian's weights (csrc/laplacian_psi.cu, lap_ext1's float32",
+        "// values)",
         _vector("kLatW", np.asarray(W, np.float32), _float),
         "constexpr float kLatWSum = "
         + _float(sum(float(w) for w in W[1:])) + ";",

@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
-"""Times of the whole-domain K kernels at 256^3 on one CUDA card: K1a
-(uncoupled, u8, on a perturbed mixture) and, on a perturbed droplet
-(alpha0 = 1.5), the coupled pair's kernel B (clt4), B with general tau
-(K1d, tau_f 0.7, tau_g 0.6), B with Box-Muller and B-A1 (alpha0 1.2,
-alpha1 0.5, clt4), 20 launches a run, best of 3 between
-``torch.cuda.synchronize`` barriers, as ``chip_smoke.py`` times them.
-Prints the card and one JSON line.
+"""Times of the whole-domain K kernels and of kernel L at 256^3 on one
+CUDA card: K1a (uncoupled, u8, on a perturbed mixture) and, on a perturbed
+droplet (alpha0 = 1.5), the coupled pair's kernel B (clt4), B with general
+tau (K1d, tau_f 0.7, tau_g 0.6), B with Box-Muller, and on the alpha1
+droplet (alpha0 1.2, alpha1 0.5, clt4) B-A1 and L (on the density
+pre-pass's psi of the same state), and the same two in their ext mode on
+the two blocks of mesh (2, 1, 1) on the card (``l_ext``, ``b_a1_ext``: a
+step's launches on both blocks); 20 launches (steps) a run, best of 3
+between ``torch.cuda.synchronize`` barriers, as ``chip_smoke.py`` times
+them, and (``*_graph_ms``) replayed from a CUDA graph of the 20
+launches, which leaves out the host's enqueue between them (the wrappers'
+Python and ctypes cost, which bounds the eager time of a kernel shorter
+than it; ``l_enqueue_us`` is L's, the host time of a call without a
+barrier).  Beside each time, the SHA-256 of the kernel's output tensors
+on its fixed input (one launch, word 1, step 0): two builds whose digests
+agree compute the same bits.  Prints the card and one JSON line.
 
 The package is whichever ``bflbm_tpu_torch`` the interpreter finds first,
 so two checkouts are compared in one call by running it in turns:
@@ -15,12 +24,48 @@ so two checkouts are compared in one call by running it in turns:
 """
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
+import time
 
 SHAPE = (256, 256, 256)
 NREP = 20
+
+
+def digest(*ts) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def graph_ms(run, calls):
+    """Device ms a call of the `calls` launches run() makes, replayed from
+    a CUDA graph of one run(): best of 3 replays between CUDA events.
+    Written here, not imported, so that the tool also runs on trees whose
+    package has no such helper."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    graph.replay()
+    best = None
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        best = ms if best is None else min(best, ms)
+    return best / calls
 
 
 def main() -> int:
@@ -33,6 +78,9 @@ def main() -> int:
     from bflbm_tpu_torch.config import LBMParams
     from bflbm_tpu_torch.kernels import fused_step
     from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.parallel import halo
+    from bflbm_tpu_torch.parallel import mesh as mesh_lib
+    from bflbm_tpu_torch.state import init_state
     from bflbm_tpu_torch.utils.timing import time_steps
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -41,6 +89,48 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
     out = {"package": bflbm_tpu_torch.__file__}
+
+    def ext_times(f, g, params, dist):
+        """L and B-A1 on the two halo-extended blocks of mesh (2, 1, 1):
+        digests of both blocks' outputs, ms a step (both blocks)."""
+        mesh = mesh_lib.make_mesh((2, 1, 1), dev)
+        pad = mesh.pads(fused_step.sd_depth(params))
+        ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+        halo.exchange_halo(ss.blocks, mesh, pad)
+        exts = halo.block_exts(mesh, SHAPE, pad)
+        fgs = [(b[0], b[1]) for b in ss.blocks]
+        psis = [fused_step.density_psi(fb, gb, params, ext=e)
+                for (fb, gb), e in zip(fgs, exts)]
+        laps = [fused_step.laplacian_psi(p, ext=e)
+                for p, e in zip(psis, exts)]
+        outs = [(torch.empty_like(fb), torch.empty_like(gb))
+                for fb, gb in fgs]
+
+        def k_run(i):
+            for b, e in enumerate(exts):
+                fused_step.launch_k(*fgs[b], 1, i, params, outs[b], psis[b],
+                                    dist, lap=laps[b], ext=e)
+
+        k_run(0)
+        res = {"l_ext_sha256": digest(*[e.region(lp, 2)
+                                        for lp, e in zip(laps, exts)]),
+               "b_a1_ext_sha256": digest(*[e.region(t) for o, e in
+                                           zip(outs, exts) for t in o])}
+        def l_run():
+            for _ in range(NREP):
+                for p, lp, e in zip(psis, laps, exts):
+                    fused_step.laplacian_psi(p, out=lp, ext=e)
+
+        def b_run():
+            for i in range(NREP):
+                k_run(i)
+
+        for key, run in (("l_ext", l_run), ("b_a1_ext", b_run)):
+            res[key + "_ms"] = time_steps(run, cells, NREP)["best_s"] \
+                / NREP * 1e3
+            res[key + "_graph_ms"] = graph_ms(run, NREP)
+        return res
+
     mix = LBMParams(kBT=1e-5)
     drop = LBMParams(alpha0=1.5, kappa=0.1, rho_lo=0.0, rho_hi=3.0, kBT=1e-5)
     droplet = model.init_droplet(SHAPE, drop, radius=0.2, device="cpu")
@@ -64,7 +154,26 @@ def main() -> int:
                 fused_step.launch_k(f, g, 1, i, params, (fo, go), psi, dist,
                                     lap=lap)
 
+        fused_step.launch_k(f, g, 1, 0, params, (fo, go), psi, dist, lap=lap)
+        out[key + "_sha256"] = digest(fo, go)
         out[key + "_ms"] = time_steps(run, cells, NREP)["best_s"] / NREP * 1e3
+        out[key + "_graph_ms"] = graph_ms(run, NREP)
+        if lap is not None:
+            out["l_sha256"] = digest(lap)
+
+            def l_run():
+                for _ in range(NREP):
+                    fused_step.laplacian_psi(psi, out=lap)
+
+            out["l_ms"] = time_steps(l_run, cells, NREP)["best_s"] \
+                / NREP * 1e3
+            out["l_graph_ms"] = graph_ms(l_run, NREP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            l_run()
+            out["l_enqueue_us"] = (time.perf_counter() - t0) / NREP * 1e6
+            torch.cuda.synchronize()
+            out.update(ext_times(f, g, params, dist))
         del f, g, fo, go, psi, lap
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
