@@ -233,6 +233,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                          f, f, f, f, f, i, i, p, f, f, f,
                                          f, p, p, i, p, p]
         lib.bflbm_fused_step.restype = i
+    if hasattr(lib, "bflbm_bm_normals"):
+        lib.bflbm_bm_normals.argtypes = [i, p, p, i, i, p]
+        lib.bflbm_bm_normals.restype = i
     if hasattr(lib, "bflbm_a1_smem"):
         lib.bflbm_a1_smem.argtypes = [i, i, i]
         lib.bflbm_a1_smem.restype = ll

@@ -655,16 +655,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           float rho = 0.0f, phi = 0.0f;
           float jf[3] = {0.0f, 0.0f, 0.0f};
           float jg[3] = {0.0f, 0.0f, 0.0f};
-          float mf[Q], mg[Q];
-          if (GENERAL) {
-#pragma unroll
-            for (int q = 4; q < Q; ++q) mf[q] = mg[q] = 0.0f;
-          }
+          // the streamed populations, kept for GENERAL's relaxation
+          float fv[Q], gv[Q];
           if (s == 0 && STRIPS) {
             // strip-fed: every load first (from the strips where its row
             // lies in the y halo), then the sums
             const StripRows rows(args, yw);
-            float fv[Q], gv[Q];
 #pragma unroll
             for (int i = 0; i < Q; ++i)
               rows.load(args, i, ImmTables::c(i, 1),
@@ -673,9 +669,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                         gv[i]);
 #pragma unroll
             for (int i = 0; i < Q; ++i)
-              pull_add<GENERAL, ImmTables>(
-                  i, ImmTables::c(i, 0), ImmTables::c(i, 1),
-                  ImmTables::c(i, 2), fv[i], gv[i], rho, phi, jf, jg, mf, mg);
+              pull_add(ImmTables::c(i, 0), ImmTables::c(i, 1),
+                       ImmTables::c(i, 2), fv[i], gv[i], rho, phi, jf, jg);
           } else if (s == 0) {
             // pull from device memory, periodic
 #pragma unroll
@@ -686,10 +681,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                                                          wrap(yw - cy_, Y),
                                                          wrap(zw - cz_, Z),
                                                          Y, Z);
-              const float fi = __ldg(args.fin + src);
-              const float gi = __ldg(args.gin + src);
-              pull_add<GENERAL, ImmTables>(i, cx, cy_, cz_, fi, gi, rho, phi,
-                                           jf, jg, mf, mg);
+              fv[i] = __ldg(args.fin + src);
+              gv[i] = __ldg(args.gin + src);
+              pull_add(cx, cy_, cz_, fv[i], gv[i], rho, phi, jf, jg);
             }
           } else {
             // pull from phase s - 1's plane x - cx in shared memory
@@ -699,10 +693,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
                         cz_ = ImmTables::c(i, 2);
               const float* src = (cx > 0 ? below : (cx < 0 ? above : here)) +
                                  (j + SD - cy_) * qnz + (l + SD - cz_);
-              const float fi = src[i * qn];
-              const float gi = src[(Q + i) * qn];
-              pull_add<GENERAL, ImmTables>(i, cx, cy_, cz_, fi, gi, rho, phi,
-                                           jf, jg, mf, mg);
+              fv[i] = src[i * qn];
+              gv[i] = src[(Q + i) * qn];
+              pull_add(cx, cy_, cz_, fv[i], gv[i], rho, phi, jf, jg);
             }
           }
           const size_t idx = cell_offset(xw, yw, zw, Y, Z);
@@ -725,9 +718,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
             oplane = static_cast<size_t>(ncell);
             oidx = static_cast<size_t>(cell);
           }
+#define K_PULLED(S, I) ((S) == 0 ? fv[I] : gv[I])
           BFLBM_COLLIDE_CELL_WITH(args, word, step, kx, ky, kz, fo, go,
                                   oplane, oidx, ImmTables,
-                                  SHARED_FORCES);
+                                  SHARED_FORCES, K_PULLED);
+#undef K_PULLED
           if (STRIPS && last && args.ys.out != nullptr &&
               (yw < args.ys.y_lo + args.ys.rows ||
                yw >= args.ys.y_hi - args.ys.rows))

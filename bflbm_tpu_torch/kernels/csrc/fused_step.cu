@@ -17,10 +17,14 @@
 //     density; with alpha0 = 0 the Shan-Chen term is skipped.  A kernel of
 //     its own design, a1_tile_kernel (below);
 //   - GENERAL: K1d, general relaxation (fused_step.py:843-851, 1051-1064):
-//     all 19 moments of the streamed populations, rows k < 10 relaxed
-//     towards m_eq at 1 / (tau + 1/2), ghost rows towards 0, the Guo rows
-//     and the noise added after; without it the exact relaxation of
-//     tau_f = tau_g = 1/2 (only the four conserved moments are consumed);
+//     every moment k >= 1 of the streamed populations relaxes at the one
+//     rate lam = 1 / (tau + 1/2), rows k < 10 towards m_eq and ghost rows
+//     towards 0, the Guo rows and the noise added after.  Since M_INV M =
+//     1, that is f' = (1 - lam) f + M_INV q with q = lam m_eq + Guo + xi
+//     (q_0 = lam rho) in population space: the streamed populations are
+//     kept from the pull and no forward transform is taken (k_cell.cuh
+//     store_relaxed).  Without it the exact relaxation of tau_f = tau_g =
+//     1/2;
 //   - REF: K1e, USE_REF_STATE (fused_step.py:944-951, 1808-1817): the
 //     noise amplitudes read the COM-rolled (rho_eq, phi_eq) from a
 //     (2, X, Y, Z) operand instead of the live densities;
@@ -59,7 +63,7 @@
 // writes as many back, 2 * 19 * 4 * 2 = 304 bytes (312 coupled, with psi;
 // 320 under A1, with the laplacian; 8 more with the ref operand), against
 // roughly 1,500-3,000 operations (the two 18x19 back transforms, the hash
-// words; GENERAL adds two 15x19 forward transforms).  The design keeps ONE
+// words; GENERAL adds 19 FMAs a species).  The design keeps ONE
 // pass over memory per step: each thread pulls its 38 inputs straight from
 // device memory (the neighbours' overlapping reads, of populations, of psi
 // and of its laplacian, are served by L1/L2), keeps every intermediate in
@@ -70,14 +74,16 @@
 //
 // Per cell: pull stream (periodic wrap, or from the pads); the four
 // conserved moments of each species (the densities summed in the order
-// i = 0..18, as the density pre-pass sums them), and under GENERAL the 15
-// other rows through M; coupled: the 19-point isotropic gradient grad psi
-// = sum_i (w_i / cs^2) c_i psi(x + c_i) and the accelerations a_f = -cs^2
+// i = 0..18, as the density pre-pass sums them), and under GENERAL the 38
+// streamed populations kept in registers; coupled: the 19-point isotropic
+// gradient grad psi = sum_i (w_i / cs^2) c_i psi(x + c_i) and the
+// accelerations a_f = -cs^2
 // alpha0 psi(rho) grad psi(phi) / rho, a_g likewise; real velocities with
 // the friction, force and 0.5 xi / rho noise terms; barycentric
-// equilibrium; post-collide moments; back transform of rows 1..18 with
-// M_INV and the rest population by telescoping, f_0 = m_0 - sum_{i>=1}
-// f_i.
+// equilibrium; post-collide moments (under GENERAL their relaxed part q);
+// back transform of rows 1..18 with M_INV (under GENERAL added to (1 -
+// lam) times the streamed population) and the rest population by
+// telescoping, f_0 = m_0 - sum_{i>=1} f_i.
 //
 // Noise bits are those of the JAX package's hash stream: h1 = mix32(cell ^
 // word) with cell = (gx*GY + gy)*GZ + gz in uint32, (gx, gy, gz) the global
@@ -87,7 +93,8 @@
 // a under clt4 (33 words), half a % 2 of word a / 2 under clt2 (17 words),
 // and under Box-Muller the cosine (even a) or sine (odd a) normal of pair
 // a / 2, whose radius comes from the uniform of word 2p and whose angle
-// from that of word 2p + 1 (34 words, the 34th normal unused).
+// from that of word 2p + 1 (34 words, the 34th normal unused), each pair
+// made when the cell, which asks for the draws in order, first needs it.
 //
 // Tables: C, M, M_INV and the gradient weights w_i / cs^2 live in
 // __constant__ memory, filled once per device by bflbm_set_tables from the
@@ -169,18 +176,16 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
   const size_t plane = static_cast<size_t>(X) * Y * Z;
   const size_t idx = cell_offset(x, y, z, Y, Z);
 
-  // Pull stream: population i at x is the input's at x - c_i.  Exact
-  // relaxation consumes only the four conserved moments of the streamed
-  // populations; GENERAL also accumulates rows 4..18 through M.  All are
-  // accumulated as the loads arrive.
+  // Pull stream: population i at x is the input's at x - c_i.  Only the
+  // four conserved moments of the streamed populations are consumed,
+  // accumulated as the loads arrive; GENERAL also stages the populations
+  // in shared memory, [i][thread] (pulled), which its relaxation reads
+  // back at the store: kept in registers instead they took the uncoupled
+  // kernel to 127 registers against 72 and 9% more time (H100).
   float rho = 0.0f, phi = 0.0f;
   float jf[3] = {0.0f, 0.0f, 0.0f};
   float jg[3] = {0.0f, 0.0f, 0.0f};
-  float mf[Q], mg[Q];
-  if (GENERAL) {
-#pragma unroll
-    for (int k = 4; k < Q; ++k) mf[k] = mg[k] = 0.0f;
-  }
+  extern __shared__ float pulled[];   // GENERAL: [2 Q][BLOCK]
   if (EXT && p.ys.in != nullptr &&
       (y - 1 < p.ys.y_lo || y + 1 >= p.ys.y_hi)) {
     // a row next to the y halo (the strips exchange): a pull across it
@@ -203,7 +208,11 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
         fi = __ldg(p.fin + src);
         gi = __ldg(p.gin + src);
       }
-      pull_add<GENERAL>(i, cx, cy, cz, fi, gi, rho, phi, jf, jg, mf, mg);
+      if (GENERAL) {
+        pulled[i * BLOCK + threadIdx.x] = fi;
+        pulled[(Q + i) * BLOCK + threadIdx.x] = gi;
+      }
+      pull_add(cx, cy, cz, fi, gi, rho, phi, jf, jg);
     }
   } else {
 #pragma unroll
@@ -214,16 +223,45 @@ __global__ void __launch_bounds__(BLOCK) k_step_kernel(const Args p) {
                                                  wrap(z - cz, Z), Y, Z);
       const float fi = __ldg(p.fin + src);
       const float gi = __ldg(p.gin + src);
-      pull_add<GENERAL>(i, cx, cy, cz, fi, gi, rho, phi, jf, jg, mf, mg);
+      if (GENERAL) {
+        pulled[i * BLOCK + threadIdx.x] = fi;
+        pulled[(Q + i) * BLOCK + threadIdx.x] = gi;
+      }
+      pull_add(cx, cy, cz, fi, gi, rho, phi, jf, jg);
     }
   }
 
+#define K_PULLED(S, I) pulled[((S) * Q + (I)) * BLOCK + threadIdx.x]
   BFLBM_COLLIDE_CELL(p, p.word, p.step, x, y, z, p.fout, p.gout, plane, idx,
-                     ConstTables);
+                     ConstTables, K_PULLED);
+#undef K_PULLED
   if (EXT && p.ys.out != nullptr &&
       (y < p.ys.y_lo + p.ys.rows || y >= p.ys.y_hi - p.ys.rows))
     copy_to_strips(p.ys, p.fout, p.gout, plane, idx, x, y, z, X, Z);
 }
+
+#if !BFLBM_GENERAL_RELAX && !BFLBM_FORCE
+// Box-Muller's deviates on their own: the NDRAWS normals of every cell of
+// an (X, Y, Z) domain (hash keys as K's whole-domain launch takes them),
+// drawn in the order K draws them (Draws<DIST_BM>), into out[a * plane +
+// idx].  On no step's path: it holds the generator against its plain
+// version (bflbm_bm_normals).
+__global__ void __launch_bounds__(BLOCK)
+    bm_normals_kernel(float* __restrict__ out, const Region r, int Y, int Z,
+                      uint32_t word, uint32_t step) {
+  int x, y, z;
+  if (!region_cell<false>(Z, r, x, y, z)) return;
+  const size_t plane = static_cast<size_t>(r.nx) * Y * Z;
+  const size_t idx = cell_offset(x, y, z, Y, Z);
+  const uint32_t cell = (static_cast<uint32_t>(x) * static_cast<uint32_t>(Y) +
+                         static_cast<uint32_t>(y)) * static_cast<uint32_t>(Z) +
+                        static_cast<uint32_t>(z);
+  const Draws<DIST_BM> draw(mix32(cell ^ word), step * DRAW_STRIDE);
+  const NoiseCoef nc = {};
+#pragma unroll
+  for (int a = 0; a < NDRAWS; ++a) out[a * plane + idx] = draw(a, nc);
+}
+#endif
 
 #if BFLBM_A1
 constexpr int MAX_DEVICES = 64;
@@ -276,13 +314,15 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, A1_MIN_BLOCKS)
     float rho = 0.0f, phi = 0.0f;
     float jf[3] = {0.0f, 0.0f, 0.0f};
     float jg[3] = {0.0f, 0.0f, 0.0f};
-    float mf[Q], mg[Q];
-    if (GENERAL) {
-#pragma unroll
-      for (int q = 4; q < Q; ++q) mf[q] = mg[q] = 0.0f;
-    }
+    // GENERAL keeps the streamed populations for its relaxation, in
+    // registers (the strips rows' loop unrolled for it), though they
+    // spill: staged in shared memory after the ring instead, as
+    // k_step_kernel stages them, the kernel ran 22% slower on the whole
+    // domain and 20% on blocks (256^3, H100, tools/kernel_times.py
+    // b_a1_general on both builds) and still spilled 30-230 B a thread
+    float fv[Q], gv[Q];
     if (near_strips) {
-#pragma unroll 1
+#pragma unroll(GENERAL ? Q : 1)
       for (int i = 0; i < Q; ++i) {
         const int cx = c_C[i][0], cy = c_C[i][1], cz = c_C[i][2];
         float fi, gi;
@@ -299,7 +339,11 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, A1_MIN_BLOCKS)
           fi = __ldg(p.fin + src);
           gi = __ldg(p.gin + src);
         }
-        pull_add<GENERAL>(i, cx, cy, cz, fi, gi, rho, phi, jf, jg, mf, mg);
+        if (GENERAL) {
+          fv[i] = fi;
+          gv[i] = gi;
+        }
+        pull_add(cx, cy, cz, fi, gi, rho, phi, jf, jg);
       }
     } else {
 #pragma unroll
@@ -309,10 +353,9 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, A1_MIN_BLOCKS)
         const size_t src = i * plane + cell_offset(wrap(x - cx, X),
                                                    wrap(y - cy, Y),
                                                    wrap(z - cz, Z), Y, Z);
-        const float fi = __ldg(p.fin + src);
-        const float gi = __ldg(p.gin + src);
-        pull_add<GENERAL, ImmTables>(i, cx, cy, cz, fi, gi, rho, phi, jf,
-                                     jg, mf, mg);
+        fv[i] = __ldg(p.fin + src);
+        gv[i] = __ldg(p.gin + src);
+        pull_add(cx, cy, cz, fv[i], gv[i], rho, phi, jf, jg);
       }
     }
 
@@ -324,8 +367,10 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, A1_MIN_BLOCKS)
       lap_x[d] = ring + ((k + d) % TILE_RING) * (fields * 2 * w.hn);
       psi_x[d] = lap_x[d] + 2 * w.hn;
     }
+#define K_PULLED(S, I) ((S) == 0 ? fv[I] : gv[I])
     BFLBM_COLLIDE_CELL_WITH(p, p.word, p.step, x, y, z, p.fout, p.gout,
-                            plane, idx, ImmTables, SHARED_FORCES);
+                            plane, idx, ImmTables, SHARED_FORCES, K_PULLED);
+#undef K_PULLED
     if (EXT && p.ys.out != nullptr &&
         (y < p.ys.y_lo + p.ys.rows || y >= p.ys.y_hi - p.ys.rows))
       copy_to_strips(p.ys, p.fout, p.gout, plane, idx, x, y, z, X, Z);
@@ -366,11 +411,14 @@ int launch(const Launch& l, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 #else
+// GENERAL's staging of the streamed populations: 2 Q floats a thread
+constexpr size_t PULLED_SMEM = 2 * Q * BLOCK * sizeof(float);
+
 template <bool NOISE, int DIST, bool FORCE, bool GENERAL, bool REF, bool A1,
           bool EXT>
 int launch(const Launch& l, const Args& a) {
   k_step_kernel<NOISE, DIST, FORCE, GENERAL, REF, A1, EXT>
-      <<<l.grid, BLOCK, 0, l.s>>>(a);
+      <<<l.grid, BLOCK, GENERAL ? PULLED_SMEM : 0, l.s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -515,6 +563,23 @@ extern "C" int bflbm_fused_step(int device, const float* fin,
     return launch_mode<kForce, kGeneral, kA1, true>(noise_on, dist, l, a);
   return launch_mode<kForce, kGeneral, kA1, false>(noise_on, dist, l, a);
 }
+
+#if !BFLBM_GENERAL_RELAX && !BFLBM_FORCE
+// The NDRAWS Box-Muller deviates of every cell of an (X, Y, Z) domain (shape
+// = host {X, Y, Z}) for noise word `word` at step label `step`, into out
+// (NDRAWS, X, Y, Z) float32 on the device, in K's draw order.
+extern "C" int bflbm_bm_normals(int device, float* out, const int* shape,
+                                int word, int step, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return static_cast<int>(guard.status());
+  const Region r{0, 0, 0, shape[0], shape[1], shape[2]};
+  bm_normals_kernel<<<cell_grid(r), BLOCK, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      out, r, shape[1], shape[2], static_cast<uint32_t>(word),
+      static_cast<uint32_t>(step));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 #if BFLBM_A1
 // Dynamic shared memory bytes of a block on (ty, tz) tiles whose ring

@@ -28,19 +28,19 @@ constexpr float TWO_PI = 6.283185307179586f;
 enum Dist : int { DIST_U8 = 0, DIST_CLT4 = 1, DIST_CLT2 = 2, DIST_BM = 3 };
 
 __constant__ int c_C[Q][3];
+// M: no kernel reads it (general relaxation runs in population space, with
+// M_INV alone); bflbm_set_tables fills it, and its place in the constant
+// bank is the one the other tables' offsets are compiled against.
 __constant__ float c_M[Q][Q];
 __constant__ float c_MINV[Q][Q];
 __constant__ float c_GW[Q];     // w_i / cs^2, the gradient weights
 
 // Where the cell arithmetic reads the lattice tables: a class with static
-// c(i, d), m(k, i) and minv(i, k).  ConstTables: the __constant__ tables
-// above (the one-step kernels, where each read becomes a constant-bank
-// operand); csrc/blocked_step.cu has its own.
+// c(i, d) and minv(i, k).  ConstTables: the __constant__ tables above (the
+// one-step kernels, where each read becomes a constant-bank operand);
+// csrc/stencil_tile.cuh has ImmTables.
 struct ConstTables {
   static __device__ __forceinline__ int c(int i, int d) { return c_C[i][d]; }
-  static __device__ __forceinline__ float m(int k, int i) {
-    return c_M[k][i];
-  }
   static __device__ __forceinline__ float minv(int i, int k) {
     return c_MINV[i][k];
   }
@@ -165,29 +165,37 @@ __device__ __forceinline__ float hash_uniform(uint32_t w) {
          (0.5f / 16777216.0f);
 }
 
+// Box-Muller: the normals of pair p are the cosine (draw 2p) and sine (draw
+// 2p + 1) of the angle 2 pi u(word 2p + 1) at radius sqrt(-2 log u(word
+// 2p)).  A pair is made when its even draw is asked for, and its sine kept
+// for the odd draw that must follow it: the cell asks for the draws in
+// order (BFLBM_COLLIDE_CELL_WITH), so one normal is live at a time.  Draw
+// 32 ends the stream: its pair's sine is never used, so it takes cosf.
+// The order is the caller's contract, unchecked: odd draw a must come
+// right after even draw a - 1 of the same object, or it returns another
+// pair's sine.  Taking both normals of a pair at once (a stateless
+// pair(p)) kept the one-step kernels' bits but moved B-A1's rounding
+// away from the alpha1 K4 launch's (H100), so the stateful form stays.
 template <>
 struct Draws<DIST_BM> {
-  float n[NDRAWS];
-  __device__ __forceinline__ Draws(uint32_t h1, uint32_t sbase) {
-#pragma unroll
-    for (int p = 0; p < NPAIR_BM; ++p) {
-      const float u1 = hash_uniform(hash_word(h1, sbase, 2 * p));
-      const float u2 = hash_uniform(hash_word(h1, sbase, 2 * p + 1));
-      const float r = sqrtf(-2.0f * logf(u1));
-      const float th = TWO_PI * u2;
-      if (2 * p + 1 < NDRAWS) {
-        float sn, cs;
-        sincosf(th, &sn, &cs);
-        n[2 * p] = r * cs;
-        n[2 * p + 1] = r * sn;
-      } else {
-        n[2 * p] = r * cosf(th);
-      }
-    }
-  }
+  uint32_t h1, sbase;
+  mutable float sine;
+  __device__ __forceinline__ Draws(uint32_t h1_, uint32_t sbase_)
+      : h1(h1_), sbase(sbase_), sine(0.0f) {}
   __device__ __forceinline__ float operator()(int a,
                                               const NoiseCoef&) const {
-    return n[a];
+    if (a & 1) return sine;
+    const float u1 = hash_uniform(hash_word(h1, sbase, a));
+    const float u2 = hash_uniform(hash_word(h1, sbase, a + 1));
+    const float r = sqrtf(-2.0f * logf(u1));
+    const float th = TWO_PI * u2;
+    if (a + 1 < NDRAWS) {
+      float sn, cs;
+      sincosf(th, &sn, &cs);
+      sine = r * sn;
+      return r * cs;
+    }
+    return r * cosf(th);
   }
 };
 
@@ -230,12 +238,13 @@ __device__ __forceinline__ void guo_moments(float n, const float (&u)[3],
   ph[9] = sn * (a[0] * u[2] + a[2] * u[0]);
 }
 
-// Post-collide moments of one species.  Exact relaxation: momentum and
+// Post-collide moments of one species, exact relaxation: momentum and
 // stress rows m_eq + Guo + xi, ghost rows pure noise, the mass row without
-// noise.  GENERAL (fused_step.py:1051-1064): rows k < 10 relax towards m_eq
-// and ghost rows towards 0 at rate lam, r = lam (m_eq - m) (+ Guo on rows
-// 1..9), m + r, then + xi.  m holds the streamed moments under GENERAL and
-// is overwritten with the result.
+// noise.  Under GENERAL (fused_step.py:1051-1064) every row k >= 1 relaxes
+// at the one rate lam, rows k < 10 towards m_eq and the ghost rows towards
+// 0, so m' = (1 - lam) m + q with q = lam m_eq (+ Guo on rows 1..9) (+ xi)
+// and q_0 = lam n (m'_0 = n): m is overwritten with q, which
+// store_relaxed takes to populations beside the streamed ones.
 template <bool NOISE, bool FORCE, bool GENERAL>
 __device__ __forceinline__ void post_collide(float n, const float (&vb)[3],
                                              const float (&u)[3],
@@ -246,25 +255,15 @@ __device__ __forceinline__ void post_collide(float n, const float (&vb)[3],
   eq_moments(n, vb, meq);
   float ph[10];
   if (FORCE) guo_moments(n, u, a, s, ph);
-  if (GENERAL) {
+  m[0] = GENERAL ? lam * n : meq[0];
 #pragma unroll
-    for (int k = 1; k < Q; ++k) {
-      float r = k < 10 ? lam * (meq[k] - m[k]) : -lam * m[k];
-      if (FORCE && k < 10) r = r + ph[k];
-      m[k] = m[k] + r;
-      if (NOISE) m[k] = m[k] + xi[k];
-    }
-  } else {
-    m[0] = meq[0];
-#pragma unroll
-    for (int k = 1; k < 10; ++k) {
-      m[k] = meq[k];
-      if (FORCE) m[k] = m[k] + ph[k];
-      if (NOISE) m[k] = m[k] + xi[k];
-    }
-#pragma unroll
-    for (int k = 10; k < Q; ++k) m[k] = NOISE ? xi[k] : 0.0f;
+  for (int k = 1; k < 10; ++k) {
+    m[k] = GENERAL ? lam * meq[k] : meq[k];
+    if (FORCE) m[k] = m[k] + ph[k];
+    if (NOISE) m[k] = m[k] + xi[k];
   }
+#pragma unroll
+  for (int k = 10; k < Q; ++k) m[k] = NOISE ? xi[k] : 0.0f;
 }
 
 // Moments -> populations: rows 1..18 through M_INV, the rest population by
@@ -286,14 +285,35 @@ __device__ __forceinline__ void store_pops(const float (&m)[Q],
   out[idx] = m[0] - s;
 }
 
-// One pulled population pair (fi, gi) of direction i = (cx, cy, cz) into
-// the densities and momenta, and under GENERAL the other rows of M.
-template <bool GENERAL, class Tab = ConstTables>
-__device__ __forceinline__ void pull_add(int i, int cx, int cy, int cz,
-                                         float fi, float gi, float& rho,
-                                         float& phi, float (&jf)[3],
-                                         float (&jg)[3], float (&mf)[Q],
-                                         float (&mg)[Q]) {
+// General relaxation in population space: f'_i = (1 - lam) f_i + [M_INV
+// q]_i for i >= 1, the streamed f_i read through pop(i), and the rest
+// population by telescoping to the cell mass n.  All 19 rows of q, the
+// ghost rows zero without noise: skipping them (NROWS = 10) took the
+// noise-off kernels to 157-168 registers (H100, ptxas).
+template <int NROWS, class Tab = ConstTables, class Pop>
+__device__ __forceinline__ void store_relaxed(float n, float keep,
+                                              const Pop& pop,
+                                              const float (&q)[Q],
+                                              float* __restrict__ out,
+                                              size_t plane, size_t idx) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    float t = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NROWS; ++k) t += Tab::minv(i, k) * q[k];
+    const float fi = fmaf(keep, pop(i), t);
+    s += fi;
+    out[i * plane + idx] = fi;
+  }
+  out[idx] = n - s;
+}
+
+// One pulled population pair (fi, gi) of direction (cx, cy, cz) into the
+// densities and momenta.
+__device__ __forceinline__ void pull_add(int cx, int cy, int cz, float fi,
+                                         float gi, float& rho, float& phi,
+                                         float (&jf)[3], float (&jg)[3]) {
   rho += fi;
   phi += gi;
   jf[0] += static_cast<float>(cx) * fi;
@@ -302,13 +322,6 @@ __device__ __forceinline__ void pull_add(int i, int cx, int cy, int cz,
   jg[0] += static_cast<float>(cx) * gi;
   jg[1] += static_cast<float>(cy) * gi;
   jg[2] += static_cast<float>(cz) * gi;
-  if (GENERAL) {
-#pragma unroll
-    for (int k = 4; k < Q; ++k) {
-      mf[k] = fmaf(Tab::m(k, i), fi, mf[k]);
-      mg[k] = fmaf(Tab::m(k, i), gi, mg[k]);
-    }
-  }
 }
 
 // The 19-point isotropic gradient sum_i (w_i / cs^2) c_i v(x + c_i) of
@@ -339,27 +352,27 @@ __device__ __forceinline__ void gradient2(const float* __restrict__ v,
 // Everything after the pull, written once for every kernel that runs K:
 // expanded in place in the kernel (a __device__ function boundary here
 // moved the one-step kernels' compiled code: one of them ran 3% slower), so
-// a kernel that pulls its 38 populations into rho, phi, jf, jg (and under
-// GENERAL the other rows of the streamed moments into mf, mg) finishes the
+// a kernel that pulls its 38 populations into rho, phi, jf, jg finishes the
 // cell with the same expressions as every other.  It reads the enclosing
 // kernel's template flags NOISE, DIST, FORCE, GENERAL, REF, A1 and EXT and
 // its locals X, Y, Z (the arrays' extents), plane and idx (the cell's
 // element offset in the (2, X, Y, Z) operands psi, lap and ref, whose
-// planes hold `plane` elements), rho, phi, jf, jg, mf and mg.  ARGS: the
-// Args of the launch; WORD, STEP: the noise word and step label; (CX, CY,
-// CZ): the cell in the arrays, its hash key (under EXT offset by the
-// array's global origin, with the global extents) and the centre of the
-// FORCE and A1 gradients; the 19 post-collide populations of each species
-// are stored as FOUT[i * OPLANE + OIDX] and GOUT[...]; TAB: where the back
-// transform reads M_INV.  mf and mg are overwritten.  The accelerations
-// come from BFLBM_FORCES_FROM_ARRAYS; BFLBM_COLLIDE_CELL_WITH takes another
+// planes hold `plane` elements), rho, phi, jf and jg.  ARGS: the Args of
+// the launch; WORD, STEP: the noise word and step label; (CX, CY, CZ): the
+// cell in the arrays, its hash key (under EXT offset by the array's global
+// origin, with the global extents) and the centre of the FORCE and A1
+// gradients; the 19 post-collide populations of each species are stored
+// as FOUT[i * OPLANE + OIDX] and GOUT[...]; TAB: where the back transform
+// reads M_INV; POPS(S, I): the streamed population I of species S (0: f,
+// 1: g), read under GENERAL only (store_relaxed).  The accelerations come
+// from BFLBM_FORCES_FROM_ARRAYS; BFLBM_COLLIDE_CELL_WITH takes another
 // macro of the same arguments in its place (FORCES), which sets af and ag
 // from inv_rho and inv_phi with the same arithmetic on psi and lap kept
 // elsewhere (csrc/blocked_step.cu, in shared memory).
 #define BFLBM_COLLIDE_CELL(ARGS, WORD, STEP, CX, CY, CZ, FOUT, GOUT,       \
-                           OPLANE, OIDX, TAB)                             \
+                           OPLANE, OIDX, TAB, POPS)                       \
   BFLBM_COLLIDE_CELL_WITH(ARGS, WORD, STEP, CX, CY, CZ, FOUT, GOUT, OPLANE, \
-                          OIDX, TAB, BFLBM_FORCES_FROM_ARRAYS)
+                          OIDX, TAB, BFLBM_FORCES_FROM_ARRAYS, POPS)
 
 // Shan-Chen accelerations from psi of the streamed densities (skipped
 // under A1 with alpha0 = 0, as in the JAX kernel), then the alpha1
@@ -388,7 +401,7 @@ _Pragma("unroll")                                                             \
   }
 
 #define BFLBM_COLLIDE_CELL_WITH(ARGS, WORD, STEP, CX, CY, CZ, FOUT, GOUT,  \
-                                OPLANE, OIDX, TAB, FORCES)                \
+                                OPLANE, OIDX, TAB, FORCES, POPS)          \
   do {                                                                        \
   const Relax& rx = ARGS.rx;                                                  \
   const float inv_rho = safe_inv(rho, rx.eps);                                \
@@ -429,10 +442,21 @@ _Pragma("unroll")                                                             \
       xf[1 + d] = m;                                                          \
       xg[1 + d] = -m;                                                         \
     }                                                                         \
+    if constexpr (DIST == DIST_BM) {                                          \
+      /* the draws in order, as Draws<DIST_BM> makes them: xf's rows, */      \
+      /* then xg's */                                                         \
 _Pragma("unroll")                                                             \
-    for (int a = 4; a < Q; ++a) {                                             \
-      xf[a] = nc.cf[a - 4] * sq_rho * draw(a - 1, nc);                        \
-      xg[a] = nc.cg[a - 4] * sq_phi * draw(a + 14, nc);                       \
+      for (int a = 4; a < Q; ++a)                                             \
+        xf[a] = nc.cf[a - 4] * sq_rho * draw(a - 1, nc);                      \
+_Pragma("unroll")                                                             \
+      for (int a = 4; a < Q; ++a)                                             \
+        xg[a] = nc.cg[a - 4] * sq_phi * draw(a + 14, nc);                     \
+    } else {                                                                  \
+_Pragma("unroll")                                                             \
+      for (int a = 4; a < Q; ++a) {                                           \
+        xf[a] = nc.cf[a - 4] * sq_rho * draw(a - 1, nc);                      \
+        xg[a] = nc.cg[a - 4] * sq_phi * draw(a + 14, nc);                     \
+      }                                                                       \
     }                                                                         \
   }                                                                           \
                                                                               \
@@ -458,19 +482,23 @@ _Pragma("unroll")                                                             \
   }                                                                           \
                                                                               \
   constexpr int NROWS = (NOISE || GENERAL) ? Q : 10;                          \
-  mf[0] = rho;                                                                \
-  mg[0] = phi;                                                                \
-_Pragma("unroll")                                                             \
-  for (int d = 0; d < 3; ++d) {                                               \
-    mf[1 + d] = jf[d];                                                        \
-    mg[1 + d] = jg[d];                                                        \
-  }                                                                           \
+  float mf[Q], mg[Q];                                                         \
   post_collide<NOISE, FORCE, GENERAL>(rho, vb, uf, af, ARGS.fc.s_f, rx.lam_f, \
                                       xf, mf);                                \
-  store_pops<NROWS, TAB>(mf, FOUT, OPLANE, OIDX);                             \
+  if constexpr (GENERAL)                                                      \
+    store_relaxed<NROWS, TAB>(rho, 1.0f - rx.lam_f,                           \
+                              [&](int i_) { return POPS(0, i_); }, mf, FOUT,  \
+                              OPLANE, OIDX);                                  \
+  else                                                                        \
+    store_pops<NROWS, TAB>(mf, FOUT, OPLANE, OIDX);                           \
   post_collide<NOISE, FORCE, GENERAL>(phi, vb, ug, ag, ARGS.fc.s_g, rx.lam_g, \
                                       xg, mg);                                \
-  store_pops<NROWS, TAB>(mg, GOUT, OPLANE, OIDX);                             \
+  if constexpr (GENERAL)                                                      \
+    store_relaxed<NROWS, TAB>(phi, 1.0f - rx.lam_g,                           \
+                              [&](int i_) { return POPS(1, i_); }, mg, GOUT,  \
+                              OPLANE, OIDX);                                  \
+  else                                                                        \
+    store_pops<NROWS, TAB>(mg, GOUT, OPLANE, OIDX);                           \
   } while (0)
 
 }  // namespace

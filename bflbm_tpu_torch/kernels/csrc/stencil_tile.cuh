@@ -45,9 +45,6 @@ struct ImmTables {
   static __device__ __forceinline__ int c(int i, int d) {
     return kLatC[i][d];
   }
-  static __device__ __forceinline__ float m(int k, int i) {
-    return kLatM[k][i];
-  }
   static __device__ __forceinline__ float minv(int i, int k) {
     return kLatMinv[i][k];
   }

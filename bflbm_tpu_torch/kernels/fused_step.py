@@ -35,8 +35,9 @@ tiling), on the whole domain or, with ``ext=``, on a halo-extended block
 whose pads are sd T deep (the kernel's EXT mode, JAX's sharded sweep at
 block T), there also on a window of the interior (the overlap split) or
 fed by y strips (the strips exchange); :func:`make_ksteps` takes
-``block=T`` and :func:`auto_block` picks T from the card's
-measurements.
+``block=T``; the sessions take T = 1 unless given another (on an H100
+the one-step kernels run the fastest step in every mode, PERF.md section
+6).
 
 Each of the one-step wrappers also takes ``ext=``, an
 :class:`~bflbm_tpu_torch.ops.blocked.Ext` (K7's ext mode): the arrays are
@@ -673,6 +674,34 @@ def launch_k(f: torch.Tensor, g: torch.Tensor, word: int, step: int,
     return out
 
 
+def bm_normals(word: int, step: int, shape, device=None) -> torch.Tensor:
+    """The (33, X, Y, Z) float32 Box-Muller deviates K draws for noise word
+    `word` at step label `step` on the (X, Y, Z) domain, in its draw
+    order.  On a CUDA device from ``csrc/fused_step.cu``
+    ``bm_normals_kernel`` (the generator of K's Box-Muller mode on its
+    own; counted in ``mode_launches["bm normals"]``), on the CPU its plain
+    version ``ops.noise.hash_normal_stack(..., "bm")``."""
+    dev = torch.device("cuda" if device is None else device)
+    shape = tuple(int(n) for n in shape)
+    if dev.type != "cuda":
+        return noise_ops.hash_normal_stack(word, step, shape, torch.float32,
+                                           "bm", device=dev)
+    from . import _build
+
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = torch.empty((noise_ops.N_CHANNELS,) + shape, dtype=torch.float32,
+                      device=dev)
+    lib = _build.load("fused_step", dev)
+    rc = lib.bflbm_bm_normals(dev.index, out.data_ptr(),
+                              (ctypes.c_int * 3)(*shape), _as_i32(word),
+                              _as_i32(step),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "bm_normals")
+    mode_launches["bm normals"] = mode_launches.get("bm normals", 0) + 1
+    return out
+
+
 def prepass_windows(params: LBMParams, ext: Ext, shape,
                     window: Box) -> Tuple[Box, Box]:
     """The windows of the pre-passes A and L in front of a K window: K's
@@ -790,8 +819,8 @@ MAX_CLUSTER = 8
 # 4 x 8 4.6619, every cluster of more than one block slower; coupled T = 2
 # 8 x 16 on 1 x 2 clusters 5.3631 (5.2799 in a second run) against 1 x 1
 # 5.3351 (5.3368), and faster on 1 x 2 with the noise off (3.9236 against
-# 4.0234) and under general tau (5.4625 against 5.5512, the mode that
-# AUTO_BLOCK runs at T = 2); T = 3 4 x 8 on 2 x 1 14.4940 against 15.3384;
+# 4.0234) and under general tau (5.4625 against 5.5512); T = 3 4 x 8 on
+# 2 x 1 14.4940 against 15.3384;
 # alpha1 T = 2 4 x 16 on 1 x 2 10.5248 against 10.9087; 2 x 2 and 4-block
 # clusters slower everywhere.
 _BLOCKED_SECTIONS = {(1, 2): (4, 32), (1, 3): (4, 16), (1, 4): (4, 8),
@@ -1131,51 +1160,6 @@ def blocked_stream_collide(f: torch.Tensor, g: torch.Tensor,
                 + (["blocked ystrips"] if strips is not None else [])):
         mode_launches[tag] = mode_launches.get(tag, 0) + 1
     return out
-
-
-# The block the sessions take when none is given: the T of the fastest
-# step per mode and stencil depth, measured at 256^3 on an H100
-# (``tools/k4_tiles.py`` and ``chip_smoke.py`` phases 11 and 12, PERF.md
-# section 6, with the tiles and clusters above).  Uncoupled: K4 at T = 2
-# beats the one-step kernel only under general tau (2.6396 against 3.3868
-# ms a step), where the one-step kernel is register-bound; with the noise
-# off the one-step kernel is now faster (1.8596 against 2.0483 at best:
-# the phases' hand-off costs more than the serial phases of the earlier
-# design did), and with noise at every T.  Coupled ("coupled ..."): T = 2
-# wins under general tau (5.4625 against A + B's 7.0186) and loses in
-# every other mode (clt4 5.3351 against 3.8114), T = 3 everywhere; alpha1
-# ("alpha1 ..."): T = 2 loses in every mode (clt4 10.5248 against the
-# triple's 5.2083).
-_AUTO_MODES = ("off", "u8", "clt4", "clt2", "bm", "ref", "general")
-AUTO_BLOCK = {"off": 1, "u8": 1, "clt4": 1, "clt2": 1, "bm": 1, "ref": 1,
-              "general": 2}
-AUTO_BLOCK.update({f"{depth} {mode}": 1 for depth in ("coupled", "alpha1")
-                   for mode in _AUTO_MODES})
-AUTO_BLOCK["coupled general"] = 2
-
-
-def auto_block(params: LBMParams, n: Optional[int],
-               noise_dist: str = "clt4", use_ref: bool = False) -> int:
-    """The port's counterpart of JAX's ``_auto_block``: T for a run of n
-    K steps, from :data:`AUTO_BLOCK` (general relaxation first, then the
-    ref operand, then the generator, or "off" at kBT = 0; prefixed
-    "coupled " at stencil depth 2 and "alpha1 " at 3); 1 for n < 2; at
-    most n.  n None: the table's entry, for a session whose block is
-    fixed before its advances (the decomposed one, whose pads are sd T
-    deep)."""
-    if n is not None and n < 2:
-        return 1
-    if general_relax(params):
-        key = "general"
-    elif not params.noise_on:
-        key = "off"
-    elif use_ref:
-        key = "ref"
-    else:
-        key = noise_dist
-    key = {1: "", 2: "coupled ", 3: "alpha1 "}[sd_depth(params)] + key
-    return max(1, AUTO_BLOCK[key] if n is None
-               else min(AUTO_BLOCK[key], int(n)))
 
 
 # ---------------------------------------------------------------------------

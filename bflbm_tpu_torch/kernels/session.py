@@ -69,8 +69,8 @@ class FusedSession:
     kernel use it).  block: K steps per launch (K4, temporal blocking, in
     every configuration: with a force the sweeps launch no pre-pass;
     :func:`fused_step.check_block` refuses a T past shared memory); None
-    takes :func:`fused_step.auto_block` for each advance's n, as JAX's
-    auto block does.  An advance of n runs n // T blocked sweeps, then
+    takes 1, the fastest step in every mode on an H100 (JAX's auto block
+    picks T per mode and n).  An advance of n runs n // T blocked sweeps, then
     n % T single steps, and the mass restore falls after the sweep that
     crossed its step.  mass_restore_int: cadence (in steps) of the global
     exact-mass restore (:func:`fused_step.mass_restore_step`); 0
@@ -87,7 +87,7 @@ class FusedSession:
         fused_step.check_noise_dist(noise_dist)
         if block is not None:
             fused_step.check_block(params, block)
-        self.block = block
+        self.block = 1 if block is None else block
         self.params = params
         self.shape = tuple(int(s) for s in shape)
         self.noise_dist = noise_dist
@@ -142,10 +142,7 @@ class FusedSession:
 
     def block_for(self, n: int) -> int:
         """The block an advance of n steps runs."""
-        if self.block is not None:
-            return self.block
-        return fused_step.auto_block(self.params, n, self.noise_dist,
-                                     self.use_ref)
+        return self.block
 
     def _ksteps(self, n: int):
         return fused_step.make_ksteps(self.params, n, self._mass_restore_arg(),
@@ -296,9 +293,8 @@ class ShardedSession(FusedSession):
     sweep (one a block; under the split one on each block's interior
     window and one a seam band; under the strips strip-fed), then n % T
     single steps, and the trajectory is FusedSession's at the same block
-    in every sweep.  None takes the :data:`~bflbm_tpu_torch.kernels.
-    fused_step.AUTO_BLOCK` entry of the session's mode (1 for the
-    droplet's clt4; JAX's sharded session defaults to 2).  A sharded
+    in every sweep.  None takes 1, as FusedSession does (JAX's sharded
+    session defaults to 2).  A sharded
     local extent shallower than sd T raises ValueError."""
 
     def __init__(self, mesh: mesh_lib.Mesh, params: LBMParams,
@@ -308,9 +304,6 @@ class ShardedSession(FusedSession):
                  block: Optional[int] = None):
         fused_step.check_noise_dist(noise_dist)
         kernel_par.check_sweep(overlap, y_exchange)
-        if block is None:
-            block = fused_step.auto_block(params, None, noise_dist,
-                                          ref_fields is not None)
         super().__init__(params, shape, noise_dist=noise_dist,
                          mass_restore_int=mass_restore_int,
                          ref_fields=ref_fields, block=block)
@@ -374,7 +367,7 @@ def make_session(params: LBMParams, shape, *, noise_dist: str = "clt4",
     on a mesh of more than one block, with the sweep options overlap and
     y_exchange, else the single-device :class:`FusedSession`, which has
     no exchange to split; either with `block` steps a launch (None:
-    auto).  The kernels run every configuration, alpha1 included, at
+    1).  The kernels run every configuration, alpha1 included, at
     every block whose tiles fit in shared memory, on one device or on a
     mesh.  Raises ValueError for an unknown generator name or sweep
     option, a mesh that cannot hold the domain at the block, or a block

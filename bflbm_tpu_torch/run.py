@@ -108,7 +108,7 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
     everything written stay on `device`.  overlap, y_exchange: the
     decomposed sweep (``kernels.session.ShardedSession``; no CLI flag, as
     in JAX's CLI), e.g. ``run(cfg, mesh=(2, 2, 1), overlap=True)``.
-    block: K steps a launch (K4; None: ``fused_step.auto_block``), as
+    block: K steps a launch (K4; None: 1, one step a launch), as
     ``--block``; with a mesh on every block (``ShardedSession(block=)``,
     fixed for the run, in every sweep: serial, the split or the strips).
     """

@@ -35,11 +35,15 @@ Phases (each raises on failure; the script then exits non-zero):
    finiteness, the masses after the restore, the droplet's centre of mass
    and volume ratio, and the session MLUPS;
 6. the K modes of the run driver's flags against their plain versions,
-   max |delta| <= 2e-5: general tau (K1d, kBT 0 and 1e-5 with clt4, and
-   the FORCE_GENERAL_RELAX hook at tau 1/2), the USE_REF_STATE operand
-   (K1e, clt4 and u8), the clt2 and Box-Muller generators (uncoupled and
-   coupled) on 32^3 droplets and on the 256^3 droplet, where B is timed
-   in each mode beside its plain version; a ref session through a COM
+   max |delta| <= 2e-5: general tau (K1d in population space, coupled and
+   uncoupled, kBT 0 and 1e-5 with clt4, and the FORCE_GENERAL_RELAX hook
+   at tau 1/2), the USE_REF_STATE operand (K1e, clt4 and u8), the clt2 and
+   Box-Muller generators (uncoupled and coupled; Box-Muller also with the
+   ref operand) on 32^3 droplets and on the 256^3 droplet, where B is
+   timed in each mode beside its plain version, and K1d (coupled and
+   uncoupled) and Box-Muller (with and without ref) also from a CUDA
+   graph, printed with their bound, its share and the ptxas registers and
+   spills of their instantiation; a ref session through a COM
    cell-boundary crossing against the plain per-step chain;
 7. the run driver at 256^3, in a temporary directory under build/ that
    is removed afterwards: (1) the droplet-eq equilibration through
@@ -48,10 +52,11 @@ Phases (each raises on failure; the script then exits non-zero):
    fluctuating continuation through ``run.run`` with USE_REF_STATE and
    clt4 (1100 steps, a droplet record every 200; launches, the ref-roll
    counter, the masses after the restore at step 1000, the droplet's
-   drift and radius, the driver's MLUPS and its time split); (3) short
-   continuations through ``main``
-   with ``--tau-f/--tau-g --noise-dist clt2`` and with ``--noise-dist
-   bm``; (4) S(k) through the driver on a 64^3 mixture (the density
+   drift and radius, the driver's MLUPS and its time split); (3) 50-step
+   continuations through ``run.run`` with tau 0.7 / 0.6, clt2, Box-Muller
+   and Box-Muller with USE_REF_STATE, and 50 steps of the 256^3 mixture
+   with tau 0.7 / 0.6 (uncoupled K1d); (4) S(k) through the driver on a
+   64^3 mixture (the density
    structure factor over kBT / cs^2 within 5% of 1).  The 256^3 frames
    are ``.bflbm`` files written by the native async writer;
 8. the alpha1 path (K1c: alpha0 = 1.2, alpha1 = 0.5, kappa = 0.1, rho_lo
@@ -112,9 +117,9 @@ Phases (each raises on failure; the script then exits non-zero):
    |delta| <= 2e-5, bitwise printed; (b) at 256^3 the same for u8
    against the plain sweep on one whole-domain tile (timed), and the K
    launch and the K4 launches timed in every mode (ms a launch and a
-   step, the fastest T beside ``fused_step.AUTO_BLOCK``); (c) phase 3's
-   mixture session at T = 1, 2, 3, 4 (u8) and T = 3 (clt4): launches (11
-   x (100 // T) K4, 11 x (100 % T) K), masses after the restore, density
+   step, and which T gives the fastest step; the sessions take 1); (c)
+   phase 3's mixture session at T = 1, 2, 3, 4 (u8) and T = 3 (clt4):
+   launches (11 x (100 // T) K4, 11 x (100 % T) K), masses after the restore, density
    variance, MLUPS, ms a step beside the bound; (d) the mixture's two
    phases through ``run.main`` at 64^3, the fluctuating one with
    ``--block 2``: S(k) within 5% of kBT / cs^2, beside phase 7's;
@@ -126,11 +131,11 @@ Phases (each raises on failure; the script then exits non-zero):
    A + B (A + L + B-A1) launches, max |delta| <= 2e-5, bitwise printed,
    and no pre-pass launched; (b) at 256^3 the K4 launch timed in every
    mode beside the one-step pair (triple) with the bound a step and the
-   fastest T beside ``fused_step.AUTO_BLOCK``, and each T's sub-tile,
-   cluster, warp groups, shared memory a block and registers; (c) phase
-   5's droplet session at the auto block, T = 2 and 3 (launches, those on
-   clusters of more than one block, all of them at T = 2, masses, COM drift,
-   volume ratio, MLUPS, step 901 against phase 5's) and phase 8's alpha1
+   fastest T (the sessions take 1), and each T's sub-tile, cluster, warp
+   groups, shared memory a block and registers; (c) phase 5's droplet
+   session at the default block (1), T = 2 and 3 (launches, those on
+   clusters of more than one block, all of them at T = 2, masses, COM
+   drift, volume ratio, MLUPS, step 901 against phase 5's) and phase 8's alpha1
    session at T = 2; (d) the droplet campaign at 64^3 through ``run.main
    --block 2`` and ``run(cfg, block=2)`` with USE_REF_STATE; and the
    ref case of ROADMAP Queue 3 (random amplitudes 1 + 0.1 U on the 256^3
@@ -225,8 +230,10 @@ F32_OPS = 67e12
 #   K coupled, clt4: + gradients 216, forces and Guo rows ~80, clt4 words
 #     ~560 in place of u8's ~170;
 #   density pre-pass: 38 adds (+2 exp under the pseudopotential).
-#   K1d (general tau, coupled): + two 15-row forward transforms (1140) and
-#     the 19-row relaxation of both species (~230);
+#   K1d (general tau, coupled): B + lam m_eq (~20) and the relaxation
+#     (1 - lam) f_i + [M_INV q]_i, 19 FMAs a species (76), in population
+#     space; uncoupled (clt4): K uncoupled with clt4's words (~+390) + the
+#     same ~96;
 #   K1e (ref, coupled): B + 8 B/cell for the ref operand, same operations;
 #   clt2 (coupled): 17 hash words in place of clt4's 33 (~-250);
 #   Box-Muller (coupled): 34 hash words, 17 logf + sincosf + sqrtf
@@ -235,10 +242,12 @@ KERNELS = {
     "k1a": dict(bytes=2 * 19 * 4 * 2, ops=2100),
     "a": dict(bytes=2 * 19 * 4 + 2 * 4, ops=40),
     "b": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=2800),
-    "k1d": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=4170),
+    "k1d": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=2900),
+    "k1d_u": dict(bytes=2 * 19 * 4 * 2, ops=2590),
     "k1e": dict(bytes=2 * 19 * 4 * 2 + 2 * 4 + 2 * 4, ops=2810),
     "clt2": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=2550),
     "bm": dict(bytes=2 * 19 * 4 * 2 + 2 * 4, ops=4500),
+    "bm_ref": dict(bytes=2 * 19 * 4 * 2 + 2 * 4 + 2 * 4, ops=4510),
     # laplacian pre-pass L: reads psi, writes lap (8 B each); 18 FMAs and
     # the centre term per species
     "l": dict(bytes=2 * 4 + 2 * 4, ops=80),
@@ -544,6 +553,36 @@ def _modes_small(dev, errs):
             q = LBMParams(**dict(droplet, kBT=KBT, alpha0=a0))
             errs[dist].append(_mode_vs_plain(
                 f, g, q, dist, None, f"32^3 {dist}, alpha0={a0}"))
+            if dist == "bm":
+                errs["bm_ref"].append(_mode_vs_plain(
+                    f, g, q, dist, ref, f"32^3 bm + ref, alpha0={a0}"))
+    for kbt in (0.0, KBT):
+        q = LBMParams(**dict(droplet, rho_lo=0.1, alpha0=0.0, tau_f=0.7,
+                             tau_g=0.6, kBT=kbt))
+        errs["k1d_u"].append(_mode_vs_plain(
+            f, g, q, "clt4", None, f"32^3 uncoupled general tau kBT={kbt}"))
+    _bm_deviates(dev)
+
+
+def _bm_deviates(dev):
+    """Box-Muller's deviates in K's draw order (``fused_step.bm_normals``)
+    against the plain ``bm_pair`` over the same hash uniforms, within
+    1e-6 absolute, at 32^3 and 128^3."""
+    import torch
+
+    from bflbm_tpu_torch.kernels import fused_step
+    from bflbm_tpu_torch.ops import noise as noise_ops
+
+    for shape in (SMALL, (128, 128, 128)):
+        got = fused_step.bm_normals(-97531, 12, shape, dev)
+        want = noise_ops.hash_normal_stack(-97531, 12, shape, torch.float32,
+                                           "bm", device=dev)
+        err = _maxdiff(got, want)
+        print(f"[phase 6] Box-Muller deviates at {shape} (33 a cell): "
+              f"max|kernel - plain bm_pair| = {err:.3e} (tol 1e-6)",
+              flush=True)
+        _check(err <= 1e-6, f"Box-Muller deviates off by {err}")
+        del got, want
 
 
 def _ref_session_crossing(dev):
@@ -580,12 +619,35 @@ def _ref_session_crossing(dev):
     return err
 
 
+def _ptxas(lib, entry):
+    """The ``-Xptxas -v`` registers and spills of one instantiation
+    (``_build.ptxas_summary``), or "?"."""
+    from bflbm_tpu_torch.kernels import _build
+
+    return next((ln.split(": ", 1)[1] for ln in _build.ptxas_summary()
+                 if ln.startswith(f"{lib} {entry}:")), "?")
+
+
+# phase 6's modes of B at 256^3: key -> (K library, k_step_kernel template
+# arguments <NOISE, DIST, FORCE, GENERAL, REF, A1, EXT>); the modes timed
+# from a CUDA graph besides eagerly
+GRAPH_MODES = {
+    "k1d": ("fused_step_general_force", "<1,1,1,1,0,0,0>"),
+    "k1d_u": ("fused_step_general", "<1,1,0,1,0,0,0>"),
+    "bm": ("fused_step_force", "<1,3,1,0,0,0,0>"),
+    "bm_ref": ("fused_step_force", "<1,3,1,0,1,0,0>"),
+}
+
+
 def _modes_256(dcfg, dev, cells, errs):
     """The new modes of B on the 256^3 droplet one step in: max |delta|
     against the plain K, kernel B timed in each mode beside the plain K,
     B's present coupled clt4 time on the same input, and Box-Muller with
-    the ref operand (the instantiation whose ptxas output shows a
-    spill)."""
+    the ref operand; general tau also uncoupled (K without psi).  General
+    tau and Box-Muller (with and without ref) are timed from a CUDA graph
+    too (the device's time) and printed with their bound, its share and
+    the ptxas registers and spills of their instantiation.  Returns key ->
+    (ms, plain ms, eager ms): ms from the graph where there is one."""
     import dataclasses
 
     import torch
@@ -593,6 +655,7 @@ def _modes_256(dcfg, dev, cells, errs):
     from bflbm_tpu_torch.kernels import fused_step
     from bflbm_tpu_torch.kernels.session import FusedSession
     from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.utils.timing import graph_ms
 
     dparams = dcfg.params
     pc = FusedSession(dparams, SHAPE).enter(
@@ -603,25 +666,38 @@ def _modes_256(dcfg, dev, cells, errs):
     fo, go = torch.empty_like(f), torch.empty_like(g)
     ref = _ref_operand(f, g, (1, -1, 2))
     general = dataclasses.replace(dparams, tau_f=0.7, tau_g=0.6)
+    uncoupled = dataclasses.replace(general, alpha0=0.0)
     out = {}
-    for key, p, dist, r in (("b", dparams, "clt4", None),
-                            ("clt2", dparams, "clt2", None),
-                            ("bm", dparams, "bm", None),
-                            ("k1e", dparams, "clt4", ref),
-                            ("k1d", general, "clt4", None),
-                            ("bm + ref", dparams, "bm", ref)):
-        if key not in ("b", "bm + ref"):
+    for key, p, dist, r, ps in (("b", dparams, "clt4", None, psi),
+                                ("clt2", dparams, "clt2", None, psi),
+                                ("bm", dparams, "bm", None, psi),
+                                ("k1e", dparams, "clt4", ref, psi),
+                                ("k1d", general, "clt4", None, psi),
+                                ("k1d_u", uncoupled, "clt4", None, None),
+                                ("bm_ref", dparams, "bm", ref, psi)):
+        if key != "b":
             errs[key].append(_mode_vs_plain(f, g, p, dist, r,
                                             f"256^3 droplet, {key}"))
-        ms = _time_ms(lambda: [fused_step.launch_k(f, g, 1, i, p, (fo, go),
-                                                   psi, dist, r)
-                               for i in range(NREP)], cells, NREP)
+
+        def run():
+            return [fused_step.launch_k(f, g, 1, i, p, (fo, go), ps, dist, r)
+                    for i in range(NREP)]
+
+        ms = _time_ms(run, cells, NREP)
         plain_ms = _time_ms(lambda: fused_step.k_step_reference(
             f, g, 1, 0, p, dist, r), cells, 1)
-        out[key] = (ms, plain_ms)
+        out[key] = (graph_ms(run, NREP) if key in GRAPH_MODES else ms,
+                    plain_ms, ms)
     print("[phase 6] B at 256^3 by mode, same input (kernel ms / plain "
-          "ms): " + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.2f}"
+          "ms): " + ", ".join(f"{k} {v[2]:.4f} / {v[1]:.2f}"
                              for k, v in out.items()), flush=True)
+    for key, (lib, args) in GRAPH_MODES.items():
+        ms, _, eager = out[key]
+        bound, by = _bound_ms(key, cells)
+        print(f"[phase 6] {key}: {ms:.4f} ms from a CUDA graph ({eager:.4f} "
+              f"eager) against a bound of {bound:.4f} ms ({by}), "
+              f"{bound / ms:.1%} of it; {lib} k_step_kernel{args}: "
+              f"{_ptxas(lib, 'k_step_kernel' + args)}", flush=True)
     return out
 
 
@@ -756,8 +832,9 @@ def _driver_fluct(tmp, eq, ckpt, cells):
 
 
 def _driver_flag_modes(tmp, eq, ckpt):
-    """(3) short continuations with the flags' other K modes: general tau,
-    clt2, Box-Muller; returns each mode's launches."""
+    """(3) short continuations with the flags' other K modes: general tau
+    (coupled; uncoupled on the mixture), clt2, Box-Muller (with and
+    without the ref operand); returns each mode's launches."""
     import os
     import shutil
 
@@ -767,29 +844,40 @@ def _driver_flag_modes(tmp, eq, ckpt):
     from bflbm_tpu_torch import run as run_mod
     from bflbm_tpu_torch.kernels import fused_step
 
+    drop = dict(shape=SHAPE, checkpoint_path=ckpt, step_continue=400)
     launches = {}
-    for key, tag, params, dist in (
-            ("k1d", "general", dict(tau_f=0.7, tau_g=0.6), "clt4"),
-            ("clt2", "clt2", {}, "clt2"),
-            ("bm", "bm", {}, "bm")):
-        cfg = config.preset("droplet-fluct").replace(
-            shape=SHAPE, checkpoint_path=ckpt, step_continue=400,
+    for key, tag, params, dist, preset, where in (
+            ("k1d", "general", dict(tau_f=0.7, tau_g=0.6), "clt4",
+             "droplet-fluct", drop),
+            ("k1d_u", "general", dict(tau_f=0.7, tau_g=0.6), "clt4",
+             "mixture-fluct", dict(shape=SHAPE, init="mixture",
+                                   step_continue=0)),
+            ("clt2", "clt2", {}, "clt2", "droplet-fluct", drop),
+            ("bm", "bm", {}, "bm", "droplet-fluct", drop),
+            ("bm_ref", "ref", {}, "bm", "droplet-fluct", dict(
+                drop, use_ref_state=True,
+                ref_state_path=os.path.join(eq, "equilibrium.npz")))):
+        cfg = config.preset(preset).replace(
             nsteps=50, plot_int=0, print_int=50, droplet_int=0,
-            out_dir=os.path.join(tmp, key)).with_params(**params)
+            sf_window=0, out_dir=os.path.join(tmp, key),
+            **where).with_params(**params)
         fused_step.reset_launch_counts()
         t0 = time.perf_counter()
         state = run_mod.run(cfg, noise_dist=dist, block=1)
         torch.cuda.synchronize()
         modes = dict(fused_step.mode_launches)
         rec = _metrics(os.path.join(cfg.out_dir, "metrics.jsonl"))[-1]
-        print(f"[phase 7] continuation {key} (run, {dist}, 50 steps) in "
-              f"{time.perf_counter() - t0:.2f} s: launches K "
-              f"{fused_step.launches}, by mode {modes}; rho min "
-              f"{rec['min']:.4e} max {rec['max']:.4f}", flush=True)
-        _check(state.step == 450 and fused_step.launches == 49
-               and modes.get(tag) == 49, f"{key}: launches {modes}")
+        n = fused_step.launches
+        retry = int(run_mod.last_run_stats["ref_retry_steps"])
+        print(f"[phase 7] continuation {key} ({preset} through run, {dist}, "
+              f"50 steps) in {time.perf_counter() - t0:.2f} s: launches K "
+              f"{n}, by mode {modes}, steps rerun after a crossing {retry}; "
+              f"rho min {rec['min']:.4e} max {rec['max']:.4f}", flush=True)
+        _check(state.step == cfg.step_continue + 50 and n == 49 + retry
+               and modes.get(tag) == n and modes.get(dist) == n,
+               f"{key}: launches {n}, modes {modes}")
         _check_finite(state.f, state.g)
-        launches[key] = modes.get(tag, 0)
+        launches[key] = n
         del state
         shutil.rmtree(cfg.out_dir)
     return launches
@@ -2113,7 +2201,7 @@ def _k4_times(f, g, cells):
     """11b: the K launch (T = 1) and the K4 launch (T = 2, 3, 4) timed at
     256^3 on (f, g) in every uncoupled mode (NREP launches, NREP // T for
     K4, at least 5); prints ms a launch and a step and which T gives the
-    fastest step, beside fused_step.AUTO_BLOCK."""
+    fastest step (the sessions' default block is 1)."""
     import torch
 
     from bflbm_tpu_torch.config import LBMParams
@@ -2144,8 +2232,8 @@ def _k4_times(f, g, cells):
         table[tag] = row
         print(f"[phase 11] 256^3 {tag}: ms a launch / a step: " + ", ".join(
             f"T={t} {v:.4f} / {v / t:.4f}" for t, v in row.items())
-            + f"; fastest step at T = {best} (AUTO_BLOCK "
-            f"{fused_step.AUTO_BLOCK[tag]}); " + "; ".join(
+            + f"; fastest step at T = {best} (the sessions take 1); "
+            + "; ".join(
                 f"T={t}: {_k4_layout(p, dist, with_ref, t)}"
                 for t in K4_BLOCKS), flush=True)
     return table
@@ -2341,7 +2429,6 @@ def _k4f_256(dev, errs, cells):
                                   else max(5, NREP // T))
             best = min(row, key=lambda t: row[t] / t)
             table[depth][tag] = row
-            key = ("coupled " if depth == "coupled" else "alpha1 ") + tag
             bounds = ", ".join(
                 f"T={t} "
                 f"{_bound_ms(f'k4_{depth}_{t}_{tag}', cells)[0] / t:.4f}"
@@ -2352,7 +2439,7 @@ def _k4f_256(dev, errs, cells):
                               for t, v in row.items())
                   + f" (T = 1: the one-step {steps}); bound a step "
                   f"{bounds}; fastest step at T = {best} "
-                  f"(AUTO_BLOCK {fused_step.AUTO_BLOCK[key]}); " + "; ".join(
+                  "(the sessions take 1); " + "; ".join(
                       f"T={t}: {_k4_layout(p, dist, with_ref, t)}"
                       for t in blocks), flush=True)
         del f, g, out, psi, lap, ref
@@ -2412,8 +2499,8 @@ def _k4f_ref_amplitudes(dev):
 
 
 def _k4f_sessions(dev, cells, phase5_901, phase5_mlups):
-    """12c: phase 5's 256^3 droplet session (clt4) at the auto block, at
-    T = 2 and at T = 3, and phase 8's alpha1 session at T = 2: launches
+    """12c: phase 5's 256^3 droplet session (clt4) at the default block
+    (1), at T = 2 and at T = 3, and phase 8's alpha1 session at T = 2: launches
     (K4 sweeps, and A, L and K only in the single steps), masses after
     the restore, the droplet's centre of mass and volume ratio, MLUPS;
     the coupled ones at step 901 (before any restore) against phase 5's
@@ -3700,7 +3787,8 @@ def main() -> int:
     phase_done(5)
 
     # -- phase 6: the K modes of the driver's flags vs plain ----------------
-    new_errs = {k: [] for k in ("k1d", "k1e", "clt2", "bm")}
+    new_errs = {k: [] for k in ("k1d", "k1d_u", "k1e", "clt2", "bm",
+                                "bm_ref")}
     _modes_small(dev, new_errs)
     new_errs["k1e"].append(_ref_session_crossing(dev))
     torch.cuda.empty_cache()
@@ -3884,21 +3972,32 @@ def main() -> int:
              b_plain_ms, None, counts[0], max(errs["b"]),
              "K1b: alpha0 != 0, tau 1/2, hash clt4 (_clt4_normal :607)"),
             ("k1d", "k_step_kernel (coupled, general tau, clt4)",
-             "fused_step.cu", *mode_ms["k1d"], None, flag_launches["k1d"],
-             max(new_errs["k1d"]),
+             "fused_step.cu", *mode_ms["k1d"][:2], None,
+             flag_launches["k1d"], max(new_errs["k1d"]),
              "K1d: general relaxation (:843-851, :1051-1064), tau_f 0.7, "
-             "tau_g 0.6"),
+             "tau_g 0.6, in population space"),
+            ("k1d_u", "k_step_kernel (uncoupled, general tau, clt4)",
+             "fused_step.cu", *mode_ms["k1d_u"][:2], None,
+             flag_launches["k1d_u"], max(new_errs["k1d_u"]),
+             "K1d uncoupled: general relaxation, tau_f 0.7, tau_g 0.6, "
+             "alpha0 = 0 (launches: the 256^3 mixture)"),
             ("k1e", "k_step_kernel (coupled, USE_REF_STATE, clt4)",
-             "fused_step.cu", *mode_ms["k1e"], None, k1e_launches,
+             "fused_step.cu", *mode_ms["k1e"][:2], None, k1e_launches,
              max(new_errs["k1e"]),
              "K1e: ref_rp amplitudes from the rolled (2,X,Y,Z) equilibrium "
              "(:944-951, :1808-1817)"),
             ("clt2", "k_step_kernel (coupled, clt2)", "fused_step.cu",
-             *mode_ms["clt2"], None, flag_launches["clt2"],
+             *mode_ms["clt2"][:2], None, flag_launches["clt2"],
              max(new_errs["clt2"]), "K3: _clt2_pair :633"),
             ("bm", "k_step_kernel (coupled, Box-Muller)", "fused_step.cu",
-             *mode_ms["bm"], None, flag_launches["bm"], max(new_errs["bm"]),
+             *mode_ms["bm"][:2], None, flag_launches["bm"],
+             max(new_errs["bm"]),
              "K3: _bm_normals :668 over hash_uniforms :535"),
+            ("bm_ref", "k_step_kernel (coupled, Box-Muller, USE_REF_STATE)",
+             "fused_step.cu", *mode_ms["bm_ref"][:2], None,
+             flag_launches["bm_ref"], max(new_errs["bm_ref"]),
+             "K3 with K1e: _bm_normals :668, amplitudes from the ref "
+             "operand"),
             ("l", "laplacian_tile_kernel", "laplacian_psi.cu",
              a1_ms["l_graph"], a1_ms["l_plain"], a1_ms["l_lib"],
              a1_l_launches, max(a1_errs["l"]), "K1c lap_ext1 (:810-826)"),
@@ -3945,9 +4044,11 @@ def main() -> int:
             "replaces": TPU_KERNEL, "mode": mode, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
-        if key in ("l", "b_a1", "l_ext"):
+        if key in ("l", "b_a1", "l_ext") or key in GRAPH_MODES:
             record[-1].update(
-                eager_ms=ext_ms["l"] if key == "l_ext" else a1_ms[key],
+                eager_ms=(ext_ms["l"] if key == "l_ext" else
+                          mode_ms[key][2] if key in GRAPH_MODES else
+                          a1_ms[key]),
                 note="ms replayed from a CUDA graph of 20 launches (the "
                      "device's time); eager_ms through the wrapper")
     for t in K4_BLOCKS:

@@ -5,8 +5,8 @@ the plain version of ``csrc/blocked_step.cu``, tile for tile) against
 JAX's blocked Pallas kernel in interpret mode and against composed
 one-step K calls, uncoupled (stencil depth 1), with the Shan-Chen force
 (depth 2) and with alpha1 (depth 3); ``FusedSession(block=T)`` against
-the block-1 composition with JAX's restore rule; the refusals and
-``auto_block``.
+the block-1 composition with JAX's restore rule; the refusals and the
+sessions' default block.
 Tolerances: against JAX, those of ``tests/test_fused_kernel.py::
 test_blocked_equals_composed_with_noise`` (rtol 5e-4, atol 5e-7, the sums
 to 1e-6: another transform order); against the port's own composition
@@ -515,30 +515,27 @@ def test_force_block_past_shared_memory_refused(kw, T, need):
 
 @pytest.mark.parametrize("depth", ["", "coupled ", "alpha1 "])
 def test_auto_block_table(depth):
-    """auto_block reads AUTO_BLOCK's entry for the mode at each stencil
-    depth (prefixed "coupled " and "alpha1 "); every entry runs."""
-    n = 100
+    """A session given no block runs one step a launch in every mode at
+    each stencil depth (plain, "coupled ", "alpha1 "), whatever the
+    advance's length; a given block is kept."""
     force = {"": {}, "coupled ": _DROPLET, "alpha1 ": _ALPHA1}[depth]
-    for key, kw, dist, use_ref in (
-            ("off", dict(kBT=0.0), "u8", False),
-            ("u8", dict(kBT=1e-5), "u8", False),
-            ("clt4", dict(kBT=1e-5), "clt4", False),
-            ("clt2", dict(kBT=1e-5), "clt2", False),
-            ("bm", dict(kBT=1e-5), "bm", False),
-            ("ref", dict(kBT=1e-5), "clt4", True),
-            ("general", dict(kBT=1e-5, tau_f=0.7), "u8", False)):
+    for kw, dist, use_ref in (
+            (dict(kBT=0.0), "u8", False),
+            (dict(kBT=1e-5), "u8", False),
+            (dict(kBT=1e-5), "clt4", False),
+            (dict(kBT=1e-5), "clt2", False),
+            (dict(kBT=1e-5), "bm", False),
+            (dict(kBT=1e-5), "clt4", True),
+            (dict(kBT=1e-5, tau_f=0.7), "u8", False)):
         p = TParams(**dict(force, **kw))
-        key = depth + key
-        assert tfs.auto_block(p, n, dist, use_ref) == tfs.AUTO_BLOCK[key]
-        assert tfs.auto_block(p, 1, dist, use_ref) == 1
-        assert tfs.auto_block(p, 2, dist, use_ref) == min(
-            2, tfs.AUTO_BLOCK[key])
-        if not use_ref:
-            assert FusedSession(p, SHAPE, noise_dist=dist).block_for(n) \
-                == tfs.AUTO_BLOCK[key]
-    for key, T in tfs.AUTO_BLOCK.items():
-        if (key.split()[0] if " " in key else "") == depth.strip():
-            tfs.check_block(TParams(**dict(force, kBT=1e-5)), T)
+        ref = ((torch.ones(SHAPE), torch.ones(SHAPE), (0.0, 0.0, 0.0))
+               if use_ref else None)
+        sess = FusedSession(p, SHAPE, noise_dist=dist, ref_fields=ref)
+        assert sess.block == 1
+        assert [sess.block_for(n) for n in (1, 2, 100)] == [1, 1, 1]
+        assert FusedSession(p, SHAPE, noise_dist=dist,
+                            block=2).block_for(1) == 2
+        tfs.check_block(p, 1)
 
 
 def test_run_block_option(tmp_path, monkeypatch):

@@ -237,18 +237,18 @@ def test_make_session_passes_the_block():
                         block=2)
     assert isinstance(sess, ShardedSession)
     assert (sess.block, sess.pad) == (2, (0, 6, 6))
-    # block None: AUTO_BLOCK's entry for the mode (uncoupled: 1 with the
-    # noise off, 2 under general tau), with the split and the strips too
+    # block None: one step a launch in every mode (the noise off, general
+    # tau, the droplet's clt4), with the split and the strips too; a
+    # block of 2 reaches the session's block and pads in each sweep
     off = LBMParams(kBT=0.0)
-    assert make_session(off, (12, 12, 12), mesh=_cpu_mesh((2, 1, 1))).block \
-        == fused_step.AUTO_BLOCK["off"]
+    assert make_session(off, (12, 12, 12),
+                        mesh=_cpu_mesh((2, 1, 1))).block == 1
     general = LBMParams(kBT=0.0, tau_f=0.7, tau_g=0.6)
-    assert make_session(general, (12, 12, 12),
-                        mesh=_cpu_mesh((2, 1, 1))).block \
-        == fused_step.AUTO_BLOCK["general"] == 2
-    for opts in (dict(overlap=True), dict(y_exchange="strips")):
+    for opts in (dict(), dict(overlap=True), dict(y_exchange="strips")):
+        assert make_session(general, (12, 12, 12),
+                            mesh=_cpu_mesh((2, 1, 1)), **opts).block == 1
         sess = make_session(general, (12, 12, 12),
-                            mesh=_cpu_mesh((2, 1, 1)), **opts)
+                            mesh=_cpu_mesh((2, 1, 1)), block=2, **opts)
         assert sess.block == 2 and sess.pad[0] == 2
     assert make_session(params, (12, 12, 12),
                         mesh=_cpu_mesh((2, 1, 1))).block == 1

@@ -258,6 +258,147 @@ def test_force_general_relax_matches_plain(cuda, monkeypatch):
     assert _maxdiff(general[0], exact[0]) <= ATOL
 
 
+# K1d (general relaxation, in population space) and Box-Muller (each pair
+# made when its first normal is used) in every mode: keywords over the
+# droplet's (alpha0 1.5, rho_lo 0.1), the generator, with the ref operand
+_TAU = dict(tau_f=0.7, tau_g=0.6)
+_K1D_BM_MODES = {
+    "k1d uncoupled": (dict(_TAU, alpha0=0.0, kBT=1e-5), "clt4", False),
+    "k1d coupled": (dict(_TAU, kBT=1e-5), "clt4", False),
+    "k1d alpha1": (dict(_TAU, alpha0=1.2, alpha1=0.5, kBT=1e-5), "clt4",
+                   False),
+    "k1d ref": (dict(_TAU, kBT=1e-5), "clt4", True),
+    "k1d off": (dict(_TAU, kBT=0.0), "u8", False),
+    "k1d off uncoupled": (dict(_TAU, alpha0=0.0, kBT=0.0), "u8", False),
+    "k1d bm": (dict(_TAU, kBT=1e-5), "bm", False),
+    "bm uncoupled": (dict(alpha0=0.0, kBT=1e-5), "bm", False),
+    "bm coupled": (dict(kBT=1e-5), "bm", False),
+    "bm alpha1": (dict(alpha0=1.2, alpha1=0.5, kBT=1e-5), "bm", False),
+    "bm ref": (dict(kBT=1e-5), "bm", True),
+    "bm ref uncoupled": (dict(alpha0=0.0, kBT=1e-5), "bm", True),
+}
+
+
+def _k1d_bm_case(mode, shape, dev, seed):
+    """(params, f, g, generator, ref) of a mode on a perturbed droplet."""
+    kw, dist, with_ref = _K1D_BM_MODES[mode]
+    params = LBMParams(**dict(dict(alpha0=1.5, kappa=0.1, rho_lo=0.1,
+                                   rho_hi=3.0), **kw))
+    base = model.init_droplet(shape, params, radius=0.3, device="cpu")
+    f, g = model.perturbed_populations(shape, seed, base=base, device=dev)
+    ref = (torch.stack([f.sum(0), g.sum(0)]).roll((1, -2, 3), (1, 2, 3))
+           .contiguous() if with_ref else None)
+    return params, f, g, dist, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 32, 32), (20, 12, 40), (6, 10, 130)])
+@pytest.mark.parametrize("mode", sorted(_K1D_BM_MODES))
+def test_k1d_and_bm_kernels_match_plain(cuda, mode, shape):
+    """One K step (with A, and L, where the mode has a force) through the
+    kernels against the plain K, within ATOL, on the whole domain: 32^3,
+    a shape no tile divides and Z = 130, past one block of 128 threads."""
+    params, f, g, dist, ref = _k1d_bm_case(mode, shape, cuda, 61)
+    fused_step.reset_launch_counts()
+    fo, go = fused_step.fused_stream_collide(f, g, 8642, 13, params,
+                                             noise_dist=dist, ref=ref)
+    torch.cuda.synchronize()
+    assert fused_step.launches == 1
+    assert fused_step.mode_launches.get("general", 0) == int(
+        fused_step.general_relax(params))
+    fr, gr = fused_step.k_step_reference(f, g, 8642, 13, params, dist, ref)
+    assert max(_maxdiff(fo, fr), _maxdiff(go, gr)) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 32, 32), (20, 12, 40)])
+@pytest.mark.parametrize("where", ["ext", "window", "strips"])
+@pytest.mark.parametrize("mode", ["k1d uncoupled", "k1d coupled", "k1d ref",
+                                  "k1d off", "bm coupled",
+                                  "bm ref uncoupled"])
+def test_k1d_and_bm_on_blocks_match_plain(cuda, mode, where, shape):
+    """K1d and Box-Muller on the four blocks of mesh (2, 2, 1): the ext
+    launch, the interior window of the overlap split (into NaN outputs,
+    its window written exactly) and the strip-fed launch (NaN y pads),
+    each within ATOL of its plain version and bitwise the whole-domain
+    kernel's cells."""
+    from bflbm_tpu_torch.ops import blocked
+    from bflbm_tpu_torch.parallel import kernel as kernel_par
+
+    params, f, g, dist, ref = _k1d_bm_case(mode, shape, cuda, 62)
+    whole = fused_step.fused_stream_collide(f, g, 531, 86, params,
+                                            noise_dist=dist, ref=ref)
+    mesh = mesh_lib.make_mesh((2, 2, 1), cuda)
+    sd = fused_step.sd_depth(params)
+    pad = mesh.pads(sd)
+    ss = mesh_lib.shard_state(init_state(f, g, 0), mesh, pad)
+    halo.exchange_halo(ss.blocks, mesh, pad)
+    exts = halo.block_exts(mesh, shape, pad)
+    refs = [None] * mesh.size
+    if ref is not None:
+        refs = mesh_lib.shard_field(ref, mesh, pad)
+        halo.exchange_halo(refs, mesh, pad)
+    received = [None] * mesh.size
+    if where == "strips":
+        sent = kernel_par.strip_buffers(ss.blocks, pad)
+        received = [torch.empty_like(t) for t in sent]
+        halo.run_plan(halo.strip_plan(sent, received, mesh, pad))
+    fused_step.reset_launch_counts()
+    for b, (blk, ext, r) in enumerate(zip(ss.blocks, exts, refs)):
+        box = ext.bounds(blk.shape)
+        kw = {}
+        if where == "strips":
+            blk = blk.clone()
+            blk[..., :pad[1], :] = float("nan")
+            blk[..., blk.shape[-2] - pad[1]:, :] = float("nan")
+            kw = dict(strips=received[b])
+        elif where == "window":
+            lay = kernel_par.layout(mesh, shape, params, True)
+            box, _ = kernel_par.split_windows(lay, blk.shape, sd)
+            kw = dict(window=box)
+        out = (torch.full_like(blk[0], float("nan")),
+               torch.full_like(blk[1], float("nan")))
+        fused_step.fused_stream_collide(blk[0], blk[1], 531, 86, params,
+                                        out=out, noise_dist=dist, ref=r,
+                                        ext=ext, **kw)
+        torch.cuda.synchronize()
+        plain = fused_step.k_step_reference(blk[0], blk[1], 531, 86, params,
+                                            dist, r, ext, received[b])
+        inner = ext.bounds(blk.shape)
+        rel = tuple((a - s, c - s) for (a, c), (s, _) in zip(box, inner))
+        cells = (slice(None),) + tuple(
+            slice(o + a, o + c) for o, (a, c) in zip(ext.origin, rel))
+        for got, pl, wh in zip(out, plain, whole):
+            view = blocked.box_view(got, box)
+            assert int(torch.isnan(got).sum()) == \
+                got.numel() - view.numel()
+            assert bool(torch.isfinite(view).all())
+            assert _maxdiff(view, blocked.box_view(pl, rel)) <= ATOL
+            assert torch.equal(view, wh[cells])
+    assert fused_step.launches == mesh.size
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 32, 32), (20, 12, 40), (6, 10, 130)])
+def test_bm_deviates_match_plain(cuda, shape):
+    """The Box-Muller deviates K draws (each pair made when its first
+    normal is used; ``fused_step.bm_normals``, the generator on its own)
+    against the plain ``fused_step.bm_pair`` over the same hash uniforms,
+    within 1e-6 absolute; with another word they move far more."""
+    from bflbm_tpu_torch.ops import noise as noise_ops
+
+    fused_step.reset_launch_counts()
+    got = fused_step.bm_normals(-12345, 77, shape, cuda)
+    torch.cuda.synchronize()
+    assert fused_step.mode_launches["bm normals"] == 1
+    want = noise_ops.hash_normal_stack(-12345, 77, shape, torch.float32,
+                                       "bm", device=cuda)
+    assert got.shape == (33,) + shape
+    assert _maxdiff(got, want) <= 1e-6
+    assert _maxdiff(fused_step.bm_normals(-12344, 77, shape, cuda),
+                    want) > 1.0
+
+
 def _ref_fields(shape, device, shift):
     """A (2, X, Y, Z) USE_REF_STATE operand: the densities of a droplet
     rolled by `shift`."""
