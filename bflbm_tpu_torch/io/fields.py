@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -90,30 +90,39 @@ def write_frame(out_dir: str, step: int, packed_hydro,
     return path
 
 
-def read_frame(path: str) -> Dict[str, np.ndarray]:
+def read_frame(path: str, names: Optional[Sequence[str]] = None
+               ) -> Dict[str, np.ndarray]:
     """The arrays of a frame, by name, with its step: an AMReX plotfile
     directory, a ``.h5``, a ``.bflbm`` (the step from the file name) or
-    an npz file."""
+    an npz file.  names: only these arrays (and the step); a ``.bflbm``
+    or npz frame then reads no other field."""
     if os.path.isdir(path):
         from . import amrex
 
         fields, meta = amrex.read_plotfile(path)
         fields["step"] = np.asarray(meta["step"])
-        return fields
+        return _only(fields, names)
     if path.endswith(".h5"):
         from . import hdf5
 
-        return hdf5.read_frame_h5(path)
+        return _only(hdf5.read_frame_h5(path), names)
     if path.endswith(".bflbm"):
         from . import native
 
-        out = native.read_fields(path)
+        out = native.read_fields(path, names)
         m = re.search(r"plt(\d+)\.bflbm$", path)
         if m:
             out["step"] = np.asarray(int(m.group(1)))
         return out
     with np.load(path) as d:
-        return {k: d[k] for k in d.files}
+        return {k: d[k] for k in d.files
+                if names is None or k in names or k == "step"}
+
+
+def _only(fields: Dict[str, np.ndarray], names) -> Dict[str, np.ndarray]:
+    if names is None:
+        return fields
+    return {k: v for k, v in fields.items() if k in names or k == "step"}
 
 
 def write_noise_frame(out_dir: str, step: int, xi_f, xi_g) -> str:
@@ -123,3 +132,9 @@ def write_noise_frame(out_dir: str, step: int, xi_f, xi_g) -> str:
     path = os.path.join(out_dir, f"noise{step:07d}.npz")
     np.savez_compressed(path, step=step, xi_f=_host(xi_f), xi_g=_host(xi_g))
     return path
+
+
+def read_noise_frame(path: str) -> Dict[str, np.ndarray]:
+    """A noise dump of :func:`write_noise_frame`: xi_f, xi_g and step."""
+    with np.load(path) as d:
+        return {k: d[k] for k in ("xi_f", "xi_g", "step")}

@@ -173,8 +173,10 @@ def write_fields(path: str, fields: Dict[str, np.ndarray]) -> None:
         raise IOError(f"write failed rc={rc}")
 
 
-def read_fields(path: str) -> Dict[str, np.ndarray]:
-    """The fields of a ``.bflbm`` file, by name (float32 or float64)."""
+def read_fields(path: str, names: Optional[Sequence[str]] = None
+                ) -> Dict[str, np.ndarray]:
+    """The fields of a ``.bflbm`` file, by name (float32 or float64); with
+    `names`, only those, read in file order until all are found."""
     lib = load()
     nf = ctypes.c_uint32()
     ndim = ctypes.c_uint32()
@@ -185,8 +187,11 @@ def read_fields(path: str) -> Dict[str, np.ndarray]:
         raise IOError(f"bad header rc={rc}")
     dims = tuple(shape[i] for i in range(ndim.value))
     cells = int(np.prod(dims))
+    want = None if names is None else set(names)
     out: Dict[str, np.ndarray] = {}
     for i in range(nf.value):
+        if want is not None and want <= set(out):
+            break
         buf = np.empty(cells, dtype=np.float64)  # max itemsize
         name = ctypes.create_string_buffer(256)
         dt = lib.bflbm_read_field(path.encode(), i,
@@ -194,7 +199,10 @@ def read_fields(path: str) -> Dict[str, np.ndarray]:
                                   buf.nbytes, name, 256)
         if dt < 0:
             raise IOError(f"read field {i} failed rc={dt}")
+        key = name.value.decode()
+        if want is not None and key not in want:
+            continue
         dtype = np.float32 if dt == 4 else np.float64
         arr = buf.view(np.uint8)[: cells * dt].view(dtype).reshape(dims)
-        out[name.value.decode()] = arr.copy()
+        out[key] = arr.copy()
     return out

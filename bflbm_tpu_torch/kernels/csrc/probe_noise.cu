@@ -42,9 +42,9 @@
 // the plain PyTorch version, so that the cases without transcendentals
 // come out bitwise.
 //
-// What bounds it: operations, ~530-2,800 a cell by case (integer ones
-// counted at the float32 rate; probes/noise_micro.py OPS), against 4
-// bytes a cell written.
+// What bounds it: operations (probes/noise_micro.py OPS, counted in this
+// kernel's SASS by tools/noise_ops.py: ALU-pipe integer ones at 64 a
+// clock an SM, FMA-pipe ones at 128), against 4 bytes a cell written.
 
 #include "k_cell.cuh"
 

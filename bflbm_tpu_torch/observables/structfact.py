@@ -7,6 +7,11 @@ package's TPU backend has no FFT and uses a matmul DFT, ``ops/rfft.py``;
 the port needs none).  Conventions as there: the product is scaled by
 1/N (a unitary 1/sqrt(N) transform of each factor); :func:`finalize`
 zeroes k = 0 (the reference's ``zero_avg=1``) and fftshifts.
+
+The offline spectra of the Debug.ipynb recipe (cells 5-8):
+:func:`spectrum`, a unitary power spectrum in float64 on the field's
+device, and :func:`radial_average` over the integer-frequency radii of
+:func:`fftfreq_grid`.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.hydro import HYDRO_NAMES
+from ._fields import as_field, bin_means
 
 # pairA/pairB of main_run_job.cpp:301-309, indices into HYDRO_NAMES.
 REFERENCE_PAIRS: Tuple[Tuple[int, int], ...] = (
@@ -76,3 +82,42 @@ def finalize(sf: StructFactState, zero_avg: bool = True,
     if shift:
         s = np.fft.fftshift(s, axes=(-3, -2, -1))
     return s
+
+
+# ---------------------------------------------------------------------------
+# Direct (offline) spectra — the Debug.ipynb cells 5-8 recipe.
+# ---------------------------------------------------------------------------
+
+def spectrum(field, remove_mean: bool = True) -> torch.Tensor:
+    """|F[field]|^2 / N (unitary normalization) of a real (X, Y, Z)
+    field, in float64 on its device (a numpy field on the CPU)."""
+    x = as_field(field)
+    if remove_mean:
+        x = x - x.mean()
+    f = torch.fft.fftn(x)
+    return (f.real * f.real + f.imag * f.imag) / float(np.prod(x.shape[-3:]))
+
+
+def fftfreq_grid(shape) -> np.ndarray:
+    """|k| magnitude grid in integer-frequency units (host-side)."""
+    freqs = [np.fft.fftfreq(n) * n for n in shape]
+    kx, ky, kz = np.meshgrid(*freqs, indexing="ij")
+    return np.sqrt(kx ** 2 + ky ** 2 + kz ** 2)
+
+
+def radial_average(sk, nbins: int = 0):
+    """Spherically averaged S(|k|); returns (k_centers, S_mean), numpy.
+
+    Integer-frequency radii |k_idx| with k = 0 excluded (the notebooks'
+    flat-S(k) equilibrium checks); nbins equal bins up to the largest
+    |k| (default its integer part), the largest |k| itself in none.
+    The input must be UNshifted (k = 0 at index 0); a tensor is averaged
+    on its device."""
+    vals = as_field(sk).ravel()
+    kmag = torch.as_tensor(fftfreq_grid(tuple(sk.shape)).ravel(),
+                           device=vals.device)
+    mask = kmag > 0
+    kmag, vals = kmag[mask], vals[mask]
+    kmax = float(kmag.max())
+    nbins = nbins or int(kmax)
+    return tuple(bin_means(kmag, np.linspace(0, kmax, nbins + 1), vals))

@@ -59,26 +59,29 @@ CLT4_OFF = -510.0 / (256.0 * _CLT4_STD)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-# Operations a cell, counted from csrc/probe_noise.cu (integer operations
-# at the float32 rate, an FMA 2): ~20 for the tile, cell index and h1; a
-# full mix (lowbias32) with its counter 10, a single-multiply one 8, an
-# add-rotate-xor round 6; a CLT-4 deviate and its add 11, a 24- or 16-bit
-# uniform 4; a Box-Muller pair ~100 (logf, sqrtf, sinf, cosf) plus its
-# add; a Philox4x32-10 block ~100 (four 32-bit multiply halves, four xors
-# and the key bumps a round).
+# Operations a cell, as (integer, float) pairs, counted in the SASS of
+# csrc/probe_noise.cu by tools/noise_ops.py (NVIDIA H100 80GB HBM3,
+# sm_90a; its output pasted here): integer = the ALU pipe's instructions
+# (LOP3, SHF, IADD3, LEA, ...), 64 a clock an SM; float = the FMA pipe's
+# (FFMA, FADD, FMUL and the integer multiplies IMAD), two operations each
+# against the float32 rate of 256 a clock an SM.  Only the code every
+# thread runs is counted (outside the divergent regions and the blocks
+# after the last EXIT), so the Box-Muller cases, whose libm calls sit in
+# such regions, are bounded loosely; the others run straight-line code
+# and are counted whole.
 OPS = {
-    "hash_cur": 20 + NDRAWS * (10 + 11),
-    "hash_uniform_only": 20 + NDRAWS * (10 + 5),
-    "hash_u16": 20 + NPAIR * (10 + 2 * 4 + 101),
-    "hash_1mul24": 20 + NDRAWS * (8 + 4) + NPAIR * 101,
-    "hash_1mul16": 20 + NPAIR * (8 + 2 * 4 + 101),
-    "hash_nomul": 20 + NPAIR * (3 + 4 * 6 + 2 * 4 + 101),
-    "clt4_hash": 20 + NDRAWS * (10 + 11),
-    "clt4_hash_1mul": 20 + NDRAWS * (8 + 11),
-    "clt4_hash_nomul": 20 + NDRAWS * (3 + 3 * 6 + 11),
-    "philox": 20 + 9 * 100 + NDRAWS * 4 + NPAIR * 101,
-    "philox_bits_only": 20 + 9 * 100 + NDRAWS * 5,
-    "clt4_philox": 20 + 9 * 100 + NDRAWS * 11,
+    "hash_cur": (402, 388),
+    "hash_uniform_only": (266, 320),
+    "hash_u16": (65, 116),
+    "hash_1mul24": (38, 132),
+    "hash_1mul16": (63, 132),
+    "hash_nomul": (63, 114),
+    "clt4_hash": (436, 388),
+    "clt4_hash_1mul": (402, 320),
+    "clt4_hash_nomul": (572, 252),
+    "philox": (82, 190),
+    "philox_bits_only": (199, 462),
+    "clt4_philox": (403, 528),
 }
 
 # Kernel launches by case: "noise <case>".

@@ -190,7 +190,25 @@ Phases (each raises on failure; the script then exits non-zero):
    CUDA graph (bitwise 400, beside ``torch.add`` both ways); every probe
    kernel timed with CUDA events (best of 3) beside its bound, its plain
    version and its library call, then held against its plain version
-   again on other inputs outside the counted run.
+   again on other inputs outside the counted run; a noise case's bound is
+   the larger of its ALU-pipe integer operations over the INT32 rate and
+   its FMA-pipe ones over the float32 rate (``noise_micro.OPS``, counted
+   in the kernel's SASS by ``tools/noise_ops.py``);
+16. the analysis path (``python -m bflbm_tpu_torch.analysis``, no kernel
+   of its own): every subcommand through ``analysis.main`` on the card,
+   then with ``--device cpu`` on the same inputs, the JSON numbers within
+   1e-9 relative of each other (1e-6 for fitted ones) and each wall
+   printed.  droplet, convergence and msd read phase 7's three 256^3
+   droplet-eq frames before phase 7 deletes them (so they run within
+   phase 7), and marching cubes with its solid-angle harmonics and the
+   ray map with its harmonics run on the last of them (faces equal,
+   vertices within 1e-12); radius reads phase 7's continuation metrics,
+   sk its 64^3 structure factors; noise, interface, laplace and msd read
+   small runs made here (a 64^3 mixture with noise dumps, the
+   interface-fluct physics at 8 x 256 x 64 from a stripe, two 64^3
+   fluctuating droplets of radius 0.2 and 0.25 of the box); theory takes
+   no input.  The results are held to the physics where a short run
+   allows it (radii, S(k), the noise variances, the binodal).
 
 Phases 9 and 10 pass ``block=1``: they check the one-step launches.
 
@@ -219,9 +237,14 @@ KBT = 1e-5
 CHUNK, NCHUNKS = 100, 11
 NREP = 20             # launches per timed run
 # The card's published peaks (H100 SXM data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores.
+# float32 operations/s outside the tensor cores (132 SMs x 128 FMA lanes x
+# 2 at the 1.98 GHz boost clock); INT32 operations/s of the ALU pipe at 64
+# a clock an SM (integer multiplies run on the FMA pipe and count with the
+# float operations).
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+SMS, CLOCK_HZ = 132, 1.98e9
+INT32_OPS = 64 * SMS * CLOCK_HZ
 # Bytes each kernel must move per cell (each input read once, each output
 # written once) and operations per cell counted from its source (an FMA
 # counts 2; integer hash operations count 1 at the float32 rate):
@@ -291,10 +314,14 @@ def _work_cells(key, cells):
 
 def _bound_ms(key, cells, extra_bytes=0):
     """The least time for the kernel's work at `cells` cells (and
-    `extra_bytes` more to move), and what sets it."""
+    `extra_bytes` more to move), and what sets it: the larger of the
+    bytes over the memory rate, the float operations over the float32
+    rate and the integer ALU ones (`int_ops`, where counted apart) over
+    the INT32 rate."""
     k = KERNELS[key]
     t_bytes = (k["bytes"] * cells + extra_bytes) / HBM_BPS * 1e3
-    t_ops = k["ops"] * cells / F32_OPS * 1e3
+    t_ops = max(k["ops"] / F32_OPS, k.get("int_ops", 0) / INT32_OPS) \
+        * cells * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -757,8 +784,6 @@ def _driver_eq(tmp, cells):
           f"{[round(r['droplet_R_mass'], 4) for r in drops]}", flush=True)
     _check(conv["window_frames"] == 2 and len(drops) == 4,
            "equilibrium window or droplet records wrong")
-    for s in (0, 200, 400):   # 1.47 GB each: free the disk for the rest
-        os.remove(os.path.join(eq, f"plt{s:07d}.bflbm"))
     return eq, os.path.join(eq, "checkpoint0000400")
 
 
@@ -3477,8 +3502,8 @@ def _probes(dev):
     KERNELS.update({f"transform {v}": dict(bytes=platform.BYTES_PER_CELL,
                                            ops=platform.TRANSFORM_OPS)
                     for v in platform.TRANSFORM_VARIANTS})
-    KERNELS.update({f"noise {c}": dict(bytes=4, ops=noise_micro.OPS[c])
-                    for c in noise_micro.CASES})
+    KERNELS.update({f"noise {c}": dict(bytes=4, int_ops=n_int, ops=n_float)
+                    for c, (n_int, n_float) in noise_micro.OPS.items()})
     # 4 B read and 4 B written an element; the true floor is launch latency
     KERNELS["launch"] = dict(bytes=8, ops=1)
 
@@ -3541,11 +3566,273 @@ def _probes(dev):
         lib = ("none" if rec["library_ms"] is None
                else f"{rec['library_ms']:.4f} ms")
         print(f"[phase 15] {rec['key']}: {rec['ms']:.4f} ms ({rate}), bound "
-              f"{bound:.6f} ms ({by}), plain {rec['plain_ms']:.4f} ms, "
+              f"{bound:.6f} ms ({by}, {bound / rec['ms']:.1%} of the time), "
+              f"plain {rec['plain_ms']:.4f} ms, "
               f"library {lib}, launches {counts[rec['key']]}, max|delta| "
               f"{rec['max_abs_err']:.3e} (again on other inputs "
               f"{errs[rec['key']]:.3e})", flush=True)
     return recs, counts, errs
+
+
+# -- phase 16: the analysis path ----------------------------------------------
+
+# keys of the analysis JSON that come out of a scipy or numpy fit: card and
+# CPU within 1e-6 relative there, 1e-9 for every other number
+FITTED = {"R_mean", "R_std", "W_mean", "R", "gamma_laplace", "intercept",
+          "interface_z0", "interface_width", "gamma_capillary",
+          "D_measured", "ratio", "gamma_20", "gamma_22"}
+DIRECT_RTOL, FITTED_RTOL = 1e-9, 1e-6
+# theory at G = 1.5, rho_t = 3.1 (surface_tension_predict.ipynb cells 2,
+# 5), with the JAX package's tolerances (tests/test_observables.py)
+THEORY_PINNED = {"rho_lo_binodal": (0.03231825314438495, 1e-6),
+                 "rho_hi_binodal": (3.067681746855615, 1e-6),
+                 "gamma_quadrature": (0.9032199309615522, 1e-3)}
+
+
+def _json_agree(card, cpu, tag, key=""):
+    """The card's JSON within DIRECT_RTOL (FITTED_RTOL for fitted keys)
+    of the CPU's, NaN where the CPU's is NaN; returns the largest relative
+    difference."""
+    import math
+
+    if isinstance(cpu, dict):
+        _check(set(card) == set(cpu), f"{tag}: keys differ")
+        return max([_json_agree(card[k], cpu[k], tag, k) for k in cpu],
+                   default=0.0)
+    if isinstance(cpu, list):
+        _check(len(card) == len(cpu), f"{tag}.{key}: lengths differ")
+        return max([_json_agree(a, b, tag, key) for a, b in zip(card, cpu)],
+                   default=0.0)
+    if isinstance(cpu, float) and math.isnan(cpu):
+        _check(isinstance(card, float) and math.isnan(card),
+               f"{tag}.{key}: {card} where the CPU gives NaN")
+        return 0.0
+    if isinstance(cpu, (int, float)) and not isinstance(cpu, bool):
+        rel = abs(card - cpu) / abs(cpu) if cpu else abs(card)
+        rtol = FITTED_RTOL if key in FITTED else DIRECT_RTOL
+        _check(rel <= rtol, f"{tag}.{key}: card {card!r}, CPU {cpu!r} "
+                            f"(relative {rel:.3e} > {rtol})")
+        return rel
+    _check(card == cpu, f"{tag}.{key}: card {card!r}, CPU {cpu!r}")
+    return 0.0
+
+
+def _analysis_card_vs_cpu(tag, argv, walls, frames=None):
+    """One subcommand through ``analysis.main`` on the card, then with
+    ``--device cpu``, the JSON compared; prints both walls (and a frame's,
+    given the frame count); returns the card's JSON."""
+    import contextlib
+    import io
+
+    import torch
+
+    from bflbm_tpu_torch import analysis
+
+    out = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = analysis.main(argv + ["--device", where])
+        torch.cuda.synchronize()
+        out[where] = (res, time.perf_counter() - t0)
+    rel = _json_agree(out["cuda"][0], out["cpu"][0], tag)
+    walls[tag] = (out["cuda"][1], out["cpu"][1], frames)
+    each = ("" if not frames else
+            f" ({out['cuda'][1] / frames:.3f} / {out['cpu'][1] / frames:.3f}"
+            f" s a frame)")
+    shown = out["cuda"][0]
+    if argv[0] == "noise":
+        means = [v["mean"] for k, v in shown.items() if k[1:3] == "_a"]
+        shown = {"n_frames": shown["n_frames"],
+                 "mode ratio means": [min(means), max(means)],
+                 "momentum_anticorr": shown["momentum_anticorr"]}
+    print(f"[phase 16] {tag}: card {out['cuda'][1]:.3f} s, CPU "
+          f"{out['cpu'][1]:.3f} s{each}; largest card / CPU relative "
+          f"difference {rel:.3e}; {json.dumps(shown, default=float)}",
+          flush=True)
+    return out["cuda"][0]
+
+
+def _analysis_frames(eq, walls):
+    """Phase 16 on phase 7's three 256^3 droplet-eq frames (.bflbm), run
+    before phase 7 deletes them: droplet, convergence and msd through the
+    CLI, card against CPU; marching cubes with the solid-angle harmonics
+    and the ray map with its harmonics on the last frame, card against
+    CPU.  Returns the card's results."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+
+    from bflbm_tpu_torch.io import fields as fields_io
+    from bflbm_tpu_torch.observables import droplet as drop_obs
+    from bflbm_tpu_torch.observables import marching_cubes as mc
+
+    res = {}
+    res["droplet"] = _analysis_card_vs_cpu("droplet 256^3",
+                                           ["droplet", "--dir", eq], walls, 3)
+    res["convergence"] = _analysis_card_vs_cpu(
+        "convergence 256^3", ["convergence", "--dir", eq], walls, 3)
+    res["msd"] = _analysis_card_vs_cpu("msd 256^3", ["msd", "--dir", eq],
+                                       walls, 3)
+    r0 = 0.2 * SHAPE[0]
+    _check(res["droplet"]["n_frames"] == 3 and abs(
+        res["droplet"]["R_mean"] / r0 - 1.0) < 0.1,
+        f"droplet R_mean {res['droplet']['R_mean']} against {r0}")
+    _check(res["convergence"]["n_frames"] == 3
+           and np.isfinite(res["convergence"]["dev_linf"]),
+           "convergence report")
+    _check(abs(res["msd"]["R_mean"] / r0 - 1.0) < 0.1,
+           f"msd R_mean {res['msd']['R_mean']}")
+
+    last = sorted(glob.glob(os.path.join(eq, "plt*.bflbm")))[-1]
+    rho_np = fields_io.read_frame(last, ("rho",))["rho"]
+    surf = {}
+    for where in ("cuda", "cpu"):
+        rho = torch.as_tensor(rho_np, device=where)
+        com = drop_obs.center_of_mass(rho - rho[0, 0, 0])
+        level = 0.5 * (float(rho.min()) + float(rho.max()))
+        t0 = time.perf_counter()
+        amps, diag = mc.mc_surface_amplitudes(rho, com + np.asarray(
+            SHAPE) / 2.0 - 0.5)
+        torch.cuda.synchronize()
+        t_mc = time.perf_counter() - t0
+        verts, faces = mc._marching_cubes(rho.double(), level)
+        t0 = time.perf_counter()
+        rmap = drop_obs.surface_radius_map(rho, com, level)
+        ray = drop_obs.spherical_harmonic_amplitudes(rmap, lmax=2)
+        t_ray = time.perf_counter() - t0
+        surf[where] = dict(verts=verts.cpu(), faces=faces.cpu(), amps=amps,
+                           diag=diag, rmap=rmap, ray=ray, t_mc=t_mc,
+                           t_ray=t_ray)
+    c, h = surf["cuda"], surf["cpu"]
+    _check(torch.equal(c["faces"], h["faces"]), "marching cubes: faces "
+           "differ between card and CPU")
+    v_err = float((c["verts"] - h["verts"]).abs().max())
+    _check(v_err <= 1e-12, f"marching cubes: vertices differ by {v_err}")
+    amp_rel = max(abs(c["amps"][k] - h["amps"][k]) / abs(h["amps"][(0, 0)])
+                  for k in h["amps"])
+    ray_rel = max(float(np.abs(c["rmap"] - h["rmap"]).max()
+                        / np.abs(h["rmap"]).max()),
+                  max(abs(c["ray"][k] - h["ray"][k]) / abs(h["ray"][(0, 0)])
+                      for k in h["ray"]))
+    _check(amp_rel <= DIRECT_RTOL and ray_rel <= DIRECT_RTOL,
+           f"surface harmonics: card / CPU {amp_rel:.3e}, {ray_rel:.3e}")
+    diag = c["diag"]
+    r_mc = c["amps"][(0, 0)].real / np.sqrt(4 * np.pi)
+    r_ray = c["ray"][(0, 0)].real / np.sqrt(4 * np.pi)
+    walls["marching cubes 256^3"] = (c["t_mc"], h["t_mc"], 1)
+    walls["radius map 256^3"] = (c["t_ray"], h["t_ray"], 1)
+    print(f"[phase 16] marching cubes on the last 256^3 frame (verts "
+          f"{diag['n_verts']}, faces {diag['n_faces']}, boundary edges "
+          f"{diag['boundary_edges']}, area {diag['area']:.2f}, sum_w / 4 pi "
+          f"{diag['sum_w'] / (4 * np.pi):.6f}): card {c['t_mc']:.3f} s, CPU "
+          f"{h['t_mc']:.3f} s; faces equal, vertices within {v_err:.1e}, "
+          f"zeta_lm within {amp_rel:.3e} of zeta_00; zeta_00 / sqrt(4 pi) "
+          f"{r_mc:.4f}, |zeta_20| {abs(c['amps'][(2, 0)]):.3e}", flush=True)
+    print(f"[phase 16] ray map + harmonics on the last 256^3 frame: card "
+          f"{c['t_ray']:.3f} s, CPU {h['t_ray']:.3f} s; card / CPU within "
+          f"{ray_rel:.3e}; zeta_00 / sqrt(4 pi) {r_ray:.4f} (marching "
+          f"cubes {r_mc:.4f}), |zeta_20| {abs(c['ray'][(2, 0)]):.3e}",
+          flush=True)
+    _check(abs(diag["sum_w"] / (4 * np.pi) - 1.0) < 0.01
+           and diag["boundary_edges"] <= 0.001 * 3 * diag["n_faces"],
+           f"marching cubes surface {diag}")
+    _check(abs(r_mc / r_ray - 1.0) < 0.01 and abs(r_mc / r0 - 1.0) < 0.1,
+           f"zeta_00 radii {r_mc}, {r_ray} against {r0}")
+    res["mc"], res["ray"] = c["amps"], c["ray"]
+    return res
+
+
+def _analysis_runs(tmp):
+    """The small runs phase 16 analyses, through ``run.run`` on the card:
+    a 64^3 mixture (kBT 1e-5, 20 steps, a noise dump every 10), the
+    interface-fluct physics at (8, 256, 64) from a stripe (300 steps, a
+    frame every 50) and two 64^3 fluctuating droplets of radius 0.2 and
+    0.25 of the box (300 steps, a frame and a droplet record every 100).
+    Returns their directories."""
+    import os
+
+    from bflbm_tpu_torch import config
+    from bflbm_tpu_torch import run as run_mod
+
+    dirs = {k: os.path.join(tmp, k) for k in ("noise", "iface", "r20",
+                                              "r25")}
+    quiet = dict(print_int=0, sf_window=0, plot_fmt="native")
+    runs = [
+        config.preset("mixture-fluct").replace(
+            shape=(64, 64, 64), init="mixture", step_continue=0, nsteps=20,
+            plot_int=0, out_noise_int=10, out_dir=dirs["noise"], **quiet),
+        config.preset("interface-fluct").replace(
+            shape=INTERFACE, init="stripe", step_continue=0, nsteps=300,
+            plot_int=50, out_dir=dirs["iface"], **quiet)]
+    for key, radius in (("r20", 0.2), ("r25", 0.25)):
+        runs.append(config.preset("droplet-fluct").replace(
+            shape=(64, 64, 64), init="droplet", init_radius=radius,
+            step_continue=0, nsteps=300, plot_int=100, droplet_int=100,
+            out_dir=dirs[key], **quiet))
+    t0 = time.perf_counter()
+    for cfg in runs:
+        run_mod.run(cfg)
+    print(f"[phase 16] the small runs (64^3 mixture noise dumps, the "
+          f"(8, 256, 64) interface, two 64^3 droplets) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return dirs
+
+
+def _analysis_small(keep, walls):
+    """Phase 16 on small inputs: radius on phase 7's continuation
+    metrics, sk on its 64^3 structure factors, noise, interface, laplace
+    and msd on the runs of :func:`_analysis_runs`, theory; card against
+    CPU.  Returns the card's results."""
+    import math
+    import os
+
+    dirs = _analysis_runs(keep)
+    res = {}
+    res["radius"] = _analysis_card_vs_cpu(
+        "radius", ["radius", "--dir", os.path.join(keep, "fluct")], walls)
+    res["sk"] = _analysis_card_vs_cpu(
+        "sk 64^3", ["sk", "--dir", os.path.join(keep, "sk")], walls)
+    res["noise"] = _analysis_card_vs_cpu(
+        "noise 64^3", ["noise", "--dir", dirs["noise"]], walls, 2)
+    res["interface"] = _analysis_card_vs_cpu(
+        "interface (8, 256, 64)", ["interface", "--dir", dirs["iface"]],
+        walls, 7)
+    res["laplace"] = _analysis_card_vs_cpu(
+        "laplace 64^3", ["laplace", "--dirs", dirs["r20"], dirs["r25"]],
+        walls, 2)
+    res["msd"] = _analysis_card_vs_cpu(
+        "msd 64^3", ["msd", "--dir", dirs["r25"]], walls, 4)
+    res["theory"] = _analysis_card_vs_cpu("theory", ["theory"], walls)
+    # phase 7's continuation: a droplet record every 200 steps, 600-1400
+    _check(res["radius"]["n_records"] == 5
+           and res["radius"]["n_fit_converged"] == 5, f"radius {res['radius']}")
+    _check(abs(res["sk"]["rho*rho"]["mean_ratio"] - 1.0) < 0.05,
+           f"sk {res['sk']['rho*rho']}")
+    means = [v["mean"] for k, v in res["noise"].items() if k[1:3] == "_a"]
+    _check(res["noise"]["n_frames"] == 2
+           and all(abs(m - 1.0) < 0.03 for m in means)
+           and abs(res["noise"]["momentum_anticorr"] + 1.0) < 0.03,
+           f"noise ratios {min(means)}-{max(means)}, anticorrelation "
+           f"{res['noise']['momentum_anticorr']}")
+    it = res["interface"]
+    _check(it["n_frames"] == 7 and math.isfinite(it["gamma_capillary"])
+           and 0 < it["interface_z0"] < INTERFACE[2]
+           and it["interface_width"] > 0, f"interface {it}")
+    runs = res["laplace"]["runs"]
+    _check(all(r["delta_p"] > 0 for r in runs)
+           and abs(runs[0]["R"] / 12.8 - 1.0) < 0.1
+           and abs(runs[1]["R"] / 16.0 - 1.0) < 0.1
+           and math.isfinite(res["laplace"]["gamma_laplace"]),
+           f"laplace {res['laplace']}")
+    _check(math.isfinite(res["msd"]["D_measured"])
+           and res["msd"]["n_frames"] == 4, f"msd {res['msd']}")
+    _check(all(abs(res["theory"][k] / v - 1.0) <= tol
+               for k, (v, tol) in THEORY_PINNED.items()),
+           f"theory {res['theory']}")
+    return res
 
 
 def main() -> int:
@@ -3797,6 +4084,7 @@ def main() -> int:
     phase_done(6)
 
     # -- phase 7: the run driver at 256^3 -------------------------------------
+    import os
     import shutil
     import tempfile
     from pathlib import Path
@@ -3804,8 +4092,19 @@ def main() -> int:
     scratch = Path(__file__).resolve().parent / "build"
     scratch.mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
+    keep16 = tempfile.mkdtemp(prefix="chip_smoke_analysis_", dir=scratch)
+    walls16 = {}
     try:
         eq, ckpt = _driver_eq(tmp, cells)
+        torch.cuda.empty_cache()
+        # phase 16's 256^3 part reads these frames; 1.47 GB each, they go
+        # before the rest of phase 7
+        t0 = time.perf_counter()
+        frames16 = _analysis_frames(eq, walls16)
+        print(f"[phase 16] the 256^3 frame analyses (within phase 7) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for step in (0, 200, 400):
+            os.remove(os.path.join(eq, f"plt{step:07d}.bflbm"))
         torch.cuda.empty_cache()
         k1e_launches, driver_mlups = _driver_fluct(tmp, eq, ckpt, cells)
         print(f"[phase 7] driver MLUPS {driver_mlups:.1f} beside the bare "
@@ -3814,6 +4113,14 @@ def main() -> int:
         flag_launches = _driver_flag_modes(tmp, eq, ckpt)
         torch.cuda.empty_cache()
         sk_phase7 = _driver_structfact(tmp)
+        for sub, name in (("fluct", "metrics.jsonl"),
+                          ("sk", "structfact0000600.npz")):
+            os.makedirs(os.path.join(keep16, sub))
+            shutil.copy(os.path.join(tmp, sub, name),
+                        os.path.join(keep16, sub, name))
+    except BaseException:
+        shutil.rmtree(keep16, ignore_errors=True)
+        raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done(7)
@@ -3959,6 +4266,21 @@ def main() -> int:
     probe_recs, probe_counts, probe_errs = _probes(dev)
     torch.cuda.empty_cache()
     phase_done(15)
+
+    # -- phase 16: the analysis path (its 256^3 part ran in phase 7) -------
+    try:
+        small16 = _analysis_small(keep16, walls16)
+    finally:
+        shutil.rmtree(keep16, ignore_errors=True)
+    print("[phase 16] wall seconds card / CPU: " + "; ".join(
+        f"{k} {c:.3f} / {h:.3f}" for k, (c, h, _) in walls16.items()),
+        flush=True)
+    print(f"[phase 16] results: droplet 256^3 R_mean "
+          f"{frames16['droplet']['R_mean']:.4f}, laplace gamma "
+          f"{small16['laplace']['gamma_laplace']:.5f}, sk rho*rho "
+          f"{small16['sk']['rho*rho']['mean_ratio']:.4f}, msd 64^3 D "
+          f"{small16['msd']['D_measured']:.4e}", flush=True)
+    phase_done(16)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (

@@ -30,6 +30,14 @@ What JAX says:
 So each side computes its step right; the two trajectories part at a
 guard that a rounding of 3e-10 in a density flips.  Tolerance 2e-5, the
 card tests'.
+
+Where the plain step leaves JAX's jnp step, op by op on the 27 cells
+around the cell in step one: stream, the densities, the hash noise with
+the ref amplitudes, hydrovars and collide's moment rows are bitwise
+JAX's; g's bare velocity differs by up to 33 ulps (the momentum
+contraction) and collide's inverse transform by up to 128 ulps on the
+same moments.  Both are 19-term dot products whose summation order
+XLA's CPU dot picks; the inverse transform alone decides the guard.
 """
 
 import json
@@ -45,12 +53,13 @@ from bflbm_tpu.config import LBMParams as JParams
 from bflbm_tpu.kernels import fused_step as jfs
 from bflbm_tpu.ops import collide as jcollide
 from bflbm_tpu.ops import hydro as jhydro
+from bflbm_tpu.ops import moments as jmoments
 from bflbm_tpu.ops import noise as jnoise
 from bflbm_tpu.ops import stream as jstream
 from bflbm_tpu_torch.config import LBMParams
 from bflbm_tpu_torch.kernels import fused_step
 from bflbm_tpu_torch.models import binary_fluid as model
-from bflbm_tpu_torch.ops import blocked, stream
+from bflbm_tpu_torch.ops import blocked, collide, hydro, moments, noise, stream
 from bflbm_tpu_torch.ops.moments import density
 from bflbm_tpu_torch.parallel import halo
 from bflbm_tpu_torch.parallel import kernel as kernel_par
@@ -230,3 +239,64 @@ def test_jax_sweep_sides_with_the_kernel(case):
                   zip(ext.origin, ext.interior(blk.shape)))
     assert _maxdiff([t[(slice(None),) + cells] for t in case["p2"]],
                     serial) <= TOL
+
+
+def _ulps(a, b, cube):
+    """Largest distance in float32 ulps between a and b on `cube` (its
+    last three slices for a field without a leading axis)."""
+    def ordered(t):
+        t = np.asarray(t, np.float32)
+        i = t[cube[len(cube) - t.ndim:]].view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(ordered(a) - ordered(b)).max())
+
+
+def test_plain_step_leaves_jax_in_the_inverse_transform(case, monkeypatch):
+    """Step one, op by op against JAX's jnp K on the 27 cells around the
+    cell: stream, the densities, the hash noise with the ref amplitudes,
+    hydrovars from JAX's bare velocities and collide's moment rows are
+    bitwise JAX's; g's bare velocity (the momentum contraction) is within
+    64 ulps, and collide's inverse transform populations(m) within 256
+    ulps of JAX's on the same moments (both dots whose summation order
+    XLA picks).  The inverse transform alone sets the guard's side: the
+    plain step with JAX's closes it (-eps exactly), with its own opens
+    it."""
+    params, jp, cube = case["params"], JParams(kBT=1e-5), case["cube"]
+    cell = case["cell"]
+    t, j = (lambda a: torch.from_numpy(np.array(a))), jnp.asarray
+    fs, gs = stream.stream(case["f"]), stream.stream(case["g"])
+    jf, jg = jstream.stream(j(case["f"].numpy())), \
+        jstream.stream(j(case["g"].numpy()))
+    assert _ulps(fs, jf, cube) == 0 and _ulps(gs, jg, cube) == 0
+    hb, jhb = hydro.hydrovars_bar(fs, gs, params), \
+        jhydro.hydrovars_bar(jf, jg, jp)
+    for k in ("rho", "phi", "uf_bar"):
+        assert _ulps(getattr(hb, k), getattr(jhb, k), cube) == 0, k
+    assert 0 < _ulps(hb.ug_bar, jhb.ug_bar, cube) <= 64
+    ref = case["ref"]
+    xf, xg = noise.thermal_noise_hash(WORDS[0], STEP0, hb.rho, hb.phi,
+                                      params, (ref[0], ref[1], None), "clt4")
+    r = j(ref.numpy())
+    jxf, jxg = jnoise.thermal_noise_hash(
+        jnp.int32(WORDS[0]), jnp.int32(STEP0), jhb.rho, jhb.phi, jp,
+        (r[0], r[1], jnp.zeros(3, jnp.float32)), "clt4")
+    assert _ulps(xf, jxf, cube) == 0 and _ulps(xg, jxg, cube) == 0
+    hbj = hydro.HydroBar(*(t(getattr(jhb, k)) for k in hb._fields))
+    h = hydro.hydrovars(fs, gs, xf, xg, params, hbj)
+    jh = jhydro.hydrovars(jf, jg, jxf, jxg, jp, jhb)
+    for k in h._fields:
+        assert _ulps(getattr(h, k), getattr(jh, k), cube) == 0, k
+    v_b = (h.rho[None] * h.uf + h.phi[None] * h.ug) / (h.rho + h.phi)[None]
+    mf = collide.equilibrium_moments(h.rho, v_b) + collide.force_moments(
+        h.rho, h.uf, h.af, params.tau_f) + xf
+    assert 0 < _ulps(moments.populations(mf),
+                     jmoments.populations(j(mf.numpy())), cube) <= 256
+
+    def rho_after(populations):
+        monkeypatch.setattr(collide, "populations", populations)
+        fo, _ = collide.collide(fs, gs, h, xf, xg, params)
+        return _streamed_rho(fo, cell)
+
+    assert rho_after(lambda m: t(jmoments.populations(j(m.numpy())))) \
+        == -EPS
+    assert abs(rho_after(moments.populations)) > EPS
