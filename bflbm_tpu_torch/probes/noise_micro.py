@@ -64,22 +64,21 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 # sm_90a; its output pasted here): integer = the ALU pipe's instructions
 # (LOP3, SHF, IADD3, LEA, ...), 64 a clock an SM; float = the FMA pipe's
 # (FFMA, FADD, FMUL and the integer multiplies IMAD), two operations each
-# against the float32 rate of 256 a clock an SM.  Only the code every
-# thread runs is counted (outside the divergent regions and the blocks
-# after the last EXIT), so the Box-Muller cases, whose libm calls sit in
-# such regions, are bounded loosely; the others run straight-line code
-# and are counted whole.
+# against the float32 rate of 256 a clock an SM.  What is counted is the
+# fast path of an in-range cell: the straight-line cases whole, the
+# Box-Muller ones with the branch-free logf and the fast paths of
+# sincosf and sqrtf of every pair (their slow paths never taken).
 OPS = {
     "hash_cur": (402, 388),
     "hash_uniform_only": (266, 320),
-    "hash_u16": (65, 116),
-    "hash_1mul24": (38, 132),
-    "hash_1mul16": (63, 132),
-    "hash_nomul": (63, 114),
+    "hash_u16": (274, 1710),
+    "hash_1mul24": (329, 1712),
+    "hash_1mul16": (232, 1676),
+    "hash_nomul": (375, 1634),
     "clt4_hash": (436, 388),
     "clt4_hash_1mul": (402, 320),
     "clt4_hash_nomul": (572, 252),
-    "philox": (82, 190),
+    "philox": (334, 2086),
     "philox_bits_only": (199, 462),
     "clt4_philox": (403, 528),
 }

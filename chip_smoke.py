@@ -193,7 +193,7 @@ Phases (each raises on failure; the script then exits non-zero):
    again on other inputs outside the counted run; a noise case's bound is
    the larger of its ALU-pipe integer operations over the INT32 rate and
    its FMA-pipe ones over the float32 rate (``noise_micro.OPS``, counted
-   in the kernel's SASS by ``tools/noise_ops.py``);
+   on the fast path of the kernel's SASS by ``tools/noise_ops.py``);
 16. the analysis path (``python -m bflbm_tpu_torch.analysis``, no kernel
    of its own): every subcommand through ``analysis.main`` on the card,
    then with ``--device cpu`` on the same inputs, the JSON numbers within
@@ -208,7 +208,23 @@ Phases (each raises on failure; the script then exits non-zero):
    interface-fluct physics at 8 x 256 x 64 from a stripe, two 64^3
    fluctuating droplets of radius 0.2 and 0.25 of the box); theory takes
    no input.  The results are held to the physics where a short run
-   allows it (radii, S(k), the noise variances, the binodal).
+   allows it (radii, S(k), the noise variances, the binodal);
+17. the physics acceptance phases (``python -m bflbm_tpu_torch.acceptance``
+   through its main, no kernel of their own), cut in steps where the
+   protocol is long: (a) d at its full protocol (5 radii x 20,000 steps
+   at 32^3), each R / L within 0.5% of the JAX package's (ACCEPTANCE.md
+   phase D) and the Laplace slope within 1% of 0.021617; (b) b-kernel
+   with u8 at 64 x 64 x 128 cut to 20,000 steps (a 10,000-step window,
+   100 S(k) frames), every one of the 11 ratios within 3% of 1; (c) e at
+   32^3 cut to one 100,000-step run, its rows finite and R_mass_mean
+   within 10% of 5.05; (d) c, 3000 + 20,000 steps, gamma finite and
+   positive; (e) f cut to 50,000 steps, then f-static on its artifacts,
+   R0 within 3% of 7.53 and every gamma finite; (f) massdrift at 256^3
+   cut to 3000 steps, the restored run's end relative drift within 5e-7
+   (the unrestored one printed).  The phases run in four worker
+   processes sharing the card (these boxes are host-bound), each zeroing
+   the launch counts before its phases and reporting them after each;
+   K in u8 and clt4 and A must have launched.
 
 Phases 9 and 10 pass ``block=1``: they check the one-step launches.
 
@@ -3835,6 +3851,169 @@ def _analysis_small(keep, walls):
     return res
 
 
+# -- phase 17: the physics acceptance phases ----------------------------------
+
+# ACCEPTANCE.md's phase D of the JAX package (R / L at init r = 0.2, 0.23,
+# 0.25, 0.28, 0.3 and the Delta P vs 1 / (R / L) slope): droplet-eq has
+# kBT = 0, so the port's radii must agree closely
+D_ACCEPTED = (0.176089, 0.210017, 0.231134, 0.262425, 0.283115)
+D_SLOPE_ACCEPTED = 0.021617
+D_RTOL, D_SLOPE_RTOL = 0.005, 0.01
+SK_RATIO_TOL = 0.03        # b-kernel cut to a 10,000-step window
+E_R_MASS, E_R_RTOL = 5.05, 0.10   # the JAX runs' 1M-step means 5.04-5.14
+F_R0, F_R0_RTOL = 7.53, 0.03
+MASS_DRIFT_TOL = 5e-7      # the restored 256^3 mixture after 3000 steps
+F_GAMMAS = ("gamma_20_axes_sum", "gamma_22_axes_sum", "gamma_20_axes_mean",
+            "gamma_22_axes_mean", "gamma_zeta20", "gamma_zeta20_mc")
+
+
+# the phases of each worker process, in order (f and f-static read d's
+# r = 0.25 droplet): the 32^3-64^3 protocols are host-bound (~125 us a
+# coupled 32^3 step, the driver's observables between chunks), so four
+# processes share the card
+ACC_GROUPS = (
+    (("d", []), ("f", ["--steps", "50000"]), ("f-static", [])),
+    (("e", ["--size", "32", "--steps", "100000", "--n-runs", "1"]),),
+    (("c", ["--steps", "20000"]),),
+    (("b-kernel", ["--steps", "20000", "--noise-dist", "u8"]),
+     ("massdrift", ["--shape", "256", "256", "256", "--steps", "3000"])),
+)
+# a worker: zero the launch counts, run its phases through
+# acceptance.main, print one JSON line with each phase's result, wall
+# seconds and the launch counts read after it
+ACC_WORKER = """
+import contextlib, io, json, sys, time
+from bflbm_tpu_torch import acceptance
+from bflbm_tpu_torch.kernels import fused_step
+
+out, group = sys.argv[1], json.loads(sys.argv[2])
+fused_step.reset_launch_counts()
+done = []
+for name, argv in group:
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = acceptance.main([name, "--out", out] + argv)
+    done.append({"phase": name, "argv": argv, "result": res,
+                 "wall_s": time.perf_counter() - t0,
+                 "launches": fused_step.launches,
+                 "density_launches": fused_step.density_launches,
+                 "mode_launches": dict(fused_step.mode_launches)})
+print(json.dumps(done), flush=True)
+"""
+
+
+def _acceptance_workers(out):
+    """ACC_GROUPS in four processes on the card (two host threads each);
+    returns {phase: its record}, each with its worker's launch counts
+    read after it (cumulative over the worker's phases)."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", ACC_WORKER, out, json.dumps(group)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for group in ACC_GROUPS]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = {}
+    for p, (so, se), group in zip(procs, outputs, ACC_GROUPS):
+        _check(p.returncode == 0, f"phase 17 worker {[g[0] for g in group]}"
+                                  f" exited {p.returncode}: {se[-3000:]}")
+        for rec in json.loads(so.strip().splitlines()[-1]):
+            records[rec["phase"]] = rec
+    return records
+
+
+def _acceptance(tmp):
+    """Phase 17: ``python -m bflbm_tpu_torch.acceptance`` through its main
+    on the card, cut where its protocol is long: d at its full protocol
+    (5 radii x 20,000 steps at 32^3), b-kernel u8 (20,000 steps, a
+    10,000-step S(k) window), e at 32^3 (one 100,000-step run), c (3000 +
+    20,000 steps), f (50,000 steps) then f-static on its artifacts, and
+    massdrift at 256^3 (3000 steps), in four worker processes.  Each gate
+    raises; each phase's JSON and wall seconds are printed.  Returns the
+    kernels' launch counts, summed over the workers (massdrift's apart)."""
+    import math
+    import os
+
+    import numpy as np
+
+    from bflbm_tpu_torch import acceptance
+
+    out = os.path.join(tmp, "acceptance")
+    t0 = time.perf_counter()
+    recs = _acceptance_workers(out)
+    for rec in recs.values():
+        print(f"[phase 17] {rec['phase']} {' '.join(rec['argv'])}: "
+              f"{rec['wall_s']:.2f} s; {json.dumps(rec['result'])}",
+              flush=True)
+    res = {k: v["result"] for k, v in recs.items()}
+    d = res["d"]
+    for run, want in zip(d["runs"], D_ACCEPTED):
+        _check(abs(run["R_over_L"] / want - 1.0) <= D_RTOL,
+               f"d: R/L {run['R_over_L']} at init r {run['init_r']}, "
+               f"accepted {want}")
+    _check(abs(d["slope_ref_convention"] / D_SLOPE_ACCEPTED - 1.0)
+           <= D_SLOPE_RTOL, f"d: slope {d['slope_ref_convention']}")
+    b = res["b-kernel"]
+    ratios = {k: v for k, v in b.items() if k in acceptance.SK_NORM}
+    _check(len(ratios) == 11 and b["sf_frames"] == 100
+           and all(abs(v - 1.0) <= SK_RATIO_TOL for v in ratios.values()),
+           f"b-kernel u8 ratios {ratios}")
+    e = res["e"]
+    rows = np.load(os.path.join(out, "droplet-msd-fluct32", "msd_rows.npy"))
+    _check(rows.shape == (999, 5) and bool(np.isfinite(rows).all()),
+           f"e: rows {rows.shape}, finite {bool(np.isfinite(rows).all())}")
+    _check(abs(e["R_mass_mean"] / E_R_MASS - 1.0) <= E_R_RTOL
+           and math.isfinite(e["D_fit"]), f"e: R_mass_mean "
+           f"{e['R_mass_mean']}, D_fit {e['D_fit']}")
+    c = res["c"]
+    _check(math.isfinite(c["gamma_capillary"]) and c["gamma_capillary"] > 0,
+           f"c: gamma {c['gamma_capillary']}")
+    f = res["f"]
+    _check(abs(f["R0"] / F_R0 - 1.0) <= F_R0_RTOL
+           and all(math.isfinite(f[k]) for k in F_GAMMAS),
+           f"f: R0 {f['R0']}, gammas {[f[k] for k in F_GAMMAS]}")
+    fs = res["f-static"]
+    _check(all(math.isfinite(v) for v in fs.values()
+               if isinstance(v, float)), f"f-static {fs}")
+    m = res["massdrift"]
+    on = m["restore_on"]["end_rel_drift"]
+    _check(abs(on) <= MASS_DRIFT_TOL, f"massdrift: restored drift {on}")
+    print(f"[phase 17] gates held: d R/L "
+          f"{[r['R_over_L'] for r in d['runs']]} (accepted {D_ACCEPTED}), "
+          f"slope {d['slope_ref_convention']} ({D_SLOPE_ACCEPTED}); "
+          f"b-kernel u8 worst |ratio - 1| {b['worst_abs_dev']}; e R_mass "
+          f"{e['R_mass_mean']}, D_fit {e['D_fit']:.4e} (D_se "
+          f"{e['D_se']:.4e}); c gamma {c['gamma_capillary']}; f R0 "
+          f"{f['R0']}, <zeta_20^2> {f['zeta20_var']:.4e}; massdrift end "
+          f"relative drift restored {on:.3e}, unrestored "
+          f"{m['restore_off']['end_rel_drift']:.3e}, MLUPS "
+          f"{m['restore_on']['mlups']:.1f} / "
+          f"{m['restore_off']['mlups']:.1f} (beside three workers); "
+          f"{time.perf_counter() - t0:.2f} s in four workers", flush=True)
+    # each worker's counts after its last phase; massdrift's K launches
+    # are those after b-kernel's
+    last = [recs["f-static"], recs["e"], recs["c"], recs["massdrift"]]
+    counts = {"launches": sum(r["launches"] for r in last),
+              "density_launches": sum(r["density_launches"] for r in last),
+              "mode_launches": {},
+              "massdrift": (recs["massdrift"]["launches"]
+                            - recs["b-kernel"]["launches"])}
+    for r in last:
+        for k, v in r["mode_launches"].items():
+            counts["mode_launches"][k] = counts["mode_launches"].get(k, 0) + v
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4281,6 +4460,26 @@ def main() -> int:
           f"{small16['sk']['rho*rho']['mean_ratio']:.4f}, msd 64^3 D "
           f"{small16['msd']['D_measured']:.4e}", flush=True)
     phase_done(16)
+
+    # -- phase 17: the physics acceptance phases (no kernel of their own) --
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_acceptance_", dir=scratch)
+    try:
+        acc_counts = _acceptance(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the counts read after the phases: K in u8 (b-kernel, massdrift) and
+    # clt4 (c, e, f), A (d, c, e, f)
+    _check(acc_counts["mode_launches"].get("u8", 0) > 0
+           and acc_counts["mode_launches"].get("clt4", 0) > 0
+           and acc_counts["density_launches"] > 0
+           and acc_counts["massdrift"] > 0,
+           f"phase 17 launches {acc_counts}")
+    print(f"[phase 17] launches over d, b-kernel, e, c, f: K "
+          f"{acc_counts['launches']}, A {acc_counts['density_launches']}, "
+          f"by mode {acc_counts['mode_launches']}; massdrift K "
+          f"{acc_counts['massdrift']}", flush=True)
+    torch.cuda.empty_cache()
+    phase_done(17)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (

@@ -10,22 +10,31 @@ that executes them on the H100:
   as two operations each against ``chip_smoke.py``'s ``F32_OPS`` (256
   flops a clock an SM).
 
-Only code outside every BSSY / BSYNC region and before the last EXIT is
-counted, the code every thread executes: the regions and the blocks
-after the last EXIT hold the libm slow paths of the Box-Muller cases
-(``sinf`` / ``cosf`` argument reduction, ``logf``), which run for few or
-no inputs.  Instructions of other pipes (conversions, MUFU,
-VIADD, FSETP / FSEL, memory, control) bound nothing here, so the counts
-give a lower bound on the time.
+What is counted is the fast path, the instructions a thread of an
+in-range cell issues on the shortest way from the kernel's entry to its
+EXIT: a predicated EXIT falls through (the range guard), a predicated
+branch may go either way, a call (``CALL.REL``: the libm slow paths,
+``sqrtf``'s for special inputs) and the blocks placed after the last
+EXIT (reached only by a branch) are never taken.  The Box-Muller cases
+(``hash_u16``, ``hash_1mul24``, ``hash_1mul16``, ``hash_nomul``,
+``philox``) then count their ``logf`` (predicated, branch-free), the
+fast ``sincosf`` (the Payne-Hanek reduction for |x| >= 105615 skipped:
+the angle 2 pi u is below 6.3) and the fast ``sqrtf`` of every pair; the
+straight-line cases count all their code.  Predicated instructions count
+where they are issued, whether their predicate holds or not.
+Instructions of other pipes (conversions, MUFU, VIADD, FSETP / FSEL,
+memory, control) bound nothing here, so the counts give a lower bound on
+the time.
 
-Prints one line a case (the counts, then every opcode outside and inside
-the regions) and, last, ``probes/noise_micro.py``'s ``OPS`` table of
-(integer, float) pairs.  Needs the card (it builds the library) and
-``cuobjdump`` (the CUDA toolkit).
+Prints one line a case (the counts, then every opcode on the path) and,
+last, ``probes/noise_micro.py``'s ``OPS`` table of (integer, float)
+pairs.  Needs the card (it builds the library) and ``cuobjdump`` (the
+CUDA toolkit).
 
     PYTHONPATH=. python tools/noise_ops.py
 """
 
+import heapq
 import os
 import re
 import sys
@@ -45,20 +54,45 @@ def opcode(ins):
     return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
 
 
-def split_regions(instructions):
-    """(opcodes outside every BSSY / BSYNC region and before the last
-    EXIT, the others: the regions and the blocks placed after the last
-    EXIT, reached only by a branch)."""
-    ops = [opcode(ins) for ins in instructions]
-    last_exit = max(i for i, op in enumerate(ops) if op.startswith("EXIT"))
-    outside, inside, depth = [], [], 0
-    for i, op in enumerate(ops):
-        if op.startswith("BSSY"):
-            depth += 1
-        (inside if depth or i > last_exit else outside).append(op)
-        if op.startswith("BSYNC"):
-            depth = max(depth - 1, 0)
-    return outside, inside
+def fast_path(instructions):
+    """The opcodes of the shortest way through a kernel's SASS (its
+    instruction texts, 16 bytes each from address 0) from its entry to
+    an unconditional EXIT, under the module's rules (a Dijkstra walk,
+    every instruction one)."""
+    ops = [opcode(t) for t in instructions]
+    last_exit = max(i for i, t in enumerate(instructions)
+                    if ops[i].startswith("EXIT") and not t.startswith("@"))
+
+    def successors(i):
+        text = instructions[i]
+        base = ops[i].split(".")[0]
+        pred = text.startswith("@")
+        if base == "EXIT":
+            return [i + 1] if pred else []
+        if base == "BRA":
+            to = int(re.search(r"0x([0-9a-f]+)\s*$", text).group(1), 16)
+            return [to // 16, i + 1] if pred else [to // 16]
+        if base in ("CALL", "JMP", "BRX", "RET"):
+            return [i + 1] if pred else None
+        return [i + 1]
+
+    dist, prev, heap = {0: 1}, {0: None}, [(1, 0)]
+    while heap:
+        d, i = heapq.heappop(heap)
+        if d > dist[i]:
+            continue
+        nxt = successors(i)
+        if nxt == []:
+            path = []
+            while i is not None:
+                path.append(ops[i])
+                i = prev[i]
+            return path[::-1]
+        for j in nxt or ():
+            if j <= last_exit and d + 1 < dist.get(j, d + 2):
+                dist[j], prev[j] = d + 1, i
+                heapq.heappush(heap, (d + 1, j))
+    raise ValueError("no path to an EXIT")
 
 
 def counts(opcodes):
@@ -87,16 +121,13 @@ def main() -> int:
             by_case[int(template_args(name)[0])] = ins
     table = {}
     for i, case in enumerate(noise_micro.CASES):
-        outside, inside = split_regions(by_case[i])
-        table[case] = counts(outside)
+        path = fast_path(by_case[i])
+        table[case] = counts(path)
         print(f"{case}: integer {table[case][0]}, float {table[case][1]} "
-              f"(counted outside the regions; inside: integer, float "
-              f"{counts(inside)}); outside: "
+              f"({len(path)} instructions on the fast path of "
+              f"{len(by_case[i])}): "
               + ", ".join(f"{k} {v}" for k, v in
-                          Counter(outside).most_common())
-              + "; inside: " + ", ".join(
-                  f"{k} {v}" for k, v in Counter(inside).most_common()),
-              flush=True)
+                          Counter(path).most_common()), flush=True)
     print("OPS = {" + ", ".join(f'"{c}": {v}' for c, v in table.items())
           + "}", flush=True)
     return 0
