@@ -236,9 +236,15 @@ def phase_c(args, device):
             **res}
 
 
-def run_capillary_one(out_eq, out_dir, steps, seed, reseed, device):
+def run_capillary_one(out_eq, out_dir, steps, seed, reseed, device, *,
+                      engine="auto", noise_source="threefry",
+                      noise_dist=None, mass_restore_int=1000):
     """One interface-fluct run with its heights collected in memory (no
-    frames on disk); returns ([(step, h (X, Y))], wall seconds)."""
+    frames on disk); returns ([(step, h (X, Y))], wall seconds).
+    engine, noise_source (the config's), noise_dist, mass_restore_int:
+    passed to :func:`bflbm_tpu_torch.run.run` (the defaults are the
+    phases' own: the kernel session, the hash stream's clt4, the restore
+    every 1000 steps)."""
     heights = []
 
     def on_frame(step_i, packed):
@@ -250,9 +256,11 @@ def run_capillary_one(out_eq, out_dir, steps, seed, reseed, device):
         nsteps=steps, step_continue=3000,
         checkpoint_path=f"{out_eq}/checkpoint0003000",
         plot_int=500, plot_save=False, print_int=steps // 4,
-        seed=seed, reseed=reseed, out_dir=out_dir)
+        seed=seed, reseed=reseed, out_dir=out_dir,
+        noise_source=noise_source)
     t0 = time.time()
-    run_mod.run(cfg, on_frame=on_frame, device=device)
+    run_mod.run(cfg, on_frame=on_frame, device=device, engine=engine,
+                noise_dist=noise_dist, mass_restore_int=mass_restore_int)
     return heights, time.time() - t0
 
 
@@ -503,10 +511,13 @@ def frame_reducer(n: int, device):
     return reduce
 
 
-def run_e_one(cfg, n: int, device) -> np.ndarray:
+def run_e_one(cfg, n: int, device, *, engine="auto", noise_source=None,
+              noise_dist=None, mass_restore_int=1000) -> np.ndarray:
     """One droplet-msd-fluct run; returns its rows (step, R_mass, com x,
     y, z), frame 0 dropped as the notebook does, and saves them as
-    msd_rows.npy.  The rows stay on the device until the run ends."""
+    msd_rows.npy.  The rows stay on the device until the run ends.
+    engine, noise_source (None: the config's), noise_dist,
+    mass_restore_int: passed to :func:`bflbm_tpu_torch.run.run`."""
     reduce = frame_reducer(n, device)
     steps_i, vals = [], []
 
@@ -514,7 +525,10 @@ def run_e_one(cfg, n: int, device) -> np.ndarray:
         steps_i.append(step_i)
         vals.append(reduce(_field(packed[0], device)))
 
-    run_mod.run(cfg, on_frame=on_frame, device=device)
+    if noise_source is not None:
+        cfg = cfg.replace(noise_source=noise_source)
+    run_mod.run(cfg, on_frame=on_frame, device=device, engine=engine,
+                noise_dist=noise_dist, mass_restore_int=mass_restore_int)
     v = torch.stack(vals).cpu().numpy().astype(np.float64)
     arr = np.concatenate([np.asarray(steps_i, float)[:, None], v],
                          axis=1)[1:]

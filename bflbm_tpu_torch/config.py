@@ -75,9 +75,14 @@ class LBMParams:
 class RunConfig:
     """Execution configuration (reference: ``main_run_job.cpp:77-106``);
     field by field ``bflbm_tpu.config.RunConfig``, read by the run
-    driver :func:`bflbm_tpu_torch.run.run`.  Every draw of the port is
-    the coordinate-keyed hash stream, so ``noise_source`` has no effect
-    here; ``noise_dist`` picks its generator."""
+    driver :func:`bflbm_tpu_torch.run.run`.  ``noise_source`` has the
+    JAX package's meaning: the plain engine's noise, ``"threefry"`` (the
+    default: the bulk source, exact normals from a generator seeded with
+    the step's word and the step; not threefry's bits) or ``"hash"`` (the
+    coordinate-keyed hash stream the kernels draw), and a non-default
+    source selects the plain engine (``run.resolve_engine``); the kernel
+    session always draws the hash stream.  ``noise_dist`` picks the hash
+    stream's generator."""
 
     shape: Tuple[int, int, int] = (32, 32, 32)
     params: LBMParams = field(default_factory=LBMParams)
@@ -104,7 +109,7 @@ class RunConfig:
     checkpoint_path: Optional[str] = None
     reseed: bool = False         # checkpoint init: seed the noise words
     #                              from `seed`, not from the stored key
-    noise_source: str = "threefry"
+    noise_source: str = "threefry"  # the plain engine's: threefry | hash
     noise_dist: str = "clt4"     # hash-stream generator: clt4, u8,
     #                              clt2 or bm
     droplet_int: int = 0

@@ -42,9 +42,16 @@
 // the plain PyTorch version, so that the cases without transcendentals
 // come out bitwise.
 //
-// What bounds it: operations (probes/noise_micro.py OPS, counted in this
-// kernel's SASS by tools/noise_ops.py: ALU-pipe integer ones at 64 a
-// clock an SM, FMA-pipe ones at 128), against 4 bytes a cell written.
+// The Box-Muller pair (bm) evaluates its angle once: one sincosf of th =
+// fl(2 pi u2), the plain version's angle (one argument reduction and one
+// polynomial pass for both), bitwise the plain version's cos and sin on
+// the card.  The radius stays one logf and one sqrtf a pair (__logf's
+// absolute error near u = 1 would break the tolerance).  Philox consumes
+// each block's four words as it is made, case 9 holding the block of each
+// half of its pairs (p, 17 + p) only.  Measured and not taken (PERF.md):
+// one sincospif of 2 u2 (exact in its argument, so off the plain version
+// by the rounding of fl(2 pi u2)) and Philox's products as one 64-bit
+// widening multiply.
 
 #include "k_cell.cuh"
 
@@ -86,8 +93,9 @@ __device__ __forceinline__ float u16(uint32_t v) {
 
 __device__ __forceinline__ float bm(float u1, float u2) {
   const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-  const float th = __fmul_rn(TWO_PI, u2);
-  return __fmul_rn(r, __fadd_rn(cosf(th), sinf(th)));
+  float s, c;
+  sincosf(__fmul_rn(TWO_PI, u2), &s, &c);
+  return __fmul_rn(r, __fadd_rn(c, s));
 }
 
 // The four bytes of w summed, standardized (the JAX probe's _clt4).
@@ -116,18 +124,15 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-// The 34 Philox words of a cell, draw a at word a % 4 of block a / 4.
-__device__ __forceinline__ void philox_words(uint32_t cell, uint32_t word,
-                                             uint32_t step,
-                                             uint32_t (&w)[NDRAW + 2]) {
-#pragma unroll
-  for (int b = 0; b < (NDRAW + 3) / 4; ++b) {
-    const uint4 o = philox4x32_10(make_uint4(cell, b, 0u, 0u), word, step);
-    w[4 * b] = o.x;
-    w[4 * b + 1] = o.y;
-    w[4 * b + 2] = o.z;
-    w[4 * b + 3] = o.w;
-  }
+// Block b of a cell's Philox words: draws 4 b .. 4 b + 3.
+__device__ __forceinline__ uint4 philox_block(uint32_t cell, int b,
+                                              uint32_t word, uint32_t step) {
+  return philox4x32_10(make_uint4(cell, static_cast<uint32_t>(b), 0u, 0u),
+                       word, step);
+}
+
+__device__ __forceinline__ uint32_t lane(const uint4& o, int i) {
+  return i == 0 ? o.x : i == 1 ? o.y : i == 2 ? o.z : o.w;
 }
 
 template <int CASE>
@@ -135,26 +140,41 @@ __device__ __forceinline__ float case_sum(uint32_t cell, uint32_t word,
                                           uint32_t step, const NoiseCoef& nc,
                                           const Clt4& c4) {
   const uint32_t sbase = step * DRAW_STRIDE;
-  if (CASE >= 9) {
-    uint32_t w[NDRAW + 2];
-    philox_words(cell, word, step, w);
+  if (CASE == 9) {
+    // pair p: u1 from word p, u2 from word 17 + p; the blocks of both
+    // halves made as the pairs reach them (block 4 holds words 16-19:
+    // its word 16 is kept for the last pair)
+    constexpr int H = NDRAW / 2;
     float acc = 0.0f;
-    if (CASE == 9) {
+    uint4 first = philox_block(cell, 0, word, step);
+    uint4 second = philox_block(cell, H / 4, word, step);
+    const uint32_t w16 = second.x;
 #pragma unroll
-      for (int p = 0; p < NDRAW / 2; ++p) {
-        const float u1 = u24(w[p]);
-        const float u2 = __fmul_rn(static_cast<float>(w[NDRAW / 2 + p] >> 8),
-                                   U24);
-        const float v = bm(u1, u2);
-        acc = p == 0 ? v : __fadd_rn(acc, v);
-      }
-    } else {
+    for (int p = 0; p < H; ++p) {
+      if (p > 0 && p % 4 == 0 && p / 4 != H / 4)
+        first = philox_block(cell, p / 4, word, step);
+      if ((H + p) % 4 == 0) second = philox_block(cell, (H + p) / 4, word, step);
+      const uint32_t w1 = p / 4 == H / 4 ? w16 : lane(first, p % 4);
+      const float u1 = u24(w1);
+      const float u2 = __fmul_rn(
+          static_cast<float>(lane(second, (H + p) % 4) >> 8), U24);
+      const float v = bm(u1, u2);
+      acc = p == 0 ? v : __fadd_rn(acc, v);
+    }
+    return acc;
+  }
+  if (CASE >= 10) {
+    float acc = 0.0f;
 #pragma unroll
-      for (int a = 0; a < NDRAW; ++a) {
+    for (int b = 0; b < (NDRAW + 3) / 4; ++b) {
+      const uint4 o = philox_block(cell, b, word, step);
+#pragma unroll
+      for (int i = 0; i < 4 && 4 * b + i < NDRAW; ++i) {
+        const uint32_t w = lane(o, i);
         const float v = CASE == 10
-                            ? __fmul_rn(static_cast<float>(w[a] >> 8), U24)
-                            : clt4(w[a], c4);
-        acc = a == 0 ? v : __fadd_rn(acc, v);
+                            ? __fmul_rn(static_cast<float>(w >> 8), U24)
+                            : clt4(w, c4);
+        acc = b == 0 && i == 0 ? v : __fadd_rn(acc, v);
       }
     }
     return acc;

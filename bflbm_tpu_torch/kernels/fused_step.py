@@ -81,7 +81,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -152,23 +152,39 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def hash_words(word: int, step: int, shape, ndraws: int, device=None,
-               origin=(0, 0, 0), domain=None) -> List[torch.Tensor]:
-    """ndraws uint32 hash words on the (X, Y, Z) region at global `origin`
-    of the global `domain` (default: the region is the domain), keyed by
-    global coordinates wrapped into the domain, as JAX's
-    ``hash_words(word, step, origin, region, domain, ndraws)``; int64
-    tensors in [0, 2^32).  word: int32 per-step word (negative allowed);
-    step: the step label."""
+def hash_word_groups(word: int, step: int, shape, ndraws: int, group: int,
+                     device=None, origin=(0, 0, 0), domain=None
+                     ) -> Iterator[torch.Tensor]:
+    """The uint32 hash words of draws 0 to ndraws - 1 on the (X, Y, Z)
+    region at global `origin` of the global `domain` (default: the region
+    is the domain), keyed by global coordinates wrapped into the domain,
+    as JAX's ``hash_words(word, step, origin, region, domain, ndraws)``:
+    (g, X, Y, Z) int64 tensors in [0, 2^32) of `group` consecutive draws
+    (the last may hold fewer), the cells keyed once.  word: int32
+    per-step word (negative allowed); step: the step label; each an int
+    or a 0-dim int64 tensor on `device` (a CUDA graph then reads the key
+    from device memory)."""
     domain = tuple(int(s) for s in (shape if domain is None else domain))
     g = [(torch.arange(int(n), dtype=torch.int64, device=device) + int(o))
          % d for n, o, d in zip(shape, origin, domain)]
     cell = ((g[0][:, None, None] * domain[1] + g[1][None, :, None])
             * domain[2] + g[2][None, None, :]) & _MASK
-    h1 = _mix32(cell ^ (int(word) & _MASK))
-    sbase = int(step) * _DRAW_STRIDE
-    return [_mix32((h1 + (((sbase + a) * _GOLDEN) & _MASK)) & _MASK)
-            for a in range(ndraws)]
+    if not isinstance(word, torch.Tensor):
+        word, step = int(word), int(step)
+    h1 = _mix32(cell ^ (word & _MASK))
+    sbase = step * _DRAW_STRIDE
+    for a0 in range(0, ndraws, group):
+        a = torch.arange(a0, min(a0 + group, ndraws), dtype=torch.int64,
+                         device=device).reshape(-1, 1, 1, 1)
+        yield _mix32((h1 + (((sbase + a) * _GOLDEN) & _MASK)) & _MASK)
+
+
+def hash_words(word: int, step: int, shape, ndraws: int, device=None,
+               origin=(0, 0, 0), domain=None) -> List[torch.Tensor]:
+    """ndraws uint32 hash words (:func:`hash_word_groups`), one (X, Y, Z)
+    int64 tensor each."""
+    return [w[0] for w in hash_word_groups(word, step, shape, ndraws, 1,
+                                           device, origin, domain)]
 
 
 def u8_quad(w: torch.Tensor, dtype) -> List[torch.Tensor]:

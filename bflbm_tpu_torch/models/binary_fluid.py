@@ -8,13 +8,18 @@ as in the JAX package) is
     collide:  MRT relaxation + forcing + noise in moment space
     stream:   pull shifts
 
-Noise comes from the coordinate-keyed hash stream with clt4 (the
-default, as in the JAX package), u8, clt2 or Box-Muller deviates (the
-generators the CUDA kernel runs), keyed by one int32 word
-per physical step and by ``state.step`` (the JAX package's
-``noise_source="hash"``), so a trajectory is a pure function of its word
-sequence.  A word is drawn from ``state.gen`` for every step, noise on or
-off, unless the caller passes it.
+Noise comes from one of two sources (``noise_source``), each keyed by
+one int32 word per physical step, so a trajectory is a pure function of
+its word sequence: ``"hash"`` (the default here), the coordinate-keyed
+hash stream with clt4 (the default generator, as in the JAX package),
+u8, clt2 or Box-Muller deviates (the generators the CUDA kernel runs),
+keyed by the word and ``state.step`` (the JAX package's
+``noise_source="hash"``); or ``"threefry"``, the bulk source: exact
+normals drawn by a generator seeded with the word and ``state.step``
+(:func:`~bflbm_tpu_torch.ops.noise.bulk_normal_stack`), the counterpart
+of the JAX package's threefry draw (its default at this level; its bits
+are not threefry's).  A word is drawn from ``state.gen`` for every step,
+noise on or off, unless the caller passes it.
 
 The initializers build their state on the card unless the caller passes
 ``device="cpu"``.
@@ -55,7 +60,8 @@ def _noise_ref(hbar: hydro_ops.HydroBar, ref_state):
 
 
 def prelude(state: SimState, params: LBMParams, word: Optional[int] = None,
-            *, ref_state=None, noise_dist: str = "clt4"):
+            *, ref_state=None, noise_dist: str = "clt4",
+            noise_source: str = "hash", normals=None):
     """Noise draw + real-hydrovar reconstruction of the current state.
     Returns (hydro, xi_f, xi_g).
 
@@ -63,23 +69,35 @@ def prelude(state: SimState, params: LBMParams, word: Optional[int] = None,
     USE_REF_STATE noise path (LBM_binary.H:92-106): amplitudes evaluated
     at the stored equilibrium state translated into the instantaneous
     centre-of-mass frame; com_ref=None marks the fields as already
-    rolled."""
+    rolled.  noise_source: "hash" (the hash stream, generator
+    noise_dist) or "threefry" (the bulk source).  normals: the step's
+    (33, X, Y, Z) normals, already drawn from the source (the word then
+    keys nothing)."""
+    if noise_source not in noise_ops.NOISE_SOURCES:
+        raise ValueError(f"noise_source {noise_source!r} not in "
+                         f"{noise_ops.NOISE_SOURCES}")
     hbar = hydro_ops.hydrovars_bar(state.f, state.g, params)
     if word is None:
         (word,) = draw_words(state.gen, 1)
-    xi_f, xi_g = noise_ops.thermal_noise_hash(
-        word, state.step, hbar.rho, hbar.phi, params,
-        _noise_ref(hbar, ref_state) if params.noise_on else None, noise_dist)
+    nref = _noise_ref(hbar, ref_state) if params.noise_on else None
+    if noise_source == "hash" and normals is None:
+        xi_f, xi_g = noise_ops.thermal_noise_hash(
+            word, state.step, hbar.rho, hbar.phi, params, nref, noise_dist)
+    else:
+        xi_f, xi_g = noise_ops.thermal_noise(word, state.step, hbar.rho,
+                                             hbar.phi, params, nref, normals)
     h = hydro_ops.hydrovars(state.f, state.g, xi_f, xi_g, params, hbar)
     return h, xi_f, xi_g
 
 
 def step(state: SimState, params: LBMParams, word: Optional[int] = None, *,
-         ref_state=None, noise_dist: str = "clt4"
+         ref_state=None, noise_dist: str = "clt4",
+         noise_source: str = "hash", normals=None
          ) -> Tuple[SimState, hydro_ops.Hydro]:
     """One full LB timestep; returns (new_state, hydro-at-step-start)."""
     h, xi_f, xi_g = prelude(state, params, word, ref_state=ref_state,
-                            noise_dist=noise_dist)
+                            noise_dist=noise_dist, noise_source=noise_source,
+                            normals=normals)
     f1, g1 = collide_ops.collide(state.f, state.g, h, xi_f, xi_g, params)
     f2 = stream_ops.stream(f1)
     g2 = stream_ops.stream(g1)
@@ -88,7 +106,7 @@ def step(state: SimState, params: LBMParams, word: Optional[int] = None, *,
 
 def nsteps(state: SimState, params: LBMParams, n: int,
            words: Optional[Sequence[int]] = None, *, ref_state=None,
-           noise_dist: str = "clt4") -> SimState:
+           noise_dist: str = "clt4", noise_source: str = "hash") -> SimState:
     """n steps; words: optional per-step noise words (default: drawn)."""
     if words is None:
         words = draw_words(state.gen, n)
@@ -96,7 +114,7 @@ def nsteps(state: SimState, params: LBMParams, n: int,
         raise ValueError(f"need {n} words, got {len(words)}")
     for w in words:
         state, _ = step(state, params, w, ref_state=ref_state,
-                        noise_dist=noise_dist)
+                        noise_dist=noise_dist, noise_source=noise_source)
     return state
 
 

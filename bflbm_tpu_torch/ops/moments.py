@@ -16,6 +16,23 @@ import torch
 
 from ..lattice import M, M_INV
 
+_constants = {}
+
+
+def constant(value, dtype, device) -> torch.Tensor:
+    """`value` (a numpy array or a number) as a tensor of `dtype` on
+    `device`, copied from the host once and then reused: a step copies
+    nothing from the host, so it can be captured in a CUDA graph
+    (:mod:`~bflbm_tpu_torch.models.plain_session`).  Not to be written."""
+    arr = np.asarray(value)
+    key = (arr.tobytes(), arr.shape, arr.dtype.str, dtype,
+           torch.device(device))
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.as_tensor(arr, dtype=dtype,
+                                              device=device)
+    return t
+
 
 def contract(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:
     """sum_j mat[k, j] x[j, ...] in x's dtype, without TF32."""
@@ -23,7 +40,7 @@ def contract(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(
             "float32 contractions need full precision: set "
             "torch.backends.cuda.matmul.allow_tf32 = False")
-    m = torch.as_tensor(mat, dtype=x.dtype, device=x.device)
+    m = constant(mat, x.dtype, x.device)
     return torch.tensordot(m, x, dims=([1], [0]))
 
 

@@ -6,21 +6,39 @@ g draw anti-correlated (xi_g = -xi_f); on the stress and ghost modes
 sqrt(2 (lam - lam^2/2) kBT / cs^2 * b_a * |rho|), independent per
 species.
 
-The port draws its normals only from the coordinate-keyed hash stream
-(:func:`hash_normal_stack`), a pure function of (word, step, cell), so a
-trajectory is a pure function of its per-step word sequence.
+Two sources of normals, each a pure function of the step's word and the
+step, so a trajectory is a pure function of its per-step word sequence: the
+coordinate-keyed hash stream (:func:`hash_normal_stack`, keyed by (word,
+step, cell); what the CUDA kernels draw) and the bulk source
+(:func:`bulk_normal_stack`, one (33, X, Y, Z) draw of a generator on the
+fields' device seeded with (step, word)), the counterpart of the JAX
+package's threefry draw (``thermal_noise``).  The bulk source's bits
+differ from threefry's and between the CPU and the card; its
+distribution is the same: exact independent normals.
 """
 
 from __future__ import annotations
 
+import math
+import threading
 from typing import Tuple
 
 import torch
 
 from ..config import LBMParams
 from ..lattice import B, CS2, Q
+from .moments import constant
 
 N_CHANNELS = 33   # 3 momentum + 15 f-ghost + 15 g-ghost normals
+NOISE_SOURCES = ("threefry", "hash")
+_WORD_MASK = 0xFFFFFFFF
+# hash words drawn a vectorized group, at most: on the card, few launches
+# (a captured chunk of the plain engine); on the CPU, ops under torch's
+# grain size (32768), which run on one thread and in cache
+_GROUP_ELEMS = {"cuda": 1 << 24, "cpu": 1 << 14}
+_SEED_MASK = 0xFFFFFFFFFFFFFFFF
+_generators = threading.local()   # a bulk-source generator per thread
+#                                   and device
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -41,9 +59,8 @@ def noise_amplitudes(rho, phi, params: LBMParams, dtype=None):
     rhot = rho + phi
     reduced = torch.where(torch.abs(rhot) > params.div_eps, rho * phi / rhot,
                           torch.zeros_like(rhot))
-    amp_mom = _sqrt(torch.tensor(pref_f, dtype=dtype, device=rho.device)
-                    * torch.abs(reduced))
-    b_ghost = torch.as_tensor(B[4:], dtype=dtype, device=rho.device).reshape(
+    amp_mom = _sqrt(constant(pref_f, dtype, rho.device) * torch.abs(reduced))
+    b_ghost = constant(B[4:], dtype, rho.device).reshape(
         (Q - 4,) + (1,) * rho.dim())
     amp_gf = _sqrt((pref_f / CS2) * b_ghost * torch.abs(rho)[None])
     amp_gg = _sqrt((pref_g / CS2) * b_ghost * torch.abs(phi)[None])
@@ -103,25 +120,91 @@ def hash_normal_stack(word: int, step: int, shape, dtype,
     sine (odd a) Box-Muller normal of the uniforms of words a - a % 2
     and a - a % 2 + 1.  Bitwise the stream the CUDA kernel consumes for
     u8, clt4 and clt2; Box-Muller's log, cos and sin round differently
-    on every platform.
+    on every platform.  word and step: ints, or 0-dim int64 tensors on
+    `device` (:func:`~bflbm_tpu_torch.kernels.fused_step.hash_word_groups`).
+    The words are drawn in vectorized groups of at most
+    ``_GROUP_ELEMS[device type]`` words (at least one draw, a pair for
+    bm).
     """
     from ..kernels import fused_step as fs
 
     fs.check_noise_dist(dist)
     nwords = {"u8": (N_CHANNELS + 3) // 4, "clt4": N_CHANNELS,
               "clt2": fs._NPAIR, "bm": 2 * fs._NPAIR}[dist]
-    ws = fs.hash_words(word, step, shape, nwords, device, origin, domain)
-    if dist == "u8":
-        draws = [d for w in ws for d in fs.u8_quad(w, dtype)]
-    elif dist == "clt4":
-        draws = [fs.clt4_normal(w, dtype) for w in ws]
-    elif dist == "clt2":
-        draws = [d for w in ws for d in fs.clt2_pair(w, dtype)]
-    else:
-        us = [fs.hash_uniform(w, dtype) for w in ws]
-        draws = [d for p in range(fs._NPAIR)
-                 for d in fs.bm_pair(us[2 * p], us[2 * p + 1])]
-    return torch.stack(draws[:N_CHANNELS])
+    cells = math.prod(int(n) for n in shape)
+    kind = torch.device(device).type if device is not None else "cpu"
+    per = 2 if dist == "bm" else 1                    # bm's pairs
+    limit = _GROUP_ELEMS.get(kind, _GROUP_ELEMS["cpu"])
+    group = max(per, limit // cells // per * per)
+    draws = []
+    for w in fs.hash_word_groups(word, step, shape, nwords, group, device,
+                                 origin, domain):
+        if dist == "u8":
+            d = torch.stack(fs.u8_quad(w, dtype), 1).flatten(0, 1)
+        elif dist == "clt4":
+            d = fs.clt4_normal(w, dtype)
+        elif dist == "clt2":
+            d = torch.stack(fs.clt2_pair(w, dtype), 1).flatten(0, 1)
+        else:
+            u = fs.hash_uniform(w, dtype)
+            d = torch.stack(fs.bm_pair(u[0::2], u[1::2]), 1).flatten(0, 1)
+        draws.append(d)
+    return torch.cat(draws)[:N_CHANNELS]
+
+
+def bulk_seed(word: int, step: int) -> int:
+    """The bulk source's 64-bit seed of a step: splitmix64's finalizer
+    (a bijection) of the step's 32 low bits above the word's (as
+    uint32).  The card's Philox takes all 64 bits, so no two (word, step)
+    keys share a draw there; the CPU's mt19937 keeps the low 32, a hash
+    of both."""
+    z = ((int(step) & _WORD_MASK) << 32) | (int(word) & _WORD_MASK)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _SEED_MASK
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _SEED_MASK
+    return z ^ (z >> 31)
+
+
+def bulk_normal_stack(word: int, step: int, shape, dtype=torch.float32,
+                      device=None, out=None) -> torch.Tensor:
+    """(33, X, Y, Z) independent standard normals of the bulk source: a
+    generator on `device` seeded with :func:`bulk_seed` (word, step), one
+    ``torch.randn`` draw.  A function of (word, step), as the hash stream
+    is, so two steps that draw the same word draw different normals;
+    bitwise on one device, the CPU and the card draw different bits.
+    out: an optional (33, X, Y, Z) tensor to draw into."""
+    device = torch.device(device if device is not None
+                          else out.device if out is not None else "cpu")
+    gens = getattr(_generators, "by_device", None)
+    if gens is None:
+        gens = _generators.by_device = {}
+    gen = gens.get(device)
+    if gen is None:
+        gen = gens[device] = torch.Generator(device=device)
+    gen.manual_seed(bulk_seed(word, step))
+    if out is not None:
+        return torch.randn(out.shape, generator=gen, out=out)
+    return torch.randn((N_CHANNELS,) + tuple(shape), generator=gen,
+                       dtype=dtype, device=device)
+
+
+def thermal_noise(word: int, step: int, rho: torch.Tensor,
+                  phi: torch.Tensor, params: LBMParams, ref_state=None,
+                  normals=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-mode noise moments (xi_f, xi_g), each (19, X, Y, Z), from the
+    bulk source (JAX ``thermal_noise``, ``ops/noise.py:97-114``); zeros
+    when kBT == 0.  normals: (33, X, Y, Z) standard normals to use in
+    place of the word's draw (JAX's own, in a test; a chunk's
+    pre-drawn ones, in :mod:`~bflbm_tpu_torch.models.plain_session`).
+    ref_state: as :func:`thermal_noise_hash`."""
+    shape = tuple(rho.shape)
+    dtype = rho.dtype
+    if not params.noise_on:
+        z = torch.zeros((Q,) + shape, dtype=dtype, device=rho.device)
+        return z, z
+    rho, phi = _amplitude_fields(rho, phi, ref_state)
+    if normals is None:
+        normals = bulk_normal_stack(word, step, shape, dtype, rho.device)
+    return _apply_amplitudes(normals, rho, phi, params, dtype)
 
 
 def thermal_noise_hash(word: int, step: int, rho: torch.Tensor,

@@ -66,21 +66,21 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 # (FFMA, FADD, FMUL and the integer multiplies IMAD), two operations each
 # against the float32 rate of 256 a clock an SM.  What is counted is the
 # fast path of an in-range cell: the straight-line cases whole, the
-# Box-Muller ones with the branch-free logf and the fast paths of
-# sincosf and sqrtf of every pair (their slow paths never taken).
+# Box-Muller ones with the branch-free logf and the fast paths of the
+# one sincosf and the sqrtf of every pair (their slow paths never taken).
 OPS = {
     "hash_cur": (402, 388),
     "hash_uniform_only": (266, 320),
-    "hash_u16": (274, 1710),
-    "hash_1mul24": (329, 1712),
-    "hash_1mul16": (232, 1676),
-    "hash_nomul": (375, 1634),
+    "hash_u16": (278, 1510),
+    "hash_1mul24": (338, 1536),
+    "hash_1mul16": (242, 1498),
+    "hash_nomul": (378, 1466),
     "clt4_hash": (436, 388),
     "clt4_hash_1mul": (402, 320),
     "clt4_hash_nomul": (572, 252),
-    "philox": (334, 2086),
-    "philox_bits_only": (199, 462),
-    "clt4_philox": (403, 528),
+    "philox": (339, 1796),
+    "philox_bits_only": (199, 456),
+    "clt4_philox": (403, 524),
 }
 
 # Kernel launches by case: "noise <case>".

@@ -29,13 +29,24 @@ launch (K4, every configuration: the droplet presets too; default
 auto), on one card or, with ``--mesh``, on every block (pads sd T deep,
 one exchange every T steps).
 
-Noise: every step draws one word from the state's generator and the
-coordinate-keyed hash stream (clt4 unless ``--noise-dist`` says
-otherwise); ``RunConfig.noise_source`` has no effect here.  Observable
-views *peek* the next word (the one the next step consumes) without
-drawing it, so the trajectory does not depend on the observable cadence,
-and a checkpoint stores the generator, so a restart continues the word
-stream bitwise.
+Engines (``--engine``, as the JAX CLI's): ``auto`` (the default) runs
+the kernel session, whose noise is the coordinate-keyed hash stream
+(clt4 unless ``--noise-dist`` says otherwise); ``jnp`` runs the plain
+PyTorch step on the same device (the JAX package's jnp engine:
+:class:`~bflbm_tpu_torch.models.plain_session.PlainSession`, CUDA graphs
+of a chunk on the card, no mass restore) with the noise of
+``RunConfig.noise_source`` (``--noise-source``): ``threefry``, the bulk
+source (exact normals, a generator seeded with the step's word and
+the step), or
+``hash``, the kernels' stream.  A non-default source (``hash``) selects
+the plain engine, as in JAX; asking for the kernel session with it
+raises.
+
+Noise words: every step draws one word from the state's generator.
+Observable views *peek* the next word (the one the next step consumes)
+without drawing it, so the trajectory does not depend on the observable
+cadence, and a checkpoint stores the generator, so a restart continues
+the word stream bitwise.
 """
 
 from __future__ import annotations
@@ -58,9 +69,11 @@ from .io import fields as fields_io
 from .io.metrics import MetricsWriter
 from .kernels.session import make_session
 from .models import binary_fluid as model
+from .models.plain_session import PlainSession
 from .observables import stats
 from .observables import structfact as sf_lib
 from .ops import hydro as hydro_ops
+from .ops import noise as noise_ops
 from .parallel import mesh as mesh_lib
 from .state import SimState, peek_words
 from .utils import debug
@@ -88,15 +101,47 @@ def _pick_chunk(events, nsteps: int, cap: int) -> int:
     return chunk
 
 
-def _sync(device) -> None:
+ENGINES = ("auto", "jnp", "kernel")
+
+
+def resolve_engine(engine: str, noise_source: str) -> str:
+    """The engine a run takes, by the JAX driver's rule
+    (``bflbm_tpu/run.py:119-140``): a non-default noise source is a
+    plain-engine selection, so ``auto`` resolves to ``jnp`` and a kernel
+    engine raises; otherwise ``auto`` is the kernel session.  Returns
+    "jnp" or "kernel"."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} not in {ENGINES} (the JAX "
+                         "package's pallas and halo engines are not "
+                         "ported)")
+    if noise_source not in noise_ops.NOISE_SOURCES:
+        raise ValueError(f"noise_source {noise_source!r} not in "
+                         f"{noise_ops.NOISE_SOURCES}")
+    if noise_source != "threefry":
+        if engine == "kernel":
+            raise ValueError(
+                f"noise_source={noise_source!r} selects the plain engine's "
+                "stream; use engine='jnp' or 'auto' (the kernel session "
+                "draws the hash stream with noise_dist)")
+        return "jnp"
+    return "kernel" if engine == "auto" else engine
+
+
+def _sync(device, stream_only: bool = False) -> None:
+    """Wait for the device; stream_only: for the current stream only (the
+    plain engine launches nothing elsewhere, so runs in other threads,
+    on their own streams, go on)."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        if stream_only:
+            torch.cuda.current_stream(device).synchronize()
+        else:
+            torch.cuda.synchronize(device)
 
 
 def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
         noise_dist: Optional[str] = None, mass_restore_int: int = 1000,
         mesh=None, overlap="auto", y_exchange: str = "auto",
-        block: Optional[int] = None) -> SimState:
+        block: Optional[int] = None, engine: str = "auto") -> SimState:
     """Execute a configured run on `device`; returns the final state.
 
     on_frame(step, packed_hydro) is called at plot_int cadence.
@@ -111,11 +156,22 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
     block: K steps a launch (K4; None: 1, one step a launch), as
     ``--block``; with a mesh on every block (``ShardedSession(block=)``,
     fixed for the run, in every sweep: serial, the split or the strips).
+    engine: "auto" (the kernel session), "kernel" (the same, by name) or
+    "jnp" (the plain step with cfg.noise_source's noise, no mass restore:
+    mass_restore_int does not apply; no mesh or block), resolved with
+    cfg.noise_source by :func:`resolve_engine`.
     """
     t_start = time.perf_counter()
     tm = {"advance": 0.0, "views": 0.0, "host_obs": 0.0, "io": 0.0}
     p = cfg.params
     dist = noise_dist or cfg.noise_dist
+    engine = resolve_engine(engine, cfg.noise_source)
+    plain = engine == "jnp"
+    if plain and (mesh is not None or block is not None):
+        raise ValueError("the plain engine runs one device a step: no mesh "
+                         "or block")
+    # the noise of the views' preludes: the engine's own
+    view_source = cfg.noise_source if plain else "hash"
     state = model.make_initial_state(cfg, device=device)
     if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
         mesh = mesh_lib.make_mesh(
@@ -146,16 +202,21 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
             rho_eq = torch.as_tensor(rho_eq, dtype=cfg.dtype, device=device)
             phi_eq = torch.as_tensor(phi_eq, dtype=cfg.dtype, device=device)
             ref_state = (rho_eq, phi_eq, stats.center_of_mass(rho_eq))
-        sess = make_session(p, cfg.shape, noise_dist=dist,
-                            mass_restore_int=mass_restore_int,
-                            ref_fields=ref_state, mesh=mesh,
-                            overlap=overlap, y_exchange=y_exchange,
-                            block=block)
+        if plain:
+            sess = PlainSession(p, cfg.shape, noise_source=cfg.noise_source,
+                                noise_dist=dist, ref_state=ref_state,
+                                device=device)
+        else:
+            sess = make_session(p, cfg.shape, noise_dist=dist,
+                                mass_restore_int=mass_restore_int,
+                                ref_fields=ref_state, mesh=mesh,
+                                overlap=overlap, y_exchange=y_exchange,
+                                block=block)
 
         def prelude_peek(s: SimState):
             (word,) = peek_words(s.gen, 1)
             return model.prelude(s, p, word, ref_state=ref_state,
-                                 noise_dist=dist)
+                                 noise_dist=dist, noise_source=view_source)
 
         def hydro_only(s: SimState) -> torch.Tensor:
             return hydro_ops.pack(prelude_peek(s)[0])
@@ -206,7 +267,7 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
                     pc = sess.advance(pc, n - 1)
             else:
                 pc = sess.advance(pc, n)
-            _sync(device)
+            _sync(device, plain)
             tm["advance"] += time.perf_counter() - t0
             step_i += n
 
@@ -243,7 +304,7 @@ def run(cfg: RunConfig, *, device="cuda", on_frame: Optional[Callable] = None,
                         len(sf_lib.REFERENCE_PAIRS), cfg.shape, device=device)
                 sf_state = sf_lib.accumulate(sf_state, packed,
                                              sf_lib.REFERENCE_PAIRS)
-            _sync(device)
+            _sync(device, plain)
             tm["views"] += time.perf_counter() - t0
 
             if cfg.plot_int > 0 and step_i % cfg.plot_int == 0:
@@ -377,8 +438,8 @@ def _cfg_json(cfg: RunConfig) -> dict:
 
 def main(argv=None):
     """The CLI, on the card.  It keeps the JAX CLI's flags that have a
-    meaning here; --distributed, --engine, --transform, --f64,
-    --profile-dir and --noise-source are not ported (ROADMAP)."""
+    meaning here; --distributed, --transform, --f64 and --profile-dir are
+    not ported, nor --engine's pallas and halo (ROADMAP)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse
                                  .RawDescriptionHelpFormatter)
@@ -411,6 +472,11 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--mesh", type=int, nargs=3, default=None,
                     help="device mesh shape (x y z)")
+    ap.add_argument("--engine", choices=["auto", "jnp"], default="auto",
+                    help="auto: the kernel session; jnp: the plain step "
+                    "(CUDA graphs of a chunk on the card, no mass "
+                    "restore); the JAX CLI's pallas and halo are not "
+                    "ported")
     ap.add_argument("--block", type=int, default=None,
                     help="K steps per kernel launch (temporal blocking; "
                     "default auto)")
@@ -422,6 +488,13 @@ def main(argv=None):
     ap.add_argument("--mass-restore-int", type=int, default=None,
                     help="re-pin total f/g mass to the run's invariant "
                     "every N steps (default 1000; 0 disables)")
+    ap.add_argument("--noise-source", default=None,
+                    choices=["threefry", "hash"],
+                    help="jnp-engine noise stream; 'hash' = per-cell "
+                    "coordinate-keyed (RANDRAW analog, reconstructible; "
+                    "requires --engine jnp); 'threefry' = the bulk "
+                    "source, a generator seeded with the step's word and "
+                    "the step")
     args = ap.parse_args(argv)
 
     cfg = preset(args.preset)
@@ -461,6 +534,10 @@ def main(argv=None):
         cfg = cfg.with_params(kBT=args.kBT)
     if args.alpha0 is not None:
         cfg = cfg.with_params(alpha0=args.alpha0)
+    if args.noise_source is not None:
+        cfg = cfg.replace(noise_source=args.noise_source,
+                          **({"noise_dist": args.noise_dist}
+                             if args.noise_dist is not None else {}))
 
     mesh = None
     if args.mesh is not None:
@@ -469,7 +546,7 @@ def main(argv=None):
                               ("noise_dist", args.noise_dist),
                               ("mass_restore_int", args.mass_restore_int))
             if v is not None}
-    state = run(cfg, mesh=mesh, **opts)
+    state = run(cfg, mesh=mesh, engine=args.engine, **opts)
     print(json.dumps({"final_step": int(state.step),
                       "out_dir": cfg.out_dir}))
 

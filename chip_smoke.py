@@ -224,7 +224,15 @@ Phases (each raises on failure; the script then exits non-zero):
    (the unrestored one printed).  The phases run in four worker
    processes sharing the card (these boxes are host-bound), each zeroing
    the launch counts before its phases and reporting them after each;
-   K in u8 and clt4 and A must have launched.
+   K in u8 and clt4 and A must have launched;
+18. the plain engine (``run(cfg, engine="jnp")``, the JAX package's jnp
+   engine: the plain PyTorch step on the card, CUDA graphs of ten steps,
+   no mass restore) with the bulk noise source on the 8 x 256 x 64
+   interface (interface-fluct physics from its stripe, 2000 steps, a
+   frame every 500): its frames finite, the total mass within 1e-6
+   relative of the start's, the graph replays counted; the bulk normals'
+   per-channel variance within 2% of 1; a graph replay of 23 steps (two
+   chunks and an eager remainder) bitwise the eager steps; us a step.
 
 Phases 9 and 10 pass ``block=1``: they check the one-step launches.
 
@@ -3932,6 +3940,102 @@ def _acceptance_workers(out):
     return records
 
 
+# -- phase 18: the plain engine and the bulk noise source ---------------------
+
+PLAIN_STEPS = 2000
+PLAIN_GRAPH_CASES = (("threefry", "clt4"), ("hash", "clt4"), ("hash", "u8"))
+BULK_VAR_RTOL = 0.02     # 131,072 cells a channel: sampling error 0.4%
+
+
+def _plain_engine(tmp):
+    """Phase 18: the interface-fluct physics from its stripe through
+    ``run(cfg, engine="jnp")`` (the bulk source), with the plain engine's
+    counters zeroed just before and read just after; the frames, the
+    mass, the bulk normals' variances and a graph replay against the
+    eager steps.  Returns a summary dict."""
+    import os
+
+    import torch
+
+    from bflbm_tpu_torch import run as run_mod
+    from bflbm_tpu_torch.config import preset
+    from bflbm_tpu_torch.models import binary_fluid as model
+    from bflbm_tpu_torch.models import plain_session
+    from bflbm_tpu_torch.ops import noise as noise_ops
+    from bflbm_tpu_torch.state import generator_from_state
+
+    dev = torch.device("cuda", 0)
+    cfg = preset("interface-fluct").replace(
+        init="stripe", nsteps=PLAIN_STEPS, step_continue=0, plot_int=500,
+        plot_save=False, print_int=0, out_dir=os.path.join(tmp, "plain"))
+    init = model.make_initial_state(cfg, device=dev)
+    m0 = _masses(init)
+    frames = []
+    plain_session.reset_counts()
+    t0 = time.perf_counter()
+    state = run_mod.run(cfg, device=dev, engine="jnp",
+                        on_frame=lambda s, p: frames.append((s, p.clone())))
+    wall = time.perf_counter() - t0
+    counts = dict(plain_session.counts)
+    us = run_mod.last_run_stats["advance"] / PLAIN_STEPS * 1e6
+    m1 = _masses(state)
+    drift = max(abs(b / a - 1.0) for a, b in zip(m0, m1))
+    _check([s for s, _ in frames] == list(range(0, PLAIN_STEPS + 1, 500))
+           and all(p.shape == (22,) + INTERFACE
+                   and bool(torch.isfinite(p).all()) for _, p in frames),
+           f"plain engine frames {[(s, tuple(p.shape)) for s, p in frames]}")
+    _check(drift <= MASS_RTOL, f"plain engine mass drift {drift:.3e}")
+    _check(counts["graph replays"] == (PLAIN_STEPS - 1) // 10
+           and state.step == PLAIN_STEPS,
+           f"plain engine counts {counts}, step {state.step}")
+    bulk = noise_ops.bulk_normal_stack(123456789, 1000, INTERFACE,
+                                       device=dev)
+    var = bulk.double().reshape(33, -1).var(dim=1)
+    worst_var = float((var - 1.0).abs().max())
+    _check(worst_var <= BULK_VAR_RTOL,
+           f"bulk normals: per-channel variance off 1 by {worst_var:.4f}")
+    # keyed by (step, word): the same word a step later, another draw
+    _check(not torch.equal(bulk, noise_ops.bulk_normal_stack(
+        123456789, 1001, INTERFACE, device=dev)),
+        "bulk normals: one word at two steps drew the same normals")
+    del bulk
+
+    def fresh():
+        return init.replace(f=init.f.clone(), g=init.g.clone(),
+                            gen=generator_from_state(init.gen.get_state()))
+
+    # 23 steps (2 chunks of 10 and 3 eager) from graphs against the eager
+    # steps, for each way a graph takes its noise: the bulk normals'
+    # buffer, and the hash stream computed in the graph from its keys
+    p = cfg.params
+    bitwise = {}
+    for source, dist in PLAIN_GRAPH_CASES:
+        kw = dict(noise_source=source, noise_dist=dist, device=dev)
+        eager = plain_session.PlainSession(p, INTERFACE, graph=False, **kw)
+        graph = plain_session.PlainSession(p, INTERFACE, **kw)
+        a = eager.advance(eager.enter(fresh()), 22)
+        b = graph.exit(graph.advance(graph.enter(fresh()), 22))
+        case = f"{source}/{dist}"
+        bitwise[case] = bool(torch.equal(a.f, b.f) and torch.equal(a.g, b.g))
+        _check(bitwise[case] and graph.graph_replays == 2
+               and graph.eager_steps == 3 and b.step == 23,
+               f"graph replay vs eager ({case}): max|delta| "
+               f"{float((a.f - b.f).abs().max()):.3e}, replays "
+               f"{graph.graph_replays}, eager steps {graph.eager_steps}")
+        del eager, graph, a, b
+    print(f"[phase 18] run(cfg, engine='jnp'), interface-fluct 8 x 256 x 64 "
+          f"from its stripe, bulk noise, {PLAIN_STEPS} steps in {wall:.2f} "
+          f"s ({us:.1f} us a step in the loop's advance): counts {counts}; "
+          f"{len(frames)} frames finite; relative mass drift {drift:.3e} "
+          f"(tol {MASS_RTOL}, no restore); bulk normals' variance off 1 by "
+          f"at most {worst_var:.4f} (tol {BULK_VAR_RTOL}), another draw a "
+          f"step later; 23 steps from "
+          f"CUDA graphs (2 replays + 3 eager) bitwise the eager steps: "
+          f"{bitwise}", flush=True)
+    return {"us_per_step": us, "drift": drift, "counts": counts,
+            "bitwise": bitwise}
+
+
 def _acceptance(tmp):
     """Phase 17: ``python -m bflbm_tpu_torch.acceptance`` through its main
     on the card, cut where its protocol is long: d at its full protocol
@@ -4480,6 +4584,15 @@ def main() -> int:
           f"{acc_counts['massdrift']}", flush=True)
     torch.cuda.empty_cache()
     phase_done(17)
+
+    # -- phase 18: the plain engine and the bulk noise source --------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plain_", dir=scratch)
+    try:
+        _plain_engine(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_done(18)
 
     record = []
     for key, name, src, ms, plain_ms, lib_ms, launches, err, mode in (

@@ -232,18 +232,22 @@ _ARGVS = [
     ["--preset", "droplet-eq", "--mesh", "2", "1", "1"],
     ["--preset", "mixture-fluct", "--block", "2", "--noise-dist", "u8"],
     ["--preset", "droplet-fluct", "--block", "2"],
+    ["--preset", "interface-fluct", "--engine", "jnp"],
+    ["--preset", "interface-fluct", "--noise-source", "hash",
+     "--noise-dist", "u8"],
 ]
 
 
 @pytest.mark.parametrize("argv", _ARGVS)
 def test_cli_matches_jax(monkeypatch, capsys, argv):
-    """Both CLIs parse argv to the same RunConfig, options and mesh shape
-    (each package's make_mesh is replaced by one that records the shape:
-    JAX's wants that many devices, the port's a card)."""
+    """Both CLIs parse argv to the same RunConfig, options, engine and
+    mesh shape (each package's make_mesh is replaced by one that records
+    the shape: JAX's wants that many devices, the port's a card)."""
     seen = {}
 
     def fake_jax(cfg, **kw):
-        seen["jax"] = (cfg, kw.get("kernel_opts") or {}, kw.get("mesh"))
+        seen["jax"] = (cfg, dict(kw.get("kernel_opts") or {},
+                                 engine=kw.get("engine")), kw.get("mesh"))
         return types.SimpleNamespace(step=np.int32(cfg.step_continue))
 
     def fake_port(cfg, **kw):
